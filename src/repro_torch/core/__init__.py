@@ -1,5 +1,16 @@
-"""The frozen Trie of Rules: host layout (numpy), device view (torch) and
-the tensor oracles, plus the synthetic tries the benches and tests use."""
+"""Core library — the paper's contribution (Trie of Rules) in three forms:
+
+- ``TrieOfRules``   paper-faithful pointer trie (the parity oracle),
+- ``FlatRuleTable`` dataframe stand-in comparator (the paper's baseline),
+- ``FrozenTrie``    the flat SoA/CSR/DFS encoding: host layout (numpy),
+  device view (torch) and the tensor oracles,
+
+the array-native builder and the three-step pipeline over them, plus the
+synthetic tries the benches and tests use.
+"""
+from .metrics import Rule, RuleMetrics, compound_confidence
+from .trie import TrieNode, TrieOfRules
+from .flat_table import FlatRuleTable
 from .array_trie import (
     DeviceTrie,
     FrozenTrie,
@@ -16,6 +27,13 @@ from .array_trie import (
     top_n_nodes,
     traverse_reduce,
 )
+from .build_arrays import (
+    build_frozen_trie,
+    canonicalize_matrix,
+    pack_sequences,
+    trie_arrays,
+)
+from .builder import BuildResult, build_flat_table, build_trie_of_rules
 from .synthetic import (
     frozen_from_arrays,
     mixed_queries,
@@ -25,18 +43,30 @@ from .synthetic import (
 )
 
 __all__ = [
+    "BuildResult",
     "DeviceTrie",
+    "FlatRuleTable",
     "FrozenTrie",
+    "Rule",
+    "RuleMetrics",
+    "TrieNode",
+    "TrieOfRules",
     "batched_rule_search",
     "bucket_edge_lookup",
+    "build_flat_table",
+    "build_frozen_trie",
+    "build_trie_of_rules",
     "canonical_prefix_rows",
+    "canonicalize_matrix",
     "child_lookup",
+    "compound_confidence",
     "csr_offsets_from_edges",
     "dfs_layout",
     "frozen_from_arrays",
     "item_index_arrays",
     "item_tables",
     "mixed_queries",
+    "pack_sequences",
     "random_csr_trie",
     "resolve_device",
     "sanitize_query_items",
@@ -44,4 +74,5 @@ __all__ = [
     "synthetic_search_queries",
     "top_n_nodes",
     "traverse_reduce",
+    "trie_arrays",
 ]

@@ -18,19 +18,23 @@ consequent is ``i``, in DFS order.
 
 The host helpers are numpy copies of the reference's, so both packages
 freeze a trie to the same integers.  ``FrozenTrie.from_arrays`` takes any
-frozen trie's fields as numpy arrays; building one from a pointer trie
-(``freeze``) and the compressed layout are later slices of the port.
+frozen trie's fields as numpy arrays, and ``freeze`` numbers a pointer
+``TrieOfRules`` into them; the compressed layout is a later slice of the
+port.
 ``DeviceTrie`` holds the same columns as torch tensors on one device;
 the tensor functions at the bottom are the oracles the ops use outside
 any kernel (the prefix descent) and the tests compare against.
 """
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass, fields
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .trie import TrieNode, TrieOfRules
 
 NO_NODE = np.int32(-1)
 
@@ -253,6 +257,54 @@ class FrozenTrie:
             else:
                 kw[f.name] = np.asarray(v)
         return cls(**kw)
+
+    @classmethod
+    def freeze(cls, trie: TrieOfRules) -> "FrozenTrie":
+        """BFS-number the pointer trie into flat arrays."""
+        nodes: List[TrieNode] = [trie.root]
+        ids = {id(trie.root): 0}
+        q = deque([trie.root])
+        while q:
+            node = q.popleft()
+            for child in sorted(node.children.values(), key=lambda c: c.item):
+                ids[id(child)] = len(nodes)
+                nodes.append(child)
+                q.append(child)
+        n = len(nodes)
+        node_item = np.full((n,), -1, dtype=np.int32)
+        node_parent = np.full((n,), -1, dtype=np.int32)
+        node_depth = np.zeros((n,), dtype=np.int32)
+        support = np.zeros((n,), dtype=np.float32)
+        confidence = np.zeros((n,), dtype=np.float32)
+        lift = np.zeros((n,), dtype=np.float32)
+        edges: List[Tuple[int, int, int]] = []
+        for i, node in enumerate(nodes):
+            node_item[i] = node.item
+            node_depth[i] = node.depth
+            support[i] = node.support
+            confidence[i] = node.confidence
+            lift[i] = node.lift
+            if node.parent is not None:
+                node_parent[i] = ids[id(node.parent)]
+            for child in node.children.values():
+                edges.append((i, child.item, ids[id(child)]))
+        edges.sort()
+        e = np.array(edges, dtype=np.int32).reshape(-1, 3)
+        rank_pairs = sorted(trie._rank.items(), key=lambda kv: kv[1])
+        item_order, item_rank = item_tables([it for it, _ in rank_pairs])
+        return cls(
+            node_item=node_item,
+            node_parent=node_parent,
+            node_depth=node_depth,
+            support=support,
+            confidence=confidence,
+            lift=lift,
+            edge_parent=e[:, 0].copy() if e.size else np.zeros(0, np.int32),
+            edge_item=e[:, 1].copy() if e.size else np.zeros(0, np.int32),
+            edge_child=e[:, 2].copy() if e.size else np.zeros(0, np.int32),
+            item_order=item_order,
+            item_rank=item_rank,
+        )
 
     @property
     def n_nodes(self) -> int:

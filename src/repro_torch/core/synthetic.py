@@ -3,7 +3,9 @@
 Copies of ``repro.core.synthetic``'s generators: from the same seed they
 give the same integers and floats, so the port's tests and
 ``chip_smoke.py`` can build the tries the reference's benches use without
-importing the reference.  The dicts mirror ``FrozenTrie``'s fields.
+importing the reference.  The dicts mirror ``FrozenTrie``'s fields.  The
+hypothesis strategies ``transaction_dbs`` / ``db_and_minsup`` at the
+bottom exist where hypothesis is installed.
 """
 from __future__ import annotations
 
@@ -201,3 +203,44 @@ def frozen_from_arrays(arrs: Dict[str, np.ndarray]) -> FrozenTrie:
     return FrozenTrie.from_arrays(
         {**arrs, "item_order": item_order, "item_rank": item_rank}
     )
+
+
+# ----------------------------------------------------------------------
+# hypothesis strategies (importing this module never requires hypothesis)
+# ----------------------------------------------------------------------
+try:  # pragma: no cover - trivial import guard
+    from hypothesis import strategies as _st
+
+    HAVE_HYPOTHESIS = True
+except ImportError:  # pragma: no cover
+    _st = None
+    HAVE_HYPOTHESIS = False
+
+if HAVE_HYPOTHESIS:
+
+    @_st.composite
+    def transaction_dbs(draw, max_items: int = 14, max_tx: int = 40):
+        """Random small ``TransactionDB``: the same draws as
+        ``repro.core.synthetic.transaction_dbs``."""
+        from repro_torch.arm.transactions import TransactionDB  # lazy: core↔arm
+
+        n_items = draw(_st.integers(min_value=3, max_value=max_items))
+        n_tx = draw(_st.integers(min_value=4, max_value=max_tx))
+        txs = []
+        for _ in range(n_tx):
+            size = draw(_st.integers(min_value=1, max_value=min(6, n_items)))
+            tx = draw(
+                _st.sets(
+                    _st.integers(min_value=0, max_value=n_items - 1),
+                    min_size=1,
+                    max_size=size,
+                )
+            )
+            txs.append(tx)
+        return TransactionDB(txs, n_items=n_items)
+
+    @_st.composite
+    def db_and_minsup(draw, max_items: int = 14, max_tx: int = 40):
+        db = draw(transaction_dbs(max_items=max_items, max_tx=max_tx))
+        minsup = draw(_st.sampled_from([0.1, 0.2, 0.3, 0.5]))
+        return db, minsup

@@ -1,10 +1,12 @@
-"""Kernels of the batched query path, hand-written for Hopper, and the ops
-over them.
+"""Kernels of the batched query path and of trie construction,
+hand-written for Hopper, and the ops over them.
 
 - ``rank.topk_rank_batch``          segmented top-k over DFS ranges (CUDA)
 - ``rule_search.rule_search_fused`` CSR descent + Eq. 1-4 lift (CUDA)
 - ``item_index.rules_with_member``  item-membership top-k (CUDA)
 - ``trie_reduce.trie_reduce_columns`` masked traversal reduction (Triton)
+- ``support_count.support_count_bitmap`` itemset support over the vertical
+  transaction bitmaps (CUDA)
 
 Each wrapper runs its kernel on CUDA tensors and its plain PyTorch version
 (``ref``) on CPU tensors, and counts its kernel launches in a plain
@@ -14,21 +16,27 @@ from .item_index import ROLES, rules_with_member
 from .metrics_inkernel import RANK_METRICS
 from .rank import topk_rank_batch
 from .rule_search import rule_search_fused
+from .support_count import support_count_bitmap
 from .trie_reduce import trie_reduce_columns
 from .tuning import KernelConfig, launch_pad
 from .ops import (
     InvalidQueryError,
     TransientBackendError,
     TrieQueryError,
+    annotate_candidates,
+    bitmaps_from_dense,
     dedup_query_rows,
+    dense_from_bitmaps,
     dfs_rank_arrays,
     edge_metric_arrays,
     is_retryable,
     item_rank_arrays,
+    members_from_candidates,
     prefix_ranges,
     rule_search,
     rule_search_batch,
     rules_with,
+    support_count,
     top_k_rules,
     top_k_rules_batch,
     trie_reduce,
@@ -39,6 +47,7 @@ KERNELS = {
     "rule_search_fused": rule_search_fused,
     "rules_with_member": rules_with_member,
     "trie_reduce_columns": trie_reduce_columns,
+    "support_count_bitmap": support_count_bitmap,
 }
 
 
@@ -60,13 +69,17 @@ __all__ = [
     "KernelConfig",
     "TransientBackendError",
     "TrieQueryError",
+    "annotate_candidates",
+    "bitmaps_from_dense",
     "dedup_query_rows",
+    "dense_from_bitmaps",
     "dfs_rank_arrays",
     "edge_metric_arrays",
     "is_retryable",
     "item_rank_arrays",
     "launch_counts",
     "launch_pad",
+    "members_from_candidates",
     "prefix_ranges",
     "reset_launch_counts",
     "rule_search",
@@ -74,6 +87,8 @@ __all__ = [
     "rules_with",
     "rules_with_member",
     "rule_search_fused",
+    "support_count",
+    "support_count_bitmap",
     "top_k_rules",
     "top_k_rules_batch",
     "topk_rank_batch",

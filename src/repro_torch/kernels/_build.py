@@ -53,6 +53,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             _P, _P, _P, _P, _P, _P, _P,
         ),
     },
+    "support_count": {
+        "support_count_launch": (_P, _I, _P, _I, _I, _P, _I, _P, _P),
+    },
 }
 
 _lock = threading.Lock()

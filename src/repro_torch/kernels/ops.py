@@ -1,5 +1,6 @@
-"""The batched query ops over a frozen trie: search, ranking, item-scoped
-ranking and traversal.
+"""The batched query ops over a frozen trie (search, ranking, item-scoped
+ranking and traversal), and the support counting and batched annotation of
+trie construction.
 
 PyTorch port of the main path of ``repro.kernels.ops``.  Host-side work
 stays numpy or plain torch, as the reference keeps it outside its
@@ -9,6 +10,10 @@ then makes one kernel call (``rank.topk_rank_batch``,
 ``rule_search.rule_search_fused``, ``item_index.rules_with_member`` or
 ``trie_reduce.trie_reduce_columns``), which on CUDA tensors launches the
 hand-written kernel and on CPU tensors runs its plain version.
+
+``support_count`` and ``annotate_candidates`` make one
+``support_count.support_count_bitmap`` call over the transaction DB's
+vertical bitmaps, on ``device`` (CUDA unless named).
 
 ``trie`` is a ``DeviceTrie`` (its device decides) or a ``FrozenTrie``
 (uploaded to ``device``, CUDA unless named).  Sharded plans, streaming
@@ -31,10 +36,12 @@ from repro_torch.core.array_trie import (
 )
 
 from .item_index import ROLES, rules_with_member
-from .metrics_inkernel import RANK_METRICS
+from .metrics_inkernel import RANK_METRICS, rank_score
 from .rank import topk_rank_batch
+from .ref import members_from_candidates  # noqa: F401  (the reference's ops name)
 from .ref import rules_with_ref, topk_rank_batch_ref
 from .rule_search import rule_search_fused
+from .support_count import support_count_bitmap
 from .trie_reduce import trie_reduce_columns
 from .tuning import launch_pad
 
@@ -282,6 +289,153 @@ def _int32(a, device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=torch.int32)
     return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+
+# ----------------------------------------------------------------------
+# support counting
+# ----------------------------------------------------------------------
+def dense_from_bitmaps(item_bitmaps: np.ndarray) -> np.ndarray:
+    """uint32 [I, W] vertical bitmaps → uint8 [T, I] dense membership,
+    ``T = 32 W`` (the padding transactions hold no item)."""
+    i, w = item_bitmaps.shape
+    bits = np.unpackbits(
+        item_bitmaps.view(np.uint8).reshape(i, w, 4), axis=-1, bitorder="little"
+    )  # [I, W, 32]
+    return bits.reshape(i, w * 32).T.astype(np.uint8)
+
+
+def bitmaps_from_dense(dense_tx) -> np.ndarray:
+    """[T, I] 0/1 dense membership → uint32 [I, ceil(T / 32)] vertical
+    bitmaps: the inverse of ``dense_from_bitmaps``."""
+    dense = np.asarray(
+        dense_tx.cpu() if isinstance(dense_tx, torch.Tensor) else dense_tx
+    ) != 0
+    t, i = dense.shape
+    w = (t + 31) // 32
+    bits = np.zeros((i, w * 32), np.uint8)
+    bits[:, :t] = dense.T
+    packed = np.packbits(bits.reshape(i, w, 4, 8), axis=-1,
+                         bitorder="little")            # [I, W, 4, 1] bytes
+    return np.ascontiguousarray(packed.reshape(i, w * 4)).view(np.uint32)
+
+
+def _device_int32(a, dev) -> torch.Tensor:
+    """An int32 tensor on ``dev``; numpy uint32 words keep their bits."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=dev, dtype=torch.int32).contiguous()
+    a = np.asarray(a)
+    if a.size == 0:
+        return torch.zeros(a.shape, dtype=torch.int32, device=dev)
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a.astype(np.int32, copy=False)).to(dev)
+
+
+def support_count(
+    candidates,            # int32 [C, K] padded with -1
+    lengths,               # int32 [C]; <= 0 marks padding rows (count 0)
+    item_bitmaps=None,     # uint32 [I, W] vertical layout (TransactionDB)
+    dense_tx=None,         # or [T, I] 0/1 dense transactions
+    device=None,
+    n_transactions=None,   # T; needed with item_bitmaps, implied by dense_tx
+) -> torch.Tensor:
+    """Counts (int32 ``[C]`` on ``device``) for every candidate itemset
+    against the transaction DB, in one ``support_count_bitmap`` call.
+
+    Each row counts its distinct valid items' transaction set, so rows
+    with repeated items (duplicate-item trie paths) count their item SET;
+    a negative entry anywhere in the row is skipped.  A row with
+    ``lengths > 0`` and no valid item counts all ``n_transactions``
+    (Support(∅)).  The bitmaps do not carry the transaction count, so
+    ``item_bitmaps`` needs ``n_transactions``; given only ``dense_tx``, it
+    is packed into bitmaps first.  ``item_bitmaps`` may already be a
+    tensor (``TransactionDB.device_bitmaps``); ``device`` then defaults
+    to its device.
+    """
+    if dense_tx is not None and item_bitmaps is None:
+        n_transactions = int(dense_tx.shape[0])
+        item_bitmaps = bitmaps_from_dense(dense_tx)
+    elif item_bitmaps is None:
+        raise ValueError("need item_bitmaps or dense_tx")
+    elif n_transactions is None:
+        raise ValueError(
+            "item_bitmaps need n_transactions: the bitmaps' padding bits do "
+            "not say how many transactions the last word holds"
+        )
+    if device is None and isinstance(item_bitmaps, torch.Tensor):
+        dev = item_bitmaps.device
+    else:
+        dev = resolve_device(device)
+    bitmaps = _device_int32(item_bitmaps, dev)
+    cand = _device_int32(candidates, dev)
+    if cand.dim() != 2:
+        raise ValueError("candidates must be [C, K]")
+    return support_count_bitmap(
+        bitmaps, cand, _device_int32(lengths, dev).reshape(-1),
+        int(n_transactions),
+    )
+
+
+def annotate_candidates(
+    candidates,            # int32 [C, K] node root-path items, -1 padded
+    lengths,               # int32 [C] path depths
+    node_parent,           # int32 [C] parent node id per node (0 = root)
+    node_item,             # int32 [C] consequent item per node
+    item_counts,           # int/float [n_items] absolute item frequencies
+    n_transactions: int,
+    item_bitmaps=None,     # uint32 [I, W] vertical layout (TransactionDB)
+    dense_tx=None,         # or [T, I] 0/1 dense transactions
+    device=None,
+) -> Dict[str, torch.Tensor]:
+    """Step-3 batched trie annotation: every node metric in one pass.
+
+    Node ids are BFS/depth-major (``FrozenTrie`` numbering, root = 0), so
+    row ``i`` describes node ``i + 1``.  Supports come from ONE
+    ``support_count`` kernel launch over the whole candidate matrix, and
+    the Confidence/Lift columns are f32 tensor ops on the same device
+    against the parent supports via ``node_parent`` gathers.  Leverage and
+    conviction are derived with the shared ``metrics_inkernel.rank_score``
+    math the rank kernel uses.  Returns f32 ``[C]`` columns.
+    """
+    counts = support_count(
+        candidates, lengths, item_bitmaps, dense_tx, device=device,
+        n_transactions=n_transactions,
+    )
+    dev = counts.device
+
+    def f32(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(device=dev, dtype=torch.float32)
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    def idx(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(device=dev, dtype=torch.int64)
+        return torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+
+    n_tx = torch.clamp(
+        torch.tensor(float(np.float32(n_transactions)), device=dev), min=1.0
+    )
+    sup = counts.to(torch.float32) / n_tx
+    # parent-support gather; virtual root slot = Support(∅) = 1.0
+    sup_full = torch.cat([torch.ones((1,), dtype=torch.float32, device=dev),
+                          sup])
+    psup = sup_full[idx(node_parent)]
+    conf = torch.where(
+        psup > 0, sup / torch.where(psup > 0, psup, 1.0), 0.0
+    )
+    isup = f32(item_counts)[idx(node_item)] / n_tx
+    lift = torch.where(
+        isup > 0, conf / torch.where(isup > 0, isup, 1.0), 0.0
+    )
+    return {
+        "support": sup,
+        "confidence": conf,
+        "lift": lift,
+        "leverage": rank_score("leverage", sup, conf, lift),
+        "conviction": rank_score("conviction", sup, conf, lift),
+    }
 
 
 # ----------------------------------------------------------------------

@@ -22,6 +22,84 @@ from .metrics_inkernel import compound_lift, rank_score
 
 # masked [rows, N] score block size the plain rankings materialize at once
 _BLOCK_ELEMS = 1 << 24
+# elements of the [T, chunk] product (and of the [chunk, I] membership) the
+# plain support count materializes at once: 256 MB of f32
+_DENSE_ELEMS = 1 << 26
+
+
+# ----------------------------------------------------------------------
+# support counting: the reference's dense formulation
+# ----------------------------------------------------------------------
+def bitmaps_to_dense(bitmaps: torch.Tensor, n_transactions: int):
+    """Vertical bitmaps (int32 ``[I, W]``, the uint32 words viewed signed)
+    -> f32 ``[T, I]`` 0/1 transaction membership, ``T = n_transactions``;
+    the padding bits of the last word are dropped."""
+    n_items, n_words = bitmaps.shape
+    shifts = torch.arange(32, dtype=torch.int32, device=bitmaps.device)
+    bits = (bitmaps[:, :, None] >> shifts) & 1   # [I, W, 32], bit t of word
+    dense = bits.reshape(n_items, n_words * 32)[:, :n_transactions]
+    return dense.T.to(torch.float32)
+
+
+def members_from_candidates(candidates: torch.Tensor, n_items: int):
+    """``[C, K]`` padded item lists -> f32 ``[C, I]`` 0/1 membership: a
+    row-indexed scatter-max, so a repeated item sets its column once and a
+    negative entry anywhere in the row sets none."""
+    c = candidates.shape[0]
+    valid = candidates >= 0
+    safe = torch.where(valid, candidates, 0).long()
+    member = torch.zeros((c, n_items), dtype=torch.float32,
+                         device=candidates.device)
+    return member.scatter_reduce_(1, safe, valid.to(torch.float32), "amax")
+
+
+def support_count_ref(dense_tx, member, lengths) -> torch.Tensor:
+    """``counts[c] = |{t : <dense_tx[t], member[c]> == lengths[c]}|``: the
+    reference's formulation (``repro.kernels.ref.support_count_ref``), an
+    f32 product of the 0/1 matrices compared with the itemset size and
+    summed over the T transactions, a bounded chunk of C at a time.  Exact:
+    0/1 sums stay <= I < 2^24.  TF32 is switched off for the product (it
+    would be exact on 0/1 too); ``lengths = -1`` marks a padding row."""
+    t = dense_tx.shape[0]
+    c, n_items = member.shape
+    tx = dense_tx.to(torch.float32)
+    lens = lengths.to(torch.float32)
+    step = max(1, _DENSE_ELEMS // max(t, n_items, 1))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = [
+            (tx @ member[c0:c0 + step].to(torch.float32).T
+             == lens[None, c0:c0 + step]).sum(0, dtype=torch.int32)
+            for c0 in range(0, c, step)
+        ]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    if not out:
+        return torch.zeros((0,), dtype=torch.int32, device=member.device)
+    return torch.cat(out)
+
+
+def support_count_bitmap_ref(bitmaps, candidates, lengths,
+                             n_transactions: int) -> torch.Tensor:
+    """The plain version of ``support_count.support_count_bitmap``: the
+    bitmaps unpacked to dense transactions, each chunk of candidate rows
+    to its membership, compared with the row's distinct valid item count
+    (``-1``, count 0, where ``lengths <= 0``).  A row with ``lengths > 0``
+    and no valid item matches every transaction: Support(∅)."""
+    dense = bitmaps_to_dense(bitmaps, n_transactions)
+    n_items = bitmaps.shape[0]
+    c = candidates.shape[0]
+    step = max(1, _DENSE_ELEMS // max(dense.shape[0], n_items, 1))
+    out = []
+    for c0 in range(0, c, step):
+        member = members_from_candidates(candidates[c0:c0 + step], n_items)
+        distinct = member.sum(1).to(torch.int32)
+        eff_len = torch.where(lengths[c0:c0 + step] > 0, distinct, -1)
+        out.append(support_count_ref(dense, member, eff_len))
+    if not out:
+        return torch.zeros((0,), dtype=torch.int32, device=bitmaps.device)
+    return torch.cat(out)
 
 
 def _empty_ranked(q: int, k: int, device) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -157,3 +157,98 @@ def test_tiny_tries_on_gpu_equal_cpu(n_edges, cuda):
     g, c = gpu.trie_reduce(), cpu.trie_reduce()
     for key in c:
         assert float(g[key]) == pytest.approx(float(c[key]), rel=1e-6)
+
+
+def _apriori_levels(db, minsup):
+    """Every counting level's candidate matrix of ``apriori(db, minsup)``
+    on the kernel path, recorded as apriori makes them (counted on the
+    CPU here)."""
+    from repro_torch.arm.apriori import apriori
+
+    levels = []
+    host_batch = db.support_batch
+
+    def recording(mat, lens=None, **kw):
+        levels.append((np.asarray(mat, np.int32), np.asarray(lens, np.int32)))
+        return host_batch(mat, lens, **kw)
+
+    db.support_batch = recording
+    try:
+        apriori(db, minsup, use_kernel=True, device="cpu")
+    finally:
+        del db.support_batch
+    return levels
+
+
+def _tie_heavy_candidates(rng, n_items, c, k):
+    """Rows drawn from a few hot items (many equal counts), with repeated
+    items, -1 entries anywhere, rows of no valid item, and lengths <= 0."""
+    hot = rng.randint(0, n_items, size=6)
+    cand = np.where(rng.rand(c, k) < 0.2, -1,
+                    hot[rng.randint(0, 6, size=(c, k))]).astype(np.int32)
+    cand[::17] = -1
+    lens = rng.randint(-1, k + 1, size=c).astype(np.int32)
+    return cand, lens
+
+
+def test_support_count_kernel(cuda):
+    from repro_torch.arm.datasets import grocery_db
+    from repro_torch.arm.transactions import TransactionDB
+    from repro_torch.kernels.support_count import support_count_bitmap
+
+    db = grocery_db()
+    bm = db.device_bitmaps(cuda)
+    cases = _apriori_levels(db, 0.005)
+    rng = np.random.RandomState(12)
+    for k in (1, 3, 40):   # k = 40 walks two 32-item chunks of a row
+        cases.append(_tie_heavy_candidates(rng, db.n_items, 3000, k))
+    assert len(cases) >= 5
+    for mat, lens in cases:
+        cand = torch.from_numpy(mat).to(cuda)
+        ln = torch.from_numpy(lens).to(cuda)
+        before = support_count_bitmap.launches
+        got = support_count_bitmap(bm, cand, ln, db.n_transactions)
+        assert support_count_bitmap.launches == before + 1
+        want = ref.support_count_bitmap_ref(bm, cand, ln, db.n_transactions)
+        assert torch.equal(got, want)
+        host = db.support_batch(mat, lens)
+        np.testing.assert_array_equal(
+            np.where(lens > 0, got.cpu().numpy(), db.n_transactions), host)
+    # a whole last word (64 transactions) and an empty DB
+    for txs, n_items in (([[0, 1], [1]] * 32, 2), ([], 3)):
+        small = TransactionDB(txs, n_items)
+        mat = np.array([[0, 1], [-1, -1], [1, 1]], np.int32)
+        lens = np.array([2, 2, 0], np.int32)
+        got = support_count_bitmap(
+            small.device_bitmaps(cuda), torch.from_numpy(mat).to(cuda),
+            torch.from_numpy(lens).to(cuda), small.n_transactions)
+        want = ref.support_count_bitmap_ref(
+            small.device_bitmaps("cpu"), torch.from_numpy(mat),
+            torch.from_numpy(lens), small.n_transactions)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_build_on_gpu_equals_cpu(cuda):
+    """The construction path on the card: 1 launch per counting level and
+    1 for the annotation, and the same trie as on the CPU, bitwise."""
+    from repro_torch.arm.datasets import grocery_db
+    from repro_torch.core.builder import build_trie_of_rules
+    from repro_torch.kernels.support_count import support_count_bitmap
+
+    db = grocery_db()
+    before = support_count_bitmap.launches
+    gpu = build_trie_of_rules(db, 0.005, miner="apriori", engine="arrays",
+                              device=cuda)
+    levels = len(_apriori_levels(db, 0.005))
+    assert support_count_bitmap.launches == before + levels + 1
+    cpu = build_trie_of_rules(db, 0.005, miner="apriori", engine="arrays",
+                              device="cpu")
+    assert gpu.itemsets == cpu.itemsets
+    for name in ("node_item", "node_parent", "edge_child", "dfs_order",
+                 "item_nodes"):
+        np.testing.assert_array_equal(getattr(gpu.frozen, name),
+                                      getattr(cpu.frozen, name))
+    for name in ("support", "confidence", "lift"):
+        np.testing.assert_array_equal(
+            getattr(gpu.frozen, name).view(np.int32),
+            getattr(cpu.frozen, name).view(np.int32))
