@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's batched query path and its rule
-construction path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's batched query path, its rule
+construction path and its path-compressed, quantized layout on one NVIDIA
+GPU.
 
     python3 chip_smoke.py [--edges N] [--seed S] [--reps R]
 
@@ -31,7 +32,22 @@ construction path on one NVIDIA GPU.
    it through ``TrieQueryEngine`` against the oracles, and times each
    launch, its plain version and the build's mine / build / annotate
    split.
-6. Prints the GPU's name and power limit, one ``{"kernels": [...]}`` line,
+6. Compressed layout: builds ``synthetic_chain_trie(2^20,
+   chain_fraction=0.75, seed=3)`` and four device tries from it (plain;
+   ``layout="auto"``, which must pick compressed; int32 support + bf16
+   and int32 support + int8 columns at ``n_transactions = 100,000``),
+   drives every op on each with the launch counters at 0 (4096 search
+   rows of width 8, 256 prefixes at k = 10 and 100, 256 items per role,
+   trie_reduce), and checks: compressed f32 == plain bitwise (node ids,
+   values, tie order), every kernel call == its plain version on the card
+   bitwise on every trie (sums to 1e-6), the quantized answers within the
+   README's error bounds of plain f32 (found and node exact), and that the
+   span search and the quantized rank, membership and reduce variants
+   launched.  Then the retail trie of step 5: ``auto`` keeps it plain, and
+   served compressed with int32 + bf16 columns at its real
+   ``n_transactions`` it finds all its rules.  Prints resident bytes, op
+   ms compressed against plain, and the span and quantized kernels' times.
+7. Prints the GPU's name and power limit, one ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result when CUDA is unavailable or any phase fails.
@@ -52,6 +68,15 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 FP32_OPS_PER_S = 67e12       # H100 SXM 32-bit CUDA-core peak
 BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 MINSUP = 0.002               # the retail operating point (arm/datasets.py)
+COMPRESS_N_TX = 100_000      # int32 support denominator of the chain trie
+# the compressed tries of step 6: FrozenTrie.device_arrays arguments
+QUANT = {
+    "compressed": dict(layout="auto"),
+    "i32+bf16": dict(layout="compressed", quantize=True,
+                     n_transactions=COMPRESS_N_TX),
+    "i32+int8": dict(layout="compressed", quantize=True,
+                     n_transactions=COMPRESS_N_TX, columns="int8"),
+}
 L2_FLUSH_BYTES = 128 << 20   # written between timed calls: over 2x the L2
 METRICS = ("support", "confidence", "lift", "leverage", "conviction")
 ROLES = ("consequent", "antecedent", "any")
@@ -85,10 +110,10 @@ def device_ms(fn, reps, flush, kernel=None):
     durations of the kernels (and copies) it ran on the card, summed from
     a torch.profiler trace of ``reps`` calls each after ``flush()``, less
     ``flush()``'s own per-call time from a trace of it alone.  With
-    ``kernel``, only the device events whose name holds it count (that
-    kernel alone, without the wrapper's other device work) and nothing is
-    subtracted.  None, logged with the traces' event counts, when a trace
-    holds no such event."""
+    ``kernel`` (a name, or a tuple of names), only the device events whose
+    name holds one of them count (those kernels alone, without the
+    wrapper's other device work) and nothing is subtracted.  None, logged
+    with the traces' event counts, when a trace holds no such event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -106,7 +131,7 @@ def device_ms(fn, reps, flush, kernel=None):
             events = prof.events()
             on_card = [e for e in events if e.device_type == DeviceType.CUDA]
             us = sum(e.time_range.elapsed_us() for e in on_card
-                     if name is None or name in e.name)
+                     if name is None or any(k in e.name for k in name))
             if us > 0:
                 return us
             log(f"[profiler] no device time in a trace of {len(events)} "
@@ -116,7 +141,7 @@ def device_ms(fn, reps, flush, kernel=None):
     fn()
     torch.cuda.synchronize()
     if kernel is not None:
-        only = traced_us(fn, kernel)
+        only = traced_us(fn, (kernel,) if isinstance(kernel, str) else kernel)
         return only / reps / 1e3 if only > 0 else None
     # the flush-only trace takes at least 20 calls: shorter ones have come
     # back without their device events
@@ -262,6 +287,13 @@ def check_answers(what, res, engine, queries, ant_len, pairs, prefixes,
             raise AssertionError(f"{what}: trie_reduce {key}: {got} vs {w}")
 
 
+# the kernels a query on the plain layout launches, and on the compressed
+PLAIN_QUERY_KERNELS = ("topk_rank_batch", "rule_search_fused",
+                       "rules_with_member", "trie_reduce_columns")
+SPAN_QUERY_KERNELS = ("topk_rank_batch", "rule_search_span",
+                      "rules_with_member", "trie_reduce_columns")
+
+
 def require_launched(what, launches, names):
     for name in names:
         if launches[name] <= 0:
@@ -283,6 +315,98 @@ def time_ops(engine, queries, ant_len, prefixes, items, reps):
         op_ms[f"rules_with_{role}"] = cuda_ms(
             lambda: engine.rules_with(items, role=role, k=10), reps)
     return op_ms
+
+
+# the device kernels each wrapper launches, by name in a profiler trace
+KERNEL_NAMES = {
+    "topk_rank_batch": ("score_kernel", "chunk_topk_kernel",
+                        "merge_pairs_kernel"),
+    "rules_with_member": ("score_kernel", "chunk_topk_kernel",
+                          "merge_pairs_kernel"),
+    "rule_search_fused": ("rule_search_fused_kernel",),
+    "rule_search_span": ("rule_search_span_kernel",),
+    "trie_reduce_columns": ("partials", "fold"),
+}
+
+
+def score_bytes(metric, support, confidence):
+    """Bytes per position a score of ``metric`` reads: the columns it
+    needs (``metrics_inkernel.METRIC_COLUMNS``, which the score pass
+    loads and no other) in their storage types, and the 4-byte depth of
+    the min_depth mask."""
+    from repro_torch.kernels.metrics_inkernel import METRIC_COLUMNS
+
+    size = {"support": support.element_size(),
+            "confidence": confidence.element_size(),
+            "lift": confidence.element_size()}
+    return 4 + sum(size[c] for c in METRIC_COLUMNS[metric])
+
+
+def covered_positions(n, los, his):
+    """Positions of ``[0, n)`` that one of the ranges ``[los, his)``
+    covers: each is read once however many ranges hold it."""
+    import torch
+
+    los, his = los.long().clamp(0, n), his.long().clamp(0, n)
+    ones = torch.ones_like(los, dtype=torch.int32)
+    covered = torch.zeros((n + 1,), dtype=torch.int32, device=los.device)
+    covered.index_add_(0, los, ones)
+    covered.index_add_(0, his, -ones)
+    return int((covered.cumsum(0)[:n] > 0).sum())
+
+
+def member_work(n, post_lo, post_hi, plos, phis, n_items, k, score_b):
+    """Bytes a membership top-k (role any) needs on this data: the
+    postings of the queried items (8 bytes each), the score's columns at
+    every position those postings cover, the item rows (12 bytes each)
+    and the k results per item (8 bytes each)."""
+    import numpy as np
+    import torch
+
+    idx = torch.as_tensor(np.concatenate(
+        [np.arange(a, b) for a, b in zip(plos, phis)] + [np.zeros(0, int)]),
+        dtype=torch.long, device=post_lo.device)
+    union = covered_positions(n, post_lo[idx], post_hi[idx])
+    return score_b * union + 8 * idx.numel() + 12 * n_items \
+        + 8 * n_items * k
+
+
+def kernel_row(name, kern, plain, work, where, launches, max_err, reps,
+               flush, label=None):
+    """One row of the ``kernels`` line: the kernel's device ms (its own
+    kernels in a profiler trace, cold L2), and on the scope of the plain
+    version's ``plain_ms`` (every device event of the call, the flush
+    subtracted) ``whole_call_ms``, which adds the wrapper's own device
+    work (casts, clamps, its range reduction); CUDA events per call
+    around each (``call_ms``; the device ms fall back to these when a
+    trace holds no device time), and the bound of ``work = (bytes,
+    operations)`` at the card's peaks.  ``where`` is (route, source,
+    file:line of the TPU kernel)."""
+    call_ms = cuda_ms(kern, reps)
+    plain_call_ms = cuda_ms(plain, reps, warmup=1)
+    ms = device_ms(kern, reps, flush, kernel=KERNEL_NAMES[name])
+    whole_call_ms = device_ms(kern, reps, flush)
+    plain_ms = device_ms(plain, reps, flush)
+    timer = "profiler"
+    if ms is None or plain_ms is None:
+        ms, plain_ms, timer = call_ms, plain_call_ms, "events"
+    t_bytes = work[0] / HBM_BYTES_PER_S * 1e3
+    t_ops = work[1] / FP32_OPS_PER_S * 1e3
+    route, source, replaces = where
+    row = {
+        "name": label or name, "route": route, "source": source,
+        "replaces": replaces, "launches": launches, "max_abs_err": max_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "timer": timer, "whole_call_ms": whole_call_ms,
+        "call_ms": call_ms, "plain_call_ms": plain_call_ms,
+    }
+    log(f"[kernel] {row['name']}: {ms:.4f} ms device ({timer}), whole call "
+        f"{whole_call_ms} ms device, "
+        f"{call_ms:.4f} ms per call; plain {plain_ms:.4f} / "
+        f"{plain_call_ms:.4f} ms; bound {row['bound_ms']:.5f} ms "
+        f"({row['bound_by']})")
+    return row
 
 
 def support_work(mat, n_words):
@@ -459,8 +583,7 @@ def construction_phase(args, dev, l2_flush):
     served = launch_counts()
     log(f"[construct serve] {time.perf_counter() - t0:.2f} s, launches "
         f"{served}")
-    require_launched("construct serve", served,
-                     [k for k in KERNELS if k != name])
+    require_launched("construct serve", served, PLAIN_QUERY_KERNELS)
     check_answers("construct serve", res, engine, queries, ant_len, pairs,
                   prefixes, items)
     found = res["search"]["found"].cpu().numpy()
@@ -493,6 +616,8 @@ def construction_phase(args, dev, l2_flush):
         # reduction and a 4-byte copy to the host) is in call_ms
         ms = device_ms(kern, reps, l2_flush.zero_,
                        kernel="support_count_kernel")
+        # on plain_ms's scope: the whole call, its range check included
+        whole_call_ms = device_ms(kern, reps, l2_flush.zero_)
         plain_ms = device_ms(plain, plain_reps, l2_flush.zero_)
         timer = "events" if ms is None else "profiler"
         plain_timer = "events" if plain_ms is None else "profiler"
@@ -505,14 +630,16 @@ def construction_phase(args, dev, l2_flush):
             / BF16_OPS_PER_S * 1e3
         per_launch.append({
             "launch": tag, "C": int(mat_l.shape[0]), "K": int(mat_l.shape[1]),
-            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "ms": ms, "whole_call_ms": whole_call_ms, "call_ms": call_ms,
+            "plain_ms": plain_ms,
             "plain_call_ms": plain_call_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": nops, "dense_bf16_ms": dense_ms,
             "timer": timer, "plain_timer": plain_timer,
         })
         log(f"[kernel] {name} {tag} C={mat_l.shape[0]} K={mat_l.shape[1]}: "
-            f"{ms:.4f} ms device ({timer}), {call_ms:.4f} ms per call; plain "
+            f"{ms:.4f} ms device ({timer}), whole call {whole_call_ms} ms "
+            f"device, {call_ms:.4f} ms per call; plain "
             f"{plain_ms:.4f} ({plain_timer}) / {plain_call_ms:.4f} ms; bound "
             f"{per_launch[-1]['bound_ms']:.5f} ms "
             f"({per_launch[-1]['bound_by']}); a dense bf16 product would "
@@ -520,6 +647,9 @@ def construction_phase(args, dev, l2_flush):
     total = {key: sum(p[key] for p in per_launch)
              for key in ("ms", "call_ms", "plain_ms", "plain_call_ms",
                          "dense_bf16_ms")}
+    total["whole_call_ms"] = None if any(
+        p["whole_call_ms"] is None for p in per_launch) else sum(
+        p["whole_call_ms"] for p in per_launch)
     t_bytes = sum(p["bytes"] for p in per_launch) / HBM_BYTES_PER_S * 1e3
     t_ops = sum(p["ops"] for p in per_launch) / FP32_OPS_PER_S * 1e3
     log(f"[construct] one build's {len(per_launch)} support counts: "
@@ -537,9 +667,532 @@ def construction_phase(args, dev, l2_flush):
         "library_ms": None,
         "timer": "/".join(sorted({p["timer"] for p in per_launch})),
         "plain_timer": "/".join(sorted({p["plain_timer"] for p in per_launch})),
-        "call_ms": total["call_ms"], "plain_call_ms": total["plain_call_ms"],
-        "per_launch": per_launch,
+        "whole_call_ms": total["whole_call_ms"], "call_ms": total["call_ms"],
+        "plain_call_ms": total["plain_call_ms"], "per_launch": per_launch,
+    }, frozen, n_tx
+
+
+def resident_bytes(*sources):
+    """Bytes of the distinct device buffers a query configuration keeps:
+    every tensor of a ``DeviceTrie`` and of its memoized column dicts,
+    counted once per storage (a dict that holds the trie's own tensors
+    adds nothing; a gathered copy adds its bytes)."""
+    import torch
+
+    seen = {}
+    for src in sources:
+        vals = src.values() if isinstance(src, dict) else vars(src).values()
+        for v in vals:
+            if isinstance(v, torch.Tensor) and v.is_cuda:
+                st = v.untyped_storage()
+                seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def layout_columns(dt):
+    """The op-level column dicts a serving front door memoizes."""
+    from repro_torch.kernels import ops
+
+    dfs = ops.dfs_rank_arrays(dt)
+    dfs["_device_trie"] = dt
+    return {"edges": ops.edge_metric_arrays(dt), "dfs": dfs,
+            "ia": ops.item_rank_arrays(dt)}
+
+
+def drive_layout(dt, cols, queries, ant_len, prefixes, items):
+    """One pass of every batched op over one device trie."""
+    from repro_torch.kernels import ops
+
+    res = {
+        "search": ops.rule_search_batch(dt, queries, ant_len,
+                                        edges=cols["edges"]),
+        "topk10": ops.top_k_rules_batch(dt, prefixes, 10, arrays=cols["dfs"]),
+        "topk100": ops.top_k_rules_batch(dt, prefixes, 100,
+                                         arrays=cols["dfs"]),
+        "reduce": ops.trie_reduce(dt),
     }
+    for role in ROLES:
+        res[role] = ops.rules_with(dt, items, role=role, k=10,
+                                   arrays=cols["ia"])
+    return res
+
+
+def time_layout_ops(dt, cols, queries, ant_len, prefixes, items, reps):
+    """Median CUDA-event milliseconds of each op over one device trie."""
+    from repro_torch.kernels import ops
+
+    op_ms = {
+        "rule_search_batch": cuda_ms(
+            lambda: ops.rule_search_batch(dt, queries, ant_len,
+                                          edges=cols["edges"]), reps),
+        "top_k_rules_batch_k10": cuda_ms(
+            lambda: ops.top_k_rules_batch(dt, prefixes, 10,
+                                          arrays=cols["dfs"]), reps),
+        "top_k_rules_batch_k100": cuda_ms(
+            lambda: ops.top_k_rules_batch(dt, prefixes, 100,
+                                          arrays=cols["dfs"]), reps),
+        "trie_reduce": cuda_ms(lambda: ops.trie_reduce(dt), reps),
+    }
+    for role in ROLES:
+        op_ms[f"rules_with_{role}"] = cuda_ms(
+            lambda: ops.rules_with(dt, items, role=role, k=10,
+                                   arrays=cols["ia"]), reps)
+    return op_ms
+
+
+def span_args(dt):
+    """The span search's arguments on a compressed trie, and its keywords
+    (bucket width and dequantization scalars)."""
+    from repro_torch.kernels import ops
+
+    e = ops.edge_metric_arrays(dt)
+    names = ("child_offsets", "edge_item", "edge_pos", "edge_span",
+             "edge_tail", "node_item", "support", "confidence", "lift")
+    return [e[k] for k in names], dict(max_fanout=e["max_fanout"],
+                                       **ops._dequant_statics(e))
+
+
+def span_walk_work(dt, queries, ant_len):
+    """Bytes the two span walks of a search need on this data: per step a
+    4-byte item-column gather inside a span, or at a CSR node the two
+    bucket bounds and the found edge's four columns (24 bytes); a
+    confidence gather per consequent step of the main walk; the support
+    and lift of each found row and the support of each found consequent
+    path."""
+    import torch
+    from repro_torch.core.array_trie import compressed_step
+
+    q = queries.shape[0]
+    z = torch.zeros((q,), dtype=torch.int32, device=queries.device)
+    ones = torch.ones((q,), dtype=torch.bool, device=queries.device)
+    es = {"sup": dt.support.element_size(),
+          "col": dt.confidence.element_size()}
+    total = 0
+    for main in (True, False):
+        pos, rem, ctail, ok = z, z, z, ones
+        for s in range(queries.shape[1]):
+            item = queries[:, s]
+            active = (item >= 0) & ok
+            if not main:
+                active &= s >= ant_len
+            p2, r2, t2, hit = compressed_step(dt, pos, rem, ctail, item)
+            total += 4 * int((active & (rem > 0)).sum())
+            total += 24 * int((active & (rem <= 0)).sum())
+            adv = active & hit
+            if main:
+                total += es["col"] * int((adv & (s >= ant_len)).sum())
+            ok = torch.where(active, hit, ok)
+            pos = torch.where(adv, p2, pos)
+            rem = torch.where(adv, r2, rem)
+            ctail = torch.where(adv, t2, ctail)
+        hits = int((ok & (pos > 0)).sum())
+        total += hits * (es["sup"] + es["col"] if main else es["sup"])
+    return total + queries.numel() * 4 + q * 4 + q * 24
+
+
+F32_ULP = 2.0 ** -23
+BF16_REL = 2.0 ** -8         # README: bf16 columns, relative
+
+
+def column_bound(w, col):
+    """The README's bound on one quantized column's error, at the plain f32
+    values ``w`` (float64): int32 support counts 2 ulp relative plus the
+    count's rounding, 1 / (2 n) absolute; bf16 2^-8 relative; int8
+    scale / 2 absolute."""
+    if col["kind"] == "count":
+        return 2 * F32_ULP * w.abs() + 0.5 / col["n_transactions"]
+    if col["kind"] == "bf16":
+        return BF16_REL * w.abs()
+    return col["scale"] / 2 + 0.0 * w
+
+
+def product_bound(conf, m, col):
+    """Bound on a compound confidence, the product of ``m`` quantized
+    factors, each in [0, 1]: relative errors compound for bf16,
+    absolute ones add for int8."""
+    if col["kind"] == "bf16":
+        return ((1 + BF16_REL) ** m - 1) * conf.abs()
+    return m * col["scale"] / 2
+
+
+def within(what, got, want, bound, mask, rtol):
+    """Raise unless ``|got - want| <= bound`` (plus the f32 roundings of
+    the widening and of the search's own products) on ``mask``; returns
+    how many values lie outside ``rtol``, the tolerance of the reference's
+    small-size test (2e-2 bf16, 6e-2 int8)."""
+    import torch
+
+    g, w = got.double()[mask], want.double()[mask]
+    b = bound[mask] if isinstance(bound, torch.Tensor) and bound.dim() \
+        else bound
+    b = b + 32 * F32_ULP * w.abs()
+    err = (g - w).abs()
+    bad = err > b
+    if bool(bad.any()):
+        i = int(torch.nonzero(bad)[0])
+        bi = float(b[i]) if isinstance(b, torch.Tensor) else float(b)
+        raise AssertionError(f"{what}: {float(g[i])} vs plain {float(w[i])}"
+                             f" beyond the README bound {bi}")
+    return int((err > rtol * w.abs()).sum())
+
+
+def compressed_phase(args, dev, l2_flush, retail, retail_n_tx):
+    """The path-compressed, quantized layout at 2^20 rules and on the
+    retail trie: drive, check and time it; returns the span kernel's and
+    the quantized variants' rows of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from repro_torch.core import synthetic
+    from repro_torch.kernels import launch_counts, ops, ref, \
+        reset_launch_counts
+    from repro_torch.kernels.item_index import rules_with_member
+    from repro_torch.kernels.rank import topk_rank_batch
+    from repro_torch.kernels.rule_search import (
+        rule_search_fused, rule_search_span,
+    )
+    from repro_torch.kernels.trie_reduce import trie_reduce_columns
+
+    reps = args.reps
+    t0 = time.perf_counter()
+    arrs = synthetic.synthetic_chain_trie(1 << 20, chain_fraction=0.75,
+                                          seed=3)
+    fz = synthetic.frozen_from_arrays(arrs)
+    t_gen = time.perf_counter() - t0
+    tries = {"plain": fz.device_arrays(device=dev)}
+    t0 = time.perf_counter()
+    for tag, kw in QUANT.items():
+        tries[tag] = fz.device_arrays(device=dev, **kw)
+    t_comp = (time.perf_counter() - t0) / len(QUANT)
+    if tries["compressed"].layout != "compressed":
+        raise AssertionError("compress: layout='auto' kept the chain trie "
+                             "plain")
+    comp = tries["compressed"]
+    n, n_items = fz.n_nodes, int(arrs["edge_item"].max()) + 1
+    log(f"[compress] synthetic_chain_trie(2^20, 0.75, seed=3): {n} nodes, "
+        f"span fraction {fz.span_fraction():.4f}, "
+        f"{comp.edge_item.shape[0]} compressed edges, max fanout "
+        f"{fz.max_fanout}, depth {fz.max_depth}; made in {t_gen:.1f} s, "
+        f"compressed and uploaded in {t_comp:.2f} s each; layout='auto' "
+        f"-> compressed")
+
+    rng = np.random.RandomState(args.seed + 4)
+    queries, ant_len = synthetic.mixed_queries(rng, arrs, 4096, 8)
+    prefixes = prefixes_for(arrs, n_items, 256, rng)
+    items = [int(x) for x in rng.randint(0, n_items, size=248)]
+    items += [items[0], items[1], -1, n_items + 3, 0, 1, 2, 3]
+    q_t = torch.as_tensor(queries, device=dev)
+    al_t = torch.as_tensor(ant_len, device=dev)
+
+    # -- 7a. the main path on each trie, counters at 0 around each ------
+    cols, res, launched = {}, {}, {}
+    for tag, dt in tries.items():
+        cols[tag] = layout_columns(dt)
+        reset_launch_counts()
+        res[tag] = drive_layout(dt, cols[tag], queries, ant_len, prefixes,
+                                items)
+        torch.cuda.synchronize()
+        launched[tag] = launch_counts()
+        log(f"[compress main path] {tag}: launches {launched[tag]}")
+        if tag == "plain":
+            require_launched(f"compress {tag}", launched[tag],
+                             PLAIN_QUERY_KERNELS)
+        else:
+            require_launched(f"compress {tag}", launched[tag],
+                             SPAN_QUERY_KERNELS)
+            if launched[tag]["rule_search_fused"]:
+                raise AssertionError(f"compress {tag}: the plain search ran")
+
+    # -- 7b. compressed f32 == plain, bitwise ---------------------------
+    def same(what, got, want):
+        if not bitwise_equal(got, want):
+            raise AssertionError(f"compress: {what} differs")
+
+    p, c = res["plain"], res["compressed"]
+    for key in p["search"]:
+        same(f"search {key}", c["search"][key], p["search"][key])
+    for k in ("topk10", "topk100"):
+        for key in p[k]:
+            same(f"{k} {key}", c[k][key], p[k][key])
+    for role in ROLES:
+        keys = ("values", "node") if role == "consequent" else \
+            ("values", "node", "pos")
+        for key in keys:
+            same(f"rules_with {role} {key}", c[role][key], p[role][key])
+    for key in ("n_rules", "confidence_max"):
+        same(f"trie_reduce {key}", c["reduce"][key], p["reduce"][key])
+    for key in ("support_sum", "mean_conf"):
+        g, w = float(c["reduce"][key]), float(p["reduce"][key])
+        if abs(g - w) > 1e-6 * abs(w):
+            raise AssertionError(f"compress: trie_reduce {key} {g} vs {w}")
+    found = p["search"]["found"]
+    log(f"[compress] compressed f32 == plain on every op, bitwise "
+        f"({int(found.sum())} of {len(queries)} rows found)")
+
+    # -- 7c. every kernel call == its plain version, on every trie ------
+    errs = {}
+    for tag in QUANT:
+        dt, cl = tries[tag], cols[tag]
+        dq = ops._dequant_statics(dt)
+        sa, skw = span_args(dt)
+        got = rule_search_span(*sa, q_t, al_t, **skw)
+        want = ref.rule_search_span_ref(*sa, q_t, al_t, **skw)
+        check_same(f"rule_search_span {tag}", [got[k] for k in want],
+                   [want[k] for k in want], errs.setdefault(
+                       ("rule_search_span", tag), []))
+        for k in (10, 100):
+            want = ops.top_k_rules_batch(dt, prefixes, k, arrays=cl["dfs"],
+                                         use_kernel=False)
+            check_same(f"topk_rank_batch {tag} k={k}",
+                       [res[tag][f"topk{k}"][x] for x in want],
+                       [want[x] for x in want],
+                       errs.setdefault(("topk_rank_batch", tag), []))
+        for role in ROLES:
+            want = ops.rules_with(dt, items, role=role, k=10, arrays=cl["ia"],
+                                  use_kernel=False)
+            check_same(f"rules_with_member {tag} {role}",
+                       [res[tag][role][x] for x in want],
+                       [want[x] for x in want],
+                       errs.setdefault(("rules_with_member", tag), []))
+        rq = dict(n_transactions=dq["n_transactions"],
+                  confidence_scale=dq["confidence_scale"])
+        got = trie_reduce_columns(dt.support, dt.confidence, dt.node_depth,
+                                  **rq)
+        want = ref.trie_reduce_ref(dt.support, dt.confidence, dt.node_depth,
+                                   **rq)
+        e = errs.setdefault(("trie_reduce_columns", tag), [])
+        check_same(f"trie_reduce {tag} count/max", (got[0], got[2]),
+                   (want[0], want[2]), e)
+        for g, w in ((got[1], want[1]), (got[3], want[3])):
+            e.append(abs(float(g) - float(w)))
+            if abs(float(g) - float(w)) > 1e-6 * abs(float(w)):
+                raise AssertionError(f"trie_reduce {tag} sum off")
+        # the op answers are the kernel answers mapped back to node ids
+        red = res[tag]["reduce"]
+        if not (bitwise_equal(red["n_rules"], got[0])
+                and bitwise_equal(red["confidence_max"], got[2])):
+            raise AssertionError(f"compress {tag}: trie_reduce op != kernel")
+    torch.cuda.synchronize()
+    log("[compress] every span, rank, membership and reduce call equals "
+        "its plain version on the card, on the f32, i32+bf16 and i32+int8 "
+        "tries (bitwise; reduce sums to 1e-6)")
+
+    # -- 7d. the quantized answers within the README's bounds ----------
+    p_search = p["search"]
+    mask = p_search["found"]
+    cons_steps = ((q_t >= 0) & (torch.arange(q_t.shape[1], device=dev)[None]
+                                >= al_t[:, None])).sum(1)
+    single = cons_steps == 1
+    # the plain consequent-path support of each row, for compound lift
+    cons_q = torch.where(torch.arange(q_t.shape[1], device=dev)[None]
+                         >= al_t[:, None], q_t, -1)
+    cons = ops.rule_search(tries["plain"], cons_q, torch.zeros_like(al_t))
+    con_sup = torch.where(cons["found"], cons["support"], 0.0)
+    outside = {}
+    p_conf = p_search["confidence"].double()
+    for tag in ("i32+bf16", "i32+int8"):
+        dt = tries[tag]
+        q_s = res[tag]["search"]
+        for key in ("found", "node"):
+            same(f"{tag} search {key}", q_s[key], p_search[key])
+        kind = "bf16" if dt.confidence.dtype == torch.bfloat16 else "int8"
+        rtol = 2e-2 if kind == "bf16" else 6e-2
+        sup_col = {"kind": "count", "n_transactions": dt.n_transactions}
+        conf_col = {"kind": kind, "scale": dt.confidence_scale}
+        lift_col = {"kind": kind, "scale": dt.lift_scale}
+        w_sup = p_search["support"].double()
+        w_lift = p_search["lift"].double()
+        conf_b = product_bound(p_conf, cons_steps.double(), conf_col)
+        # compound lift = confidence / consequent support; that support
+        # is a count (error d), so the quotient moves by at most
+        # (conf_b + lift d) / (support - d)
+        cs = con_sup.double()
+        d = column_bound(cs, sup_col)
+        compound_b = torch.where(
+            cs > 0, (conf_b + w_lift.abs() * d) / (cs - d).clamp(min=1e-30),
+            0.0)
+        lift_b = torch.where(single, column_bound(w_lift, lift_col),
+                             compound_b)
+        out = {
+            "support": within(f"{tag} search support", q_s["support"],
+                              p_search["support"],
+                              column_bound(w_sup, sup_col), mask, rtol),
+            "confidence": within(f"{tag} search confidence",
+                                 q_s["confidence"], p_search["confidence"],
+                                 conf_b, mask, rtol),
+            "lift": within(f"{tag} search lift", q_s["lift"],
+                           p_search["lift"], lift_b, mask, rtol),
+        }
+        # rankings by confidence: when every value moves by at most the
+        # column's bound, so does the k-th best of any set; the live slots
+        # are the same
+        for k in ("topk10", "topk100", *ROLES):
+            g, w = res[tag][k]["values"], res["plain"][k]["values"]
+            live = w > -torch.inf
+            same(f"{tag} {k} live slots", g > -torch.inf, live)
+            wd = torch.where(live, w, 0.0).double()
+            out[k] = within(f"{tag} {k} values", g, w,
+                            column_bound(wd, conf_col), live, rtol)
+        outside[tag] = out
+    log(f"[compress] quantized answers within the README bounds of plain "
+        f"f32 (found and node exact); values outside the reference test's "
+        f"rtol (2e-2 bf16, 6e-2 int8): {json.dumps(outside)}")
+
+    # -- 7e. the retail trie: auto keeps it plain; served compressed ----
+    if retail.device_arrays(device=dev, layout="auto").layout != "plain":
+        raise AssertionError("compress: layout='auto' compressed the retail "
+                             "trie")
+    rt = retail.device_arrays(device=dev, layout="compressed", quantize=True,
+                              n_transactions=retail_n_tx)
+    rp = retail.device_arrays(device=dev)
+    paths = np.full((retail.n_nodes - 1, max(retail.max_depth, 1)), -1,
+                    np.int32)
+    for v in range(1, retail.n_nodes):
+        path = retail.path_items(v)
+        paths[v - 1, :len(path)] = path
+    r_al = np.maximum((paths >= 0).sum(1) - 1, 0).astype(np.int32)
+    reset_launch_counts()
+    r_res = ops.rule_search_batch(rt, paths, r_al)
+    torch.cuda.synchronize()
+    r_launch = launch_counts()
+    require_launched("compress retail", r_launch, ("rule_search_span",))
+    r_plain = ops.rule_search_batch(rp, paths, r_al)
+    r_found = r_res["found"].cpu().numpy()
+    if not r_found.all() or not np.array_equal(
+            r_res["node"].cpu().numpy(), np.arange(1, retail.n_nodes)):
+        raise AssertionError("compress retail: a rule was not found")
+    r_mask = torch.ones_like(r_res["found"])
+    r_out = {"support": within(
+        "retail support", r_res["support"], r_plain["support"],
+        column_bound(r_plain["support"].double(),
+                     {"kind": "count", "n_transactions": retail_n_tx}),
+        r_mask, 2e-2)}
+    for key in ("confidence", "lift"):
+        # every retail row has a one-item consequent: the node's own value
+        r_out[key] = within(
+            f"retail {key}", r_res[key], r_plain[key],
+            column_bound(r_plain[key].double(), {"kind": "bf16"}),
+            r_mask, 2e-2)
+    log(f"[compress retail] span fraction {retail.span_fraction():.4f}: "
+        f"layout='auto' -> plain; compressed + int32/bf16 at n_transactions "
+        f"{retail_n_tx}: all {int(r_found.sum())} rules found at their "
+        f"nodes, values within the README bounds (outside rtol 2e-2: "
+        f"{r_out}); launches {r_launch}; resident {rp.nbytes()} bytes "
+        f"plain, {rt.nbytes()} compressed + quantized")
+
+    # -- 7f. resident bytes and op ms, compressed against plain ---------
+    for tag, dt in tries.items():
+        log(f"[compress resident] {tag}: DeviceTrie {dt.nbytes()} bytes; "
+            f"with the three memoized column dicts "
+            f"{resident_bytes(dt, *cols[tag].values())} bytes")
+    op_ms = {tag: time_layout_ops(dt, cols[tag], queries, ant_len, prefixes,
+                                  items, reps)
+             for tag, dt in tries.items()}
+    log("[compress ops ms] " + json.dumps(op_ms))
+
+    # -- 7g. kernel times: the span search and the quantized variants ---
+    los, his, _ = ops.prefix_ranges(comp, prefixes)
+    union = covered_positions(n, los, his)
+    span_len = float((his - los).clamp(min=0).sum())
+    qitems = ops._posting_slices(cols["compressed"]["ia"]["item_offsets"],
+                                 items)
+    u_plos, u_phis, u_items = ops._pad_pow2_rows(
+        *[a[np.unique(qitems[2], return_index=True)[1]] for a in qitems])
+    dq_rows = []
+    f32_ms = {}
+    for tag in QUANT:
+        dt, cl = tries[tag], cols[tag]
+        dq = ops._dequant_statics(dt)
+        es_s, es_c = dt.support.element_size(), dt.confidence.element_size()
+        sa, skw = span_args(dt)
+        r_args = (dt.support, dt.confidence, dt.lift, dt.node_depth, los, his)
+        r_kw = dict(k=100, metric="confidence", min_depth=1, **dq)
+        m_args = (dt.support, dt.confidence, dt.lift, dt.node_depth,
+                  dt.node_item, dt.post_lo, dt.post_hi,
+                  *[torch.as_tensor(a, device=dev)
+                    for a in (u_plos, u_phis, u_items)])
+        m_kw = dict(k=10, metric="confidence", min_depth=1, role="any", **dq)
+        rq = dict(n_transactions=dq["n_transactions"],
+                  confidence_scale=dq["confidence_scale"])
+        range_len = torch.cat([
+            torch.zeros((1,), dtype=torch.float64, device=dev),
+            (dt.post_hi - dt.post_lo).double().cumsum(0)])
+        members = float((range_len[torch.as_tensor(u_phis, device=dev)
+                                   .long()]
+                         - range_len[torch.as_tensor(u_plos, device=dev)
+                                     .long()]).sum())
+        calls = {
+            "rule_search_span": (
+                lambda: rule_search_span(*sa, q_t, al_t, **skw),
+                lambda: ref.rule_search_span_ref(*sa, q_t, al_t, **skw),
+                (span_walk_work(dt, q_t, al_t), q_t.shape[0] * 8),
+                "cuda", "src/repro_torch/kernels/csrc/rule_search.cu",
+                "src/repro/kernels/rule_search.py:565"),
+            "topk_rank_batch": (
+                lambda: topk_rank_batch(*r_args, **r_kw),
+                lambda: ref.topk_rank_batch_ref(*r_args, **r_kw),
+                (score_bytes(r_kw["metric"], dt.support, dt.confidence)
+                 * union + 8 * los.numel() + 8 * los.numel() * r_kw["k"],
+                 3 * span_len),
+                "cuda", "src/repro_torch/kernels/csrc/rank.cu",
+                "src/repro/kernels/rank.py:178"),
+            "rules_with_member": (
+                lambda: rules_with_member(*m_args, **m_kw),
+                lambda: ref.rules_with_ref(*m_args, **m_kw),
+                (member_work(n, dt.post_lo, dt.post_hi, u_plos, u_phis,
+                             u_items.size, m_kw["k"],
+                             score_bytes(m_kw["metric"], dt.support,
+                                         dt.confidence)),
+                 3 * members),
+                "cuda", "src/repro_torch/kernels/csrc/item_index.cu",
+                "src/repro/kernels/item_index.py:162"),
+            "trie_reduce_columns": (
+                lambda: trie_reduce_columns(dt.support, dt.confidence,
+                                            dt.node_depth, **rq),
+                lambda: ref.trie_reduce_ref(dt.support, dt.confidence,
+                                            dt.node_depth, **rq),
+                ((es_s + es_c + 4) * n + 16, 4 * n),
+                "triton", "src/repro_torch/kernels/trie_reduce.py",
+                "src/repro/kernels/trie_reduce.py:50"),
+        }
+        for name, (kern, plain, work, *where) in calls.items():
+            if name != "rule_search_span" and tag == "compressed":
+                # the f32 twin of a quantized row, timed in the same run
+                f32_ms[name] = device_ms(kern, reps, l2_flush.zero_,
+                                         kernel=KERNEL_NAMES[name])
+                continue
+            if name == "rule_search_span" and tag != "compressed":
+                f32_ms[f"rule_search_span {tag}"] = device_ms(
+                    kern, reps, l2_flush.zero_, kernel=KERNEL_NAMES[name])
+                continue
+            row = kernel_row(
+                name, kern, plain, work, where, launched[tag][name],
+                max(errs[(name, tag)]), reps, l2_flush.zero_,
+                label=name if tag == "compressed" else f"{name} [{tag}]")
+            if name != "rule_search_span":
+                row["f32_ms"] = f32_ms[name]
+                log(f"[kernel] {row['name']}: its f32 twin on the same trie "
+                    f"{f32_ms[name]} ms device")
+            else:
+                # the plain layout's fused search on the same rows
+                pe = cols["plain"]["edges"]
+                fused = (pe["child_offsets"], pe["edge_item"],
+                         pe["edge_child"], pe["edge_conf"], pe["edge_sup"],
+                         pe["edge_lift"], q_t, al_t)
+                row["plain_layout_fused_ms"] = device_ms(
+                    lambda: rule_search_fused(
+                        *fused, max_fanout=pe["max_fanout"]),
+                    reps, l2_flush.zero_,
+                    kernel=KERNEL_NAMES["rule_search_fused"])
+                log(f"[kernel] rule_search_fused on the plain chain trie, "
+                    f"same rows: {row['plain_layout_fused_ms']} ms device")
+            dq_rows.append(row)
+    span_row = next(r for r in dq_rows if r["name"] == "rule_search_span")
+    span_row["quantized_ms"] = {k.split(" ", 1)[1]: v
+                                for k, v in f32_ms.items()
+                                if k.startswith("rule_search_span")}
+    log(f"[kernel] rule_search_span on the quantized tries (device ms): "
+        f"{span_row['quantized_ms']}")
+    return dq_rows
 
 
 def main():
@@ -693,14 +1346,13 @@ def main():
         f"({time.perf_counter() - t0:.1f} s)")
 
     # -- 4. the main path through TrieQueryEngine ----------------------
-    query_kernels = [k for k in KERNELS if k != "support_count_bitmap"]
     reset_launch_counts()
     t0 = time.perf_counter()
     res = drive_engine(engine, queries, ant_len, pairs, prefixes, items)
     torch.cuda.synchronize()
     launches = launch_counts()
     log(f"[main path] {time.perf_counter() - t0:.2f} s, launches {launches}")
-    require_launched("main path", launches, query_kernels)
+    require_launched("main path", launches, PLAIN_QUERY_KERNELS)
     check_answers("main path", res, engine, queries, ant_len, pairs,
                   prefixes, items)
     found = res["search"]["found"].cpu().numpy()
@@ -740,12 +1392,9 @@ def main():
             lambda: ref.trie_reduce_ref(*red_args)),
     }
 
-    # the least time the card needs for each call's work on this data
+    # the least time the card needs for each call's work on this data:
+    # the columns each score reads (score_bytes), once per covered position
     span = (his - los).clamp(min=0)
-    covered = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
-    covered.index_add_(0, los.long(), torch.ones_like(los))
-    covered.index_add_(0, his.long(), -torch.ones_like(his))
-    union = int((covered.cumsum(0)[:n] > 0).sum())
     main_steps, cons_steps = walk_steps(dt, q_t, al_t)
     # an item's members (role any) are the positions its posting ranges
     # cover: a score, a compare and a select each
@@ -757,15 +1406,18 @@ def main():
                      ).sum())
     work = {
         "topk_rank_batch": (
-            16 * union + 8 * los.numel() + 8 * los.numel() * r_kw["k"],
+            score_bytes(r_kw["metric"], *rank_cols[:2])
+            * covered_positions(n, los, his)
+            + 8 * los.numel() + 8 * los.numel() * r_kw["k"],
             3 * float(span.sum())),
         "rule_search_fused": (
             queries.size * 4 + ant_len.size * 4 + 24 * queries.shape[0]
             + 28 * main_steps + 20 * cons_steps,
             queries.shape[0] * 8),
         "rules_with_member": (
-            20 * n + 8 * int((u_phis - u_plos).sum()) + 12 * u_items.size
-            + 8 * u_items.size * m_kw["k"],
+            member_work(n, ia["post_lo"], ia["post_hi"], u_plos, u_phis,
+                        u_items.size, m_kw["k"],
+                        score_bytes(m_kw["metric"], *m_cols[:2])),
             3 * members),
         "trie_reduce_columns": (12 * n + 16, 4 * n),
     }
@@ -782,42 +1434,26 @@ def main():
             "triton", "src/repro_torch/kernels/trie_reduce.py",
             "src/repro/kernels/trie_reduce.py:50"),
     }
-    # "ms" and "plain_ms" are device time (the kernels each call ran, from
-    # a profiler trace, the 50 MB L2 flushed before each call);
-    # "call_ms" and "plain_call_ms" are CUDA events around one call, host
-    # launch work included, which is all a call shorter than its launches
-    # shows
+    # "ms" and "plain_ms" are device time from a profiler trace, the 50 MB
+    # L2 flushed before each call: the wrapper's own kernels
+    # (KERNEL_NAMES), and every kernel the plain version ran;
+    # "whole_call_ms" is the wrapper's call on plain_ms's scope (its own
+    # casts, clamps and reductions too); "call_ms" and "plain_call_ms" are
+    # CUDA events around one call, host launch work included, which is
+    # all a call shorter than its launches shows
     l2_flush = torch.empty((L2_FLUSH_BYTES // 4,), dtype=torch.float32,
                            device=dev)
-    rows = []
-    for name, (kern, plain) in calls.items():
-        call_ms = cuda_ms(kern, reps)
-        plain_call_ms = cuda_ms(plain, reps, warmup=1)
-        ms = device_ms(kern, reps, l2_flush.zero_)
-        plain_ms = device_ms(plain, reps, l2_flush.zero_)
-        timer = "profiler"
-        if ms is None or plain_ms is None:
-            ms, plain_ms, timer = call_ms, plain_call_ms, "events"
-        nbytes, nops = work[name]
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / FP32_OPS_PER_S * 1e3
-        route, source, replaces = sources[name]
-        rows.append({
-            "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(errs[name]), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "timer": timer, "call_ms": call_ms,
-            "plain_call_ms": plain_call_ms,
-        })
-        log(f"[kernel] {name}: {ms:.4f} ms device ({timer}), "
-            f"{call_ms:.4f} ms per call; plain {plain_ms:.4f} / "
-            f"{plain_call_ms:.4f} ms; bound {rows[-1]['bound_ms']:.4f} ms "
-            f"({rows[-1]['bound_by']})")
+    rows = [kernel_row(name, kern, plain, work[name], sources[name],
+                       launches[name], max(errs[name]), reps, l2_flush.zero_)
+            for name, (kern, plain) in calls.items()]
 
     # -- 6. construction: mine -> trie -> annotate, then serve it -------
-    rows.append(construction_phase(args, dev, l2_flush))
+    row, retail, retail_n_tx = construction_phase(args, dev, l2_flush)
+    rows.append(row)
+    log(f"[construct] phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 7. the compressed layout: the chain trie, then the retail trie --
+    rows.extend(compressed_phase(args, dev, l2_flush, retail, retail_n_tx))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -12,16 +12,23 @@ from .metrics import Rule, RuleMetrics, compound_confidence
 from .trie import TrieNode, TrieOfRules
 from .flat_table import FlatRuleTable
 from .array_trie import (
+    AUTO_COMPRESS_SPAN_FRACTION,
+    CompressedTrie,
     DeviceTrie,
     FrozenTrie,
     batched_rule_search,
     bucket_edge_lookup,
     canonical_prefix_rows,
+    chain_spans,
     child_lookup,
+    compress_pos_space,
+    compressed_descend,
+    compressed_step,
     csr_offsets_from_edges,
     dfs_layout,
     item_index_arrays,
     item_tables,
+    quantize_metric_columns,
     resolve_device,
     sanitize_query_items,
     top_n_nodes,
@@ -38,12 +45,15 @@ from .synthetic import (
     frozen_from_arrays,
     mixed_queries,
     random_csr_trie,
+    synthetic_chain_trie,
     synthetic_csr_trie,
     synthetic_search_queries,
 )
 
 __all__ = [
+    "AUTO_COMPRESS_SPAN_FRACTION",
     "BuildResult",
+    "CompressedTrie",
     "DeviceTrie",
     "FlatRuleTable",
     "FrozenTrie",
@@ -58,8 +68,12 @@ __all__ = [
     "build_trie_of_rules",
     "canonical_prefix_rows",
     "canonicalize_matrix",
+    "chain_spans",
     "child_lookup",
     "compound_confidence",
+    "compress_pos_space",
+    "compressed_descend",
+    "compressed_step",
     "csr_offsets_from_edges",
     "dfs_layout",
     "frozen_from_arrays",
@@ -67,9 +81,11 @@ __all__ = [
     "item_tables",
     "mixed_queries",
     "pack_sequences",
+    "quantize_metric_columns",
     "random_csr_trie",
     "resolve_device",
     "sanitize_query_items",
+    "synthetic_chain_trie",
     "synthetic_csr_trie",
     "synthetic_search_queries",
     "top_n_nodes",

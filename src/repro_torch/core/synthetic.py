@@ -159,6 +159,80 @@ def random_csr_trie(
     return out
 
 
+def synthetic_chain_trie(
+    n_edges: int,
+    chain_fraction: float = 0.75,
+    chain_len: int = 16,
+    root_fanout: int = 0,
+    fanout: int = 4,
+    n_items: int = 0,
+    seed: int = 0,
+) -> Dict[str, np.ndarray]:
+    """Chain-heavy trie, the shape the path-compressed layout targets: a
+    ``root_fanout``-child hub (default ``min(128, max(8, n_edges // 64))``),
+    then each frontier node grows either a single-child chain of
+    ``chain_len // 2 + 1 .. chain_len + 1`` steps (probability
+    ``chain_fraction``) or a ``fanout``-way branch.  The draws follow the
+    reference generator's order, so a seed gives the same trie."""
+    from collections import deque
+
+    rng = np.random.RandomState(seed)
+    if root_fanout <= 0:
+        root_fanout = min(128, max(8, n_edges // 64))
+    if n_items <= 0:
+        n_items = max(root_fanout, 2 * fanout)
+    parent_l = [-1]
+    item_l = [-1]
+    depth_l = [0]
+    nid = 1
+    frontier: deque = deque()
+    for i in range(min(root_fanout, n_edges, n_items)):
+        parent_l.append(0)
+        item_l.append(i)
+        depth_l.append(1)
+        frontier.append(nid)
+        nid += 1
+    while nid <= n_edges and frontier:
+        p = frontier.popleft()
+        if rng.rand() < chain_fraction:
+            run = 1 + rng.randint(max(chain_len // 2, 1), chain_len + 1)
+            for _ in range(run):
+                if nid > n_edges:
+                    break
+                parent_l.append(p)
+                item_l.append(int(rng.randint(n_items)))
+                depth_l.append(depth_l[p] + 1)
+                p = nid
+                nid += 1
+            frontier.append(p)   # the tail keeps growing later
+        else:
+            k = min(fanout, n_items)
+            for it in rng.choice(n_items, size=k, replace=False):
+                if nid > n_edges:
+                    break
+                parent_l.append(p)
+                item_l.append(int(it))
+                depth_l.append(depth_l[p] + 1)
+                frontier.append(nid)
+                nid += 1
+    n_nodes = nid
+    parent = np.asarray(parent_l, np.int32)
+    item = np.asarray(item_l, np.int32)
+    depth = np.asarray(depth_l, np.int32)
+    edge_parent = parent[1:]
+    edge_item = item[1:]
+    edge_child = np.arange(1, n_nodes, dtype=np.int32)
+    order = np.lexsort((edge_item, edge_parent))
+    conf = rng.rand(n_nodes).astype(np.float32) * 0.9 + 0.05
+    sup = rng.rand(n_nodes).astype(np.float32) * 0.9 + 0.05
+    lift = rng.rand(n_nodes).astype(np.float32) * 2
+    return _layout_fields(
+        parent, item, depth, edge_parent[order].copy(),
+        edge_item[order].copy(), edge_child[order].copy(),
+        conf, sup, lift, n_items,
+    )
+
+
 def mixed_queries(
     rng, arrs: Dict[str, np.ndarray], q: int, width: int
 ) -> Tuple[np.ndarray, np.ndarray]:

@@ -3,6 +3,8 @@ hand-written for Hopper, and the ops over them.
 
 - ``rank.topk_rank_batch``          segmented top-k over DFS ranges (CUDA)
 - ``rule_search.rule_search_fused`` CSR descent + Eq. 1-4 lift (CUDA)
+- ``rule_search.rule_search_span`` the same on the path-compressed layout
+  (CUDA)
 - ``item_index.rules_with_member``  item-membership top-k (CUDA)
 - ``trie_reduce.trie_reduce_columns`` masked traversal reduction (Triton)
 - ``support_count.support_count_bitmap`` itemset support over the vertical
@@ -10,12 +12,13 @@ hand-written for Hopper, and the ops over them.
 
 Each wrapper runs its kernel on CUDA tensors and its plain PyTorch version
 (``ref``) on CPU tensors, and counts its kernel launches in a plain
-integer attribute ``launches``.
+integer attribute ``launches``.  The rank, membership, span-search and
+reduction kernels take quantized metric columns and widen them in-kernel.
 """
 from .item_index import ROLES, rules_with_member
 from .metrics_inkernel import RANK_METRICS
 from .rank import topk_rank_batch
-from .rule_search import rule_search_fused
+from .rule_search import rule_search_fused, rule_search_span
 from .support_count import support_count_bitmap
 from .trie_reduce import trie_reduce_columns
 from .tuning import KernelConfig, launch_pad
@@ -45,6 +48,7 @@ from .ops import (
 KERNELS = {
     "topk_rank_batch": topk_rank_batch,
     "rule_search_fused": rule_search_fused,
+    "rule_search_span": rule_search_span,
     "rules_with_member": rules_with_member,
     "trie_reduce_columns": trie_reduce_columns,
     "support_count_bitmap": support_count_bitmap,
@@ -87,6 +91,7 @@ __all__ = [
     "rules_with",
     "rules_with_member",
     "rule_search_fused",
+    "rule_search_span",
     "support_count",
     "support_count_bitmap",
     "top_k_rules",

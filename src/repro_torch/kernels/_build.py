@@ -31,25 +31,33 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
+# quantized metric columns: three pointers, the support and confidence/lift
+# storage codes, then 1 / n_transactions and the two int8 scales
+_COLUMNS = (_P, _P, _P, _I, _I, _F, _F, _F)
 
 # C entry points: library -> {function: argtypes}; each returns the first
 # non-zero cudaError_t of its launches (0 on success).
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "rank": {
         "topk_rank_batch_launch": (
-            _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+            *_COLUMNS, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
             _P, _P, _P, _P, _P, _L, _P, _P, _P,
         ),
     },
     "item_index": {
         "rules_with_launch": (
-            _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+            *_COLUMNS, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
             _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _P, _P, _P,
         ),
     },
     "rule_search": {
         "rule_search_fused_launch": (
             _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+            _P, _P, _P, _P, _P, _P, _P,
+        ),
+        "rule_search_span_launch": (
+            _P, _P, _P, _P, _P, _P, *_COLUMNS, _P, _P, _I, _I,
             _P, _P, _P, _P, _P, _P, _P,
         ),
     },

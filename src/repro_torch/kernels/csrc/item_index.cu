@@ -10,6 +10,11 @@
 // so two binary searches per position; the antecedent role subtracts the
 // node's own entry.
 //
+// Quantized columns (the compressed layout) are widened in the score pass,
+// as in rank.cu.  On that layout the consequent role runs here too (there
+// is no posting-ordered column block): its test is the node_item
+// self-hit alone.
+//
 // What bounds it here: memory.  Every query visits all N positions (the
 // candidate set is scattered over the DFS order), so the columns are read
 // once into a masked score column (4 bytes per position, in L2 up to ~12 M
@@ -71,8 +76,10 @@ struct MemberSource {
 };
 
 extern "C" int rules_with_launch(
-    const float* sup, const float* conf, const float* lift, const int* depth,
-    const int* node_item, int n, const int* post_lo, const int* post_hi,
+    const void* sup, const void* conf, const void* lift, int sup_type,
+    int col_type, float inv_n, float conf_scale, float lift_scale,
+    const int* depth, const int* node_item, int n, const int* post_lo,
+    const int* post_hi,
     const int* plos, const int* phis, const int* items, int q, int k,
     int metric, int min_depth, int role, int n_chunks, int tiles_per_chunk,
     float* scores, unsigned long long* keys_a, float* vals_a,
@@ -83,8 +90,9 @@ extern "C" int rules_with_launch(
     long long blocks = (long long)q * n_chunks;
     if (blocks > 0x7fffffffLL || blocks * kk > scratch_cap)
         return (int)cudaErrorInvalidValue;
-    cudaError_t err = launch_scores(sup, conf, lift, depth, n, metric,
-                                    min_depth, scores, s);
+    MetricColumns m{sup, conf, lift, sup_type, col_type,
+                    inv_n, conf_scale, lift_scale};
+    cudaError_t err = launch_scores(m, depth, n, metric, min_depth, scores, s);
     if (err != cudaSuccess) return (int)err;
     MemberSource src{scores, node_item, post_lo, post_hi, plos, phis, items,
                      n, role};

@@ -5,14 +5,19 @@
 // rank_score(metric) over the DFS range [lo, hi), nodes at depth >= min_depth
 // only, in (value desc, position asc) order with (-inf, -1) empty slots.
 //
-// What bounds it here: memory.  The columns (16 bytes per position: three
-// f32 metrics and the int32 depth) are read once into the masked score
-// column, then each query reads 4 bytes per position of its range; the few
-// flops per position are far below the card's rate.  The TPU kernel sweeps all N
-// positions for every query and masks outside [lo, hi); here each query's
-// blocks cover only its own range, and a block streams its chunk of tiles
-// once, sorting only the few positions that beat its running k-th best
-// (topk_select.cuh), then pairwise merges in global memory take any k.
+// Quantized columns (the compressed layout: int32 support counts, bf16 or
+// int8 confidence and lift) are read in their storage types and widened in
+// the score pass (topk_select.cuh), as the TPU kernel widens them per tile.
+//
+// What bounds it here: memory.  The columns (at most 16 bytes per
+// position: three f32 metrics and the int32 depth) are read once into the
+// masked score column, then each query reads 4 bytes per position of its
+// range; the few flops per position are far below the card's rate.  The
+// TPU kernel sweeps all N positions for every query and masks outside
+// [lo, hi); here each query's blocks cover only its own range, and a block
+// streams its chunk of tiles once, sorting only the few positions that beat
+// its running k-th best (topk_select.cuh), then pairwise merges in global
+// memory take any k.
 #include "topk_select.cuh"
 
 struct RangeSource {
@@ -31,8 +36,10 @@ struct RangeSource {
 };
 
 extern "C" int topk_rank_batch_launch(
-    const float* sup, const float* conf, const float* lift, const int* depth,
-    int n, const int* los, const int* his, int q, int k, int metric,
+    const void* sup, const void* conf, const void* lift, int sup_type,
+    int col_type, float inv_n, float conf_scale, float lift_scale,
+    const int* depth, int n, const int* los, const int* his, int q, int k,
+    int metric,
     int min_depth, int n_chunks, int tiles_per_chunk, float* scores,
     unsigned long long* keys_a, float* vals_a, unsigned long long* keys_b,
     float* vals_b, long long scratch_cap, float* out_vals, int* out_pos,
@@ -42,8 +49,9 @@ extern "C" int topk_rank_batch_launch(
     long long blocks = (long long)q * n_chunks;
     if (blocks > 0x7fffffffLL || blocks * kk > scratch_cap)
         return (int)cudaErrorInvalidValue;
-    cudaError_t err = launch_scores(sup, conf, lift, depth, n, metric,
-                                    min_depth, scores, s);
+    MetricColumns m{sup, conf, lift, sup_type, col_type,
+                    inv_n, conf_scale, lift_scale};
+    cudaError_t err = launch_scores(m, depth, n, metric, min_depth, scores, s);
     if (err != cudaSuccess) return (int)err;
     RangeSource src{scores, los, his};
     chunk_topk_kernel<RangeSource><<<(unsigned int)blocks, RT_THREADS, 0, s>>>(

@@ -1,3 +1,6 @@
+// Rule-search kernels: the fused CSR search of the plain layout, and the
+// span search of the path-compressed layout.
+//
 // Fused rule-search kernel.
 //
 // Replaces the TPU kernel repro/kernels/rule_search.py::rule_search_fused_pallas:
@@ -102,4 +105,143 @@ extern "C" int rule_search_fused_launch(
         co, edge_item, edge_child, edge_conf, edge_sup, edge_lift, queries,
         ant_len, q, width, node, found, conf, sup, lift, con_sup);
     return (int)cudaGetLastError();
+}
+
+// Span rule-search kernel (the path-compressed layout).
+//
+// Replaces the TPU kernel repro/kernels/rule_search.py::rule_search_span_pallas:
+// the same two walks per query row (the full path, and the consequent items
+// alone from the root) over the compressed layout, where every maximal
+// single-child run is a contiguous DFS interval and only run heads, tails
+// and branching nodes keep a CSR row.  Per walk the state is (pos, rem,
+// ctail): the DFS position reached, the span steps left before the next CSR
+// node, and the compressed id of the run's tail.  Inside a span (rem > 0)
+// a step is one gather, node_item[pos + 1]; at a CSR node it is bucket_find
+// over child_offsets[ctail]..[ctail + 1] on edge_item, then three gathers
+// (edge_pos, edge_span, edge_tail).  A compressed bucket is item-sorted
+// and item-unique (compress_pos_space sorts it by (parent, item)), so the
+// binary search finds the edge the TPU kernel's masked max over block_f
+// lanes finds.  The metric columns are indexed by DFS position and arrive
+// in their storage types (f32, int32 counts or bf16 support; f32, bf16 or
+// int8 confidence and lift), widened per gather (metrics.cuh).  The
+// confidence product runs over the consequent steps; Eq. 1-4 lift is
+// selected in-kernel.  Outputs: found, pos (a DFS position, -1 when
+// absent), conf, sup, lift and con_support.
+//
+// What bounds it here: memory latency, as in the fused kernel: a chain of
+// dependent gathers per row (about 2 x width), one thread per row.  The
+// TPU knob span_bf sized the VMEM lanes of the bucket scan; a binary search
+// has no such width, so it is not carried over.
+struct SpanState {
+    int pos, rem, ctail;
+};
+
+// One item of the span-aware descent; false (state unchanged) on a miss.
+__device__ __forceinline__ bool span_step(
+    SpanState& st, int item, const int* __restrict__ co,
+    const int* __restrict__ ei, const int* __restrict__ epos,
+    const int* __restrict__ espan, const int* __restrict__ etail,
+    const int* __restrict__ node_item) {
+    if (st.rem > 0) {
+        if (node_item[st.pos + 1] != item) return false;
+        ++st.pos;
+        --st.rem;
+        return true;
+    }
+    int j = bucket_find(co, ei, st.ctail, item);
+    if (j < 0) return false;
+    st.pos = epos[j];
+    st.rem = espan[j];
+    st.ctail = etail[j];
+    return true;
+}
+
+template <class S, class C>
+__global__ void __launch_bounds__(RS_THREADS)
+rule_search_span_kernel(const int* __restrict__ co, const int* __restrict__ ei,
+                        const int* __restrict__ epos,
+                        const int* __restrict__ espan,
+                        const int* __restrict__ etail,
+                        const int* __restrict__ node_item,
+                        const S* __restrict__ sup, const C* __restrict__ conf,
+                        const C* __restrict__ lift, float inv_n,
+                        float conf_scale, float lift_scale,
+                        const int* __restrict__ queries,
+                        const int* __restrict__ ant_len, int q, int width,
+                        int* __restrict__ pos_out, int* __restrict__ found_out,
+                        float* __restrict__ conf_out,
+                        float* __restrict__ sup_out,
+                        float* __restrict__ lift_out,
+                        float* __restrict__ csup_out) {
+    int r = blockIdx.x * RS_THREADS + threadIdx.x;
+    if (r >= q) return;
+    const int* row = queries + (long long)r * width;
+    const int al = ant_len[r];
+
+    SpanState st{0, 0, 0}, cst{0, 0, 0};
+    bool ok = true, cok = true;
+    int seq_len = 0;
+    float cf = 1.0f;
+    for (int s = 0; s < width; ++s) {
+        int item = row[s];
+        if (item < 0) continue;
+        ++seq_len;
+        bool in_cons = s >= al;
+        if (ok) {
+            ok = span_step(st, item, co, ei, epos, espan, etail, node_item);
+            if (ok && in_cons)
+                cf = __fmul_rn(cf, dequantize(conf[st.pos], conf_scale));
+        }
+        if (in_cons && cok)
+            cok = span_step(cst, item, co, ei, epos, espan, etail, node_item);
+    }
+    bool found = ok && st.pos > 0;
+    float con_sup =
+        (cok && cst.pos > 0) ? dequantize(sup[cst.pos], inv_n) : 0.0f;
+    float fconf = found ? cf : 0.0f;
+    float nlift = found ? dequantize(lift[st.pos], lift_scale) : 0.0f;
+    pos_out[r] = found ? st.pos : -1;
+    found_out[r] = found ? 1 : 0;
+    conf_out[r] = fconf;
+    sup_out[r] = found ? dequantize(sup[st.pos], inv_n) : 0.0f;
+    lift_out[r] = compound_lift(found, seq_len - al == 1, nlift, fconf,
+                                con_sup);
+    csup_out[r] = con_sup;
+}
+
+struct SpanArgs {
+    const int *co, *edge_item, *edge_pos, *edge_span, *edge_tail, *node_item;
+    const void *sup, *conf, *lift;
+    float inv_n, conf_scale, lift_scale;
+    const int *queries, *ant_len;
+    int q, width;
+    int *pos, *found;
+    float *conf_out, *sup_out, *lift_out, *csup_out;
+};
+
+template <class S, class C>
+static cudaError_t launch_span_typed(const SpanArgs& a, cudaStream_t stream) {
+    int blocks = (a.q + RS_THREADS - 1) / RS_THREADS;
+    rule_search_span_kernel<S, C><<<blocks, RS_THREADS, 0, stream>>>(
+        a.co, a.edge_item, a.edge_pos, a.edge_span, a.edge_tail, a.node_item,
+        (const S*)a.sup, (const C*)a.conf, (const C*)a.lift, a.inv_n,
+        a.conf_scale, a.lift_scale, a.queries, a.ant_len, a.q, a.width,
+        a.pos, a.found, a.conf_out, a.sup_out, a.lift_out, a.csup_out);
+    return cudaGetLastError();
+}
+
+extern "C" int rule_search_span_launch(
+    const int* co, const int* edge_item, const int* edge_pos,
+    const int* edge_span, const int* edge_tail, const int* node_item,
+    const void* sup, const void* conf, const void* lift, int sup_type,
+    int col_type, float inv_n, float conf_scale, float lift_scale,
+    const int* queries, const int* ant_len, int q, int width, int* pos,
+    int* found, float* conf_out, float* sup_out, float* lift_out,
+    float* con_sup, void* stream) {
+    SpanArgs a{co, edge_item, edge_pos, edge_span, edge_tail, node_item,
+               sup, conf, lift, inv_n, conf_scale, lift_scale, queries,
+               ant_len, q, width, pos, found, conf_out, sup_out, lift_out,
+               con_sup};
+    cudaStream_t s = (cudaStream_t)stream;
+    RT_DISPATCH_COLUMNS(sup_type, col_type, launch_span_typed, a, s)
 }

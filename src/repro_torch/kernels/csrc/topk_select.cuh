@@ -9,8 +9,8 @@
 // A masked or -inf candidate is the empty key ~0.
 //
 // Pass 0: the masked score column, once per call (-inf below min_depth),
-// so that the Q queries each read 4 bytes per position instead of the 16
-// of the metric columns and depth; it fits L2 up to ~12 M positions.
+// so that the Q queries each read 4 bytes per position instead of the
+// metric's columns and depth; it fits L2 up to ~12 M positions.
 // Pass 1 (one block per (query, chunk of tiles)): stream the chunk's tiles
 // of TILE positions, keep the chunk's best kk = min(k, chunk length) sorted
 // -- in shared memory while kk <= TILE, else in the block's slices of the
@@ -40,25 +40,64 @@ __device__ __forceinline__ unsigned long long topk_key(float score, int pos) {
     return ((unsigned long long)(~u) << 32) | (unsigned int)pos;
 }
 
+// Pass 0 reads the metric columns in their storage types (S: f32, int32
+// counts or bf16 support; C: f32, bf16 or int8 confidence and lift) and
+// widens them in registers (metrics.cuh::dequantize), so a quantized
+// trie's columns are never copied to f32 in device memory.  It loads only
+// the columns the metric reads (metric_reads_*: the branch is uniform
+// across the grid), and none below min_depth.
+template <class S, class C>
 __global__ void __launch_bounds__(RT_THREADS)
-score_kernel(const float* __restrict__ sup, const float* __restrict__ conf,
-             const float* __restrict__ lift, const int* __restrict__ depth,
-             int n, int metric, int min_depth, float* __restrict__ out) {
+score_kernel(const S* __restrict__ sup, const C* __restrict__ conf,
+             const C* __restrict__ lift, const int* __restrict__ depth,
+             int n, int metric, int min_depth, float inv_n, float conf_scale,
+             float lift_scale, float* __restrict__ out) {
     int i = blockIdx.x * RT_THREADS + threadIdx.x;
-    if (i < n)
-        out[i] = depth[i] >= min_depth
-                     ? rank_score(metric, sup[i], conf[i], lift[i])
-                     : -INFINITY;
+    if (i >= n) return;
+    float score = -INFINITY;
+    if (depth[i] >= min_depth) {
+        float s = metric_reads_support(metric) ? dequantize(sup[i], inv_n)
+                                               : 0.0f;
+        float c = metric_reads_confidence(metric)
+                      ? dequantize(conf[i], conf_scale)
+                      : 0.0f;
+        float l = metric_reads_lift(metric) ? dequantize(lift[i], lift_scale)
+                                            : 0.0f;
+        score = rank_score(metric, s, c, l);
+    }
+    out[i] = score;
 }
 
-static cudaError_t launch_scores(const float* sup, const float* conf,
-                                 const float* lift, const int* depth, int n,
-                                 int metric, int min_depth, float* scores,
-                                 cudaStream_t stream) {
-    score_kernel<<<(n + RT_THREADS - 1) / RT_THREADS, RT_THREADS, 0,
-                   stream>>>(sup, conf, lift, depth, n, metric, min_depth,
-                             scores);
+// The metric columns and how to widen them: storage type codes
+// (metrics.cuh) and the three dequantization scalars.
+struct MetricColumns {
+    const void* sup;
+    const void* conf;
+    const void* lift;
+    int sup_type;
+    int col_type;
+    float inv_n;
+    float conf_scale;
+    float lift_scale;
+};
+
+template <class S, class C>
+static cudaError_t launch_scores_typed(const MetricColumns& m,
+                                       const int* depth, int n, int metric,
+                                       int min_depth, float* scores,
+                                       cudaStream_t stream) {
+    score_kernel<S, C><<<(n + RT_THREADS - 1) / RT_THREADS, RT_THREADS, 0,
+                         stream>>>(
+        (const S*)m.sup, (const C*)m.conf, (const C*)m.lift, depth, n,
+        metric, min_depth, m.inv_n, m.conf_scale, m.lift_scale, scores);
     return cudaGetLastError();
+}
+
+static cudaError_t launch_scores(const MetricColumns& m, const int* depth,
+                                 int n, int metric, int min_depth,
+                                 float* scores, cudaStream_t stream) {
+    RT_DISPATCH_COLUMNS(m.sup_type, m.col_type, launch_scores_typed, m,
+                        depth, n, metric, min_depth, scores, stream)
 }
 
 // Number of keys < key in a sorted list (empty keys sort last).

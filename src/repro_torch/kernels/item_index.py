@@ -14,7 +14,8 @@ an empty slice ``plos[q] == phis[q]`` plus an item id no node carries.
 On a CUDA tensor it launches the hand-written kernel in
 ``csrc/item_index.cu`` (replacing the TPU kernel
 ``repro.kernels.item_index.rules_with_pallas``); on a CPU tensor it runs
-the plain version ``ref.rules_with_ref``.
+the plain version ``ref.rules_with_ref``.  Quantized metric columns (the
+compressed layout) widen in the kernel's score pass, as in ``rank``.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch
 
 from . import _build
 from .metrics_inkernel import metric_index
-from .rank import TILE, _scratch, chunking
+from .rank import TILE, _scratch, chunking, metric_column_args
 from .ref import _empty_ranked, rules_with_ref
 
 ROLES = ("consequent", "antecedent", "any")
@@ -32,18 +33,21 @@ def rules_with_member(
     support, confidence, lift, depth, node_item, post_lo, post_hi,
     plos, phis, items,
     *, k: int, metric: str = "confidence", min_depth: int = 1,
-    role: str = "any",
+    role: str = "any", n_transactions: int = 0,
+    confidence_scale: float = 1.0, lift_scale: float = 1.0,
 ):
     """Top-k (scores, DFS positions) of the rules involving each queried
     item: ``(f32[Q, k], int32[Q, k])``."""
     if role not in ROLES:
         raise ValueError(f"role {role!r} not in {ROLES}")
     dev = support.device
+    dequant = dict(n_transactions=n_transactions,
+                   confidence_scale=confidence_scale, lift_scale=lift_scale)
     if dev.type == "cpu":
         return rules_with_ref(
             support, confidence, lift, depth, node_item, post_lo, post_hi,
             plos, phis, items, k=k, metric=metric, min_depth=min_depth,
-            role=role,
+            role=role, **dequant,
         )
     if dev.type != "cuda":
         raise ValueError(f"rules_with_member: unsupported device {dev}")
@@ -55,21 +59,22 @@ def rules_with_member(
     items = items.to(torch.int32).contiguous()
     _build.check_inputs(
         "rules_with_member", dev,
-        support=(support, torch.float32, 1),
-        confidence=(confidence, torch.float32, 1),
-        lift=(lift, torch.float32, 1), depth=(depth, torch.int32, 1),
+        support=(support, support.dtype, 1),
+        confidence=(confidence, confidence.dtype, 1),
+        lift=(lift, lift.dtype, 1), depth=(depth, torch.int32, 1),
         node_item=(node_item, torch.int32, 1),
         post_lo=(post_lo, torch.int32, 1), post_hi=(post_hi, torch.int32, 1),
         plos=(plos, torch.int32, 1), phis=(phis, torch.int32, 1),
         items=(items, torch.int32, 1),
     )
+    columns = metric_column_args("rules_with_member", support, confidence,
+                                 lift, **dequant)
     n_chunks, per_chunk, kk = chunking(q, -(-n // TILE), k)
     sc, ka, va, kb, vb, cap = _scratch(n, q, n_chunks, kk, k, dev)
     vals = torch.empty((q, k), dtype=torch.float32, device=dev)
     pos = torch.empty((q, k), dtype=torch.int32, device=dev)
     err = _build.lib("item_index").rules_with_launch(
-        support.data_ptr(), confidence.data_ptr(), lift.data_ptr(),
-        depth.data_ptr(), node_item.data_ptr(), n,
+        *columns, depth.data_ptr(), node_item.data_ptr(), n,
         post_lo.data_ptr(), post_hi.data_ptr(),
         plos.data_ptr(), phis.data_ptr(), items.data_ptr(),
         q, k, metric_index(metric), int(min_depth), ROLES.index(role),

@@ -16,9 +16,15 @@ hand-written kernel and on CPU tensors runs its plain version.
 vertical bitmaps, on ``device`` (CUDA unless named).
 
 ``trie`` is a ``DeviceTrie`` (its device decides) or a ``FrozenTrie``
-(uploaded to ``device``, CUDA unless named).  Sharded plans, streaming
-tries, the compressed layout and the seed layout without CSR offsets are
-later slices of the port and raise ``NotImplementedError``.
+(uploaded to ``device``, CUDA unless named).  A compressed ``DeviceTrie``
+(``FrozenTrie.device_arrays(layout="compressed" | "auto")``) runs every
+query op on its span layout: the search through
+``rule_search.rule_search_span``, the rankings over its DFS-ordered
+columns with no gathers, the consequent role of ``rules_with`` through
+the membership kernel, and its quantized columns widen inside every
+kernel (``_dequant_statics``).  Sharded plans, streaming tries and the
+seed layout without CSR offsets are later slices of the port and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from repro_torch.core.array_trie import (
     DeviceTrie,
     canonical_prefix_rows,
     child_lookup,
+    compressed_descend,
     resolve_device,
     sanitize_query_items,
 )
@@ -40,7 +47,7 @@ from .metrics_inkernel import RANK_METRICS, rank_score
 from .rank import topk_rank_batch
 from .ref import members_from_candidates  # noqa: F401  (the reference's ops name)
 from .ref import rules_with_ref, topk_rank_batch_ref
-from .rule_search import rule_search_fused
+from .rule_search import rule_search_fused, rule_search_span
 from .support_count import support_count_bitmap
 from .trie_reduce import trie_reduce_columns
 from .tuning import launch_pad
@@ -245,7 +252,7 @@ def dedup_query_rows(queries, ant_len):
 # ----------------------------------------------------------------------
 # residency
 # ----------------------------------------------------------------------
-def _require_plain(trie, op: str) -> None:
+def _require_supported(trie, op: str) -> None:
     kind = type(trie).__name__
     if kind == "ShardPlan":
         raise NotImplementedError(
@@ -255,10 +262,6 @@ def _require_plain(trie, op: str) -> None:
         raise NotImplementedError(
             f"{op}: streaming tries are ROADMAP slice 4 (streaming)"
         )
-    if getattr(trie, "layout", "plain") != "plain":
-        raise NotImplementedError(
-            f"{op}: the compressed layout is ROADMAP slice 3"
-        )
     if getattr(trie, "child_offsets", 0) is None:
         raise NotImplementedError(
             f"{op}: the seed layout without CSR offsets is ROADMAP Queue 2 "
@@ -267,10 +270,29 @@ def _require_plain(trie, op: str) -> None:
 
 
 def _device_trie(trie, device=None) -> DeviceTrie:
-    _require_plain(trie, "query")
+    _require_supported(trie, "query")
     if isinstance(trie, DeviceTrie):
         return trie
     return trie.device_arrays(device=device)
+
+
+def _is_compressed(trie) -> bool:
+    return getattr(trie, "layout", "plain") == "compressed"
+
+
+def _dequant_statics(src) -> Dict:
+    """The dequantization scalars of a compressed trie or of one of its
+    column dicts (f32 no-op defaults otherwise), passed to every rank,
+    membership, search and reduction call so quantized columns widen
+    in-kernel."""
+    get = src.get if isinstance(src, dict) else (
+        lambda k, d: getattr(src, k, d)
+    )
+    return {
+        "n_transactions": int(get("n_transactions", 0)),
+        "confidence_scale": float(get("confidence_scale", 1.0)),
+        "lift_scale": float(get("lift_scale", 1.0)),
+    }
 
 
 def _cached_device_trie(trie, arrays: Optional[Dict] = None, device=None):
@@ -443,8 +465,29 @@ def annotate_candidates(
 # ----------------------------------------------------------------------
 def edge_metric_arrays(trie, device=None) -> Dict:
     """Child-node metrics gathered onto the edges once, plus the CSR
-    bucket index the fused search descends."""
+    bucket index the fused search descends.
+
+    A compressed trie returns its span tables instead, marked
+    ``"layout": "compressed"``: the compressed CSR, the span edge columns
+    and the position-indexed (possibly quantized) metric columns, the
+    trie's own tensors with no gathers."""
     dt = _device_trie(trie, device)
+    if _is_compressed(dt):
+        return {
+            "layout": "compressed",
+            "child_offsets": dt.child_offsets,
+            "edge_item": dt.edge_item,
+            "edge_pos": dt.edge_child,
+            "edge_span": dt.edge_span,
+            "edge_tail": dt.edge_tail,
+            "node_item": dt.node_item,
+            "support": dt.support,
+            "confidence": dt.confidence,
+            "lift": dt.lift,
+            "dfs_to_node": dt.dfs_to_node,
+            "max_fanout": int(dt.max_fanout),
+            **_dequant_statics(dt),
+        }
     safe_child = dt.edge_child.clamp(min=0).long()
     return {
         "edge_item": dt.edge_item,
@@ -463,7 +506,7 @@ def rule_search(
     """Rule search with full paper metrics (compound lift included) for
     canonical int32 rows ``[Q, L]`` (-1 padded): one fused kernel call.
     Returns found/node/support/confidence/lift, each ``[Q]``."""
-    _require_plain(trie, "rule_search")
+    _require_supported(trie, "rule_search")
     if edges is None:
         edges = edge_metric_arrays(trie, device)
     dev = edges["edge_item"].device
@@ -475,6 +518,23 @@ def rule_search(
             "found": torch.zeros((0,), dtype=torch.bool, device=dev),
             "node": torch.zeros((0,), dtype=torch.int32, device=dev),
             "support": z, "confidence": z, "lift": z,
+        }
+    if edges.get("layout") == "compressed":
+        out = rule_search_span(
+            edges["child_offsets"], edges["edge_item"], edges["edge_pos"],
+            edges["edge_span"], edges["edge_tail"], edges["node_item"],
+            edges["support"], edges["confidence"], edges["lift"],
+            queries, ant_len, max_fanout=edges["max_fanout"],
+            **_dequant_statics(edges),
+        )
+        # the span kernel answers DFS positions (-1 when absent); the op
+        # answers node ids
+        return {
+            "found": out["found"],
+            "node": _back_map(out["pos"], edges["dfs_to_node"]),
+            "support": out["support"],
+            "confidence": out["confidence"],
+            "lift": out["lift"],
         }
     out = rule_search_fused(
         edges["child_offsets"], edges["edge_item"], edges["edge_child"],
@@ -494,7 +554,7 @@ def rule_search_batch(
     ``FrozenTrie.canonicalize_queries``) or a canonical ``[Q, L]`` matrix
     with ``ant_len``.  The batch dedups to its unique rows and scatters
     results back."""
-    _require_plain(trie, "rule_search_batch")
+    _require_supported(trie, "rule_search_batch")
     if ant_len is None and not isinstance(queries, np.ndarray):
         queries = list(queries)
         validate_rule_pairs(
@@ -530,13 +590,27 @@ def rule_search_batch(
 # ranked extraction over the DFS-contiguous layout
 # ----------------------------------------------------------------------
 def dfs_rank_arrays(trie, device=None) -> Dict[str, torch.Tensor]:
-    """DFS-ordered rank columns and the DFS relabeling, gathered once."""
+    """DFS-ordered rank columns and the DFS relabeling, gathered once.  On
+    a compressed trie the node axis already is DFS order: the columns are
+    the trie's own (possibly quantized) tensors, so no f32 copy of a
+    quantized column is made, and the dict carries the dequantization
+    scalars."""
     dt = _device_trie(trie, device)
     if dt.dfs_to_node is None:
         raise ValueError(
             "trie has no DFS layout (dfs_to_node is None); build it with "
             "FrozenTrie or array_trie.dfs_layout first"
         )
+    if _is_compressed(dt):
+        return {
+            "support": dt.support,
+            "confidence": dt.confidence,
+            "lift": dt.lift,
+            "depth": dt.node_depth,
+            "subtree_size": dt.subtree_size,
+            "dfs_to_node": dt.dfs_to_node,
+            **_dequant_statics(dt),
+        }
     d2n = dt.dfs_to_node.long()
     return {
         "support": dt.support[d2n],
@@ -569,9 +643,11 @@ def prefix_ranges(trie, prefixes, dt: Optional[DeviceTrie] = None,
         mat[i, : len(r)] = r
     if dt is None:
         dt = _device_trie(trie, device)
-    _require_plain(dt, "prefix_ranges")
-    n = dt.dfs_order.shape[0]
+    _require_supported(dt, "prefix_ranges")
     cols = _int32(mat, dt.device)
+    if _is_compressed(dt):
+        return _compressed_prefix_ranges(dt, cols)
+    n = dt.dfs_order.shape[0]
     nodes = torch.zeros((q,), dtype=torch.int32, device=dt.device)
     for c in range(width):
         col = cols[:, c]
@@ -584,6 +660,19 @@ def prefix_ranges(trie, prefixes, dt: Optional[DeviceTrie] = None,
     his = torch.where(ok, los + dt.subtree_size[nid], 0).to(torch.int32)
     his = his.clamp(max=n)
     return los, his, torch.where(ok, nodes, -1)
+
+
+def _compressed_prefix_ranges(dt: DeviceTrie, cols):
+    """The span-aware prefix descent: positions are DFS indices on this
+    layout, so the range is ``[pos, pos + subtree_size[pos])``."""
+    n = dt.subtree_size.shape[0]
+    # only -1 is padding; other negatives are live (absent) items
+    pos, ok = compressed_descend(dt, cols, pad=-1)
+    pl = pos.long()
+    los = torch.where(ok, pos, 0).to(torch.int32)
+    his = torch.where(ok, pos + dt.subtree_size[pl], 0).to(torch.int32)
+    nodes = torch.where(ok, dt.dfs_to_node[pl], -1).to(torch.int32)
+    return los, his.clamp(max=n), nodes
 
 
 def top_k_rules(
@@ -620,7 +709,7 @@ def top_k_rules_batch(
     if metric not in RANK_METRICS:
         raise InvalidQueryError(f"metric {metric!r} not in {RANK_METRICS}")
     _validate_k(k, "top_k_rules_batch")
-    _require_plain(trie, "top_k_rules_batch")
+    _require_supported(trie, "top_k_rules_batch")
     if not isinstance(prefixes, np.ndarray):
         prefixes = list(prefixes)
     validate_prefixes(
@@ -646,6 +735,7 @@ def top_k_rules_batch(
         arrays["support"], arrays["confidence"], arrays["lift"],
         arrays["depth"], los, his,
         k=int(k), metric=metric, min_depth=int(min_depth),
+        **_dequant_statics(arrays),
     )
     return {
         "values": vals,
@@ -662,8 +752,13 @@ def item_rank_arrays(trie, device=None) -> Dict:
     columns, the posting subtree ranges (``post_lo`` ascending per item,
     ``post_hi`` sorted per item here, so both sides of the laminar count
     are binary-searchable), and posting-ordered columns for the
-    consequent role.  ``item_offsets`` stays on the host."""
-    _require_plain(trie, "item_rank_arrays")
+    consequent role.  ``item_offsets`` stays on the host.
+
+    A compressed trie carries its posting ranges and DFS-ordered columns
+    already: the dict holds its own tensors, no posting-ordered block (the
+    consequent role then runs through the membership kernel) and the
+    dequantization scalars."""
+    _require_supported(trie, "item_rank_arrays")
     if getattr(trie, "item_offsets", None) is None:
         raise ValueError(
             "trie has no item-inverted index (item_offsets is None)"
@@ -672,6 +767,21 @@ def item_rank_arrays(trie, device=None) -> Dict:
     def host(a):
         return a.cpu().numpy() if isinstance(a, torch.Tensor) else \
             np.asarray(a)
+
+    if _is_compressed(trie):
+        return {
+            "support": trie.support,
+            "confidence": trie.confidence,
+            "lift": trie.lift,
+            "depth": trie.node_depth,
+            "node_item": trie.node_item,
+            "post_lo": trie.post_lo,
+            "post_hi": trie.post_hi,
+            "item_offsets": host(trie.item_offsets),
+            "dfs_to_node": trie.dfs_to_node,
+            "max_postings": int(trie.max_postings),
+            **_dequant_statics(trie),
+        }
 
     dev = trie.device if isinstance(trie, DeviceTrie) else \
         resolve_device(device)
@@ -755,16 +865,18 @@ def rules_with(
     """Top-k rules involving each queried item, Q items in one kernel
     call.  ``role="consequent"`` ranks the item's posting range with the
     rank kernel over posting-ordered columns; the antecedent and any roles
-    go through the membership kernel.  Returns ``{"values" f32[Q, k],
-    "node" int32[Q, k], "pos" int32[Q, k]}`` (``pos``: posting index for
-    the consequent role, DFS position otherwise).  Duplicate items dedup
-    before the launch and expand back after it."""
+    go through the membership kernel, and so does the consequent role on
+    a compressed trie, which has no posting-ordered columns.  Returns
+    ``{"values" f32[Q, k], "node" int32[Q, k], "pos" int32[Q, k]}``
+    (``pos``: posting index for the consequent role on the plain layout,
+    DFS position otherwise).  Duplicate items dedup before the launch and
+    expand back after it."""
     if role not in ROLES:
         raise InvalidQueryError(f"role {role!r} not in {ROLES}")
     if metric not in RANK_METRICS:
         raise InvalidQueryError(f"metric {metric!r} not in {RANK_METRICS}")
     _validate_k(k, "rules_with")
-    _require_plain(trie, "rules_with")
+    _require_supported(trie, "rules_with")
     if arrays is None:
         arrays = item_rank_arrays(trie, device)
     items = validate_items(
@@ -778,7 +890,7 @@ def rules_with(
     )
     dev = arrays["support"].device
     plos_t, phis_t = _int32(plos, dev), _int32(phis, dev)
-    if role == "consequent":
+    if role == "consequent" and "p_support" in arrays:
         rank_fn = topk_rank_batch if use_kernel else topk_rank_batch_ref
         vals, pos = rank_fn(
             arrays["p_support"], arrays["p_confidence"], arrays["p_lift"],
@@ -794,6 +906,7 @@ def rules_with(
             arrays["post_lo"], arrays["post_hi"],
             plos_t, phis_t, _int32(qitems, dev),
             k=int(k), metric=metric, min_depth=int(min_depth), role=role,
+            **_dequant_statics(arrays),
         )
         back = arrays["dfs_to_node"]
     inv_t = torch.as_tensor(np.asarray(inv).reshape(-1), device=dev).long()
@@ -809,8 +922,11 @@ def trie_reduce(trie, device=None) -> Dict[str, torch.Tensor]:
     """The visit-every-rule pass: ``n_rules``, ``support_sum``,
     ``confidence_max`` and ``mean_conf`` as f32 scalars."""
     dt = _device_trie(trie, device)
+    dq = _dequant_statics(dt)
     n, sup_sum, conf_max, conf_sum = trie_reduce_columns(
-        dt.support, dt.confidence, dt.node_depth
+        dt.support, dt.confidence, dt.node_depth,
+        n_transactions=dq["n_transactions"],
+        confidence_scale=dq["confidence_scale"],
     )
     return {
         "n_rules": n,

@@ -10,14 +10,18 @@ posting list in posting order is another.
 On a CUDA tensor it launches the hand-written kernel in ``csrc/rank.cu``
 (replacing the TPU kernel ``repro.kernels.rank.topk_rank_batch_pallas``);
 on a CPU tensor it runs the plain version ``ref.topk_rank_batch_ref``.
-``rank_merge`` is the reference's k-best list merge as a tensor op.
+The metric columns may be the compressed layout's quantized storage
+(int32 support counts, bf16 or int8 confidence and lift): the kernel
+widens them in its score pass, with ``n_transactions`` and the int8
+scales, as the TPU kernel does.  ``rank_merge`` is the reference's k-best
+list merge as a tensor op.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .metrics_inkernel import metric_index
+from .metrics_inkernel import count_reciprocal, metric_index, storage_codes
 from .ref import _empty_ranked, topk_rank_batch_ref
 
 TILE = 1024   # positions per selection tile (RT_TILE in topk_select.cuh)
@@ -71,17 +75,34 @@ def _scratch(n: int, q: int, n_lists: int, kk: int, k: int, device):
     )
 
 
+def metric_column_args(what, support, confidence, lift, n_transactions,
+                       confidence_scale, lift_scale) -> tuple:
+    """The eight leading arguments of a launch that widens metric columns
+    (``_build._COLUMNS``): pointers, storage codes, dequant scalars.  The
+    caller has checked device, rank and contiguity (``check_inputs``)."""
+    sup_t, col_t = storage_codes(what, support, confidence, lift)
+    return (
+        support.data_ptr(), confidence.data_ptr(), lift.data_ptr(),
+        sup_t, col_t, count_reciprocal(n_transactions),
+        float(confidence_scale), float(lift_scale),
+    )
+
+
 def topk_rank_batch(
     support, confidence, lift, depth, los, his,
     *, k: int, metric: str = "confidence", min_depth: int = 1,
+    n_transactions: int = 0, confidence_scale: float = 1.0,
+    lift_scale: float = 1.0,
 ):
     """Top-k of every DFS range ``[los[q], his[q])``: ``(f32[Q, k],
     int32[Q, k])``."""
     dev = support.device
+    dequant = dict(n_transactions=n_transactions,
+                   confidence_scale=confidence_scale, lift_scale=lift_scale)
     if dev.type == "cpu":
         return topk_rank_batch_ref(
             support, confidence, lift, depth, los, his,
-            k=k, metric=metric, min_depth=min_depth,
+            k=k, metric=metric, min_depth=min_depth, **dequant,
         )
     if dev.type != "cuda":
         raise ValueError(f"topk_rank_batch: unsupported device {dev}")
@@ -92,19 +113,20 @@ def topk_rank_batch(
     his = his.to(torch.int32).clamp(max=n).contiguous()
     _build.check_inputs(
         "topk_rank_batch", dev,
-        support=(support, torch.float32, 1),
-        confidence=(confidence, torch.float32, 1),
-        lift=(lift, torch.float32, 1), depth=(depth, torch.int32, 1),
+        support=(support, support.dtype, 1),
+        confidence=(confidence, confidence.dtype, 1),
+        lift=(lift, lift.dtype, 1), depth=(depth, torch.int32, 1),
         los=(los, torch.int32, 1), his=(his, torch.int32, 1),
     )
+    columns = metric_column_args("topk_rank_batch", support, confidence,
+                                 lift, **dequant)
     span = int((his - los).clamp(min=0).max())
     n_chunks, per_chunk, kk = chunking(q, -(-span // TILE), k)
     sc, ka, va, kb, vb, cap = _scratch(n, q, n_chunks, kk, k, dev)
     vals = torch.empty((q, k), dtype=torch.float32, device=dev)
     pos = torch.empty((q, k), dtype=torch.int32, device=dev)
     err = _build.lib("rank").topk_rank_batch_launch(
-        support.data_ptr(), confidence.data_ptr(), lift.data_ptr(),
-        depth.data_ptr(), n, los.data_ptr(), his.data_ptr(),
+        *columns, depth.data_ptr(), n, los.data_ptr(), his.data_ptr(),
         q, k, metric_index(metric), int(min_depth), n_chunks, per_chunk,
         sc.data_ptr(), ka.data_ptr(), va.data_ptr(), kb.data_ptr(),
         vb.data_ptr(), cap,

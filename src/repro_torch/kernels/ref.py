@@ -9,6 +9,11 @@ them on the card.
 Ranked results follow ``jax.lax.top_k`` order: value descending, ties by
 ascending position (a stable descending sort over ascending positions),
 with ``(-inf, -1)`` in slots past the live count.
+
+The ranking, membership, span-search and reduction versions take the
+compressed layout's quantized storage columns (int32 support counts, bf16
+or int8 confidence and lift) and widen them with
+``metrics_inkernel.dequantize_metrics``, as their kernels do.
 """
 from __future__ import annotations
 
@@ -16,9 +21,9 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.core.array_trie import bucket_edge_lookup
+from repro_torch.core.array_trie import bucket_edge_lookup, span_step
 
-from .metrics_inkernel import compound_lift, rank_score
+from .metrics_inkernel import compound_lift, dequantize_metrics, rank_score
 
 # masked [rows, N] score block size the plain rankings materialize at once
 _BLOCK_ELEMS = 1 << 24
@@ -139,6 +144,8 @@ def _rank_rows(score, row_mask, q: int, k: int):
 def topk_rank_batch_ref(
     support, confidence, lift, depth, los, his,
     *, k: int, metric: str = "confidence", min_depth: int = 1,
+    n_transactions: int = 0, confidence_scale: float = 1.0,
+    lift_scale: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k of ``rank_score(metric)`` over each DFS range ``[los[q],
     his[q])``, nodes at ``depth >= min_depth`` only: ``(f32[Q, k],
@@ -147,7 +154,9 @@ def topk_rank_batch_ref(
     q = los.shape[0]
     if n == 0 or k <= 0 or q == 0:
         return _empty_ranked(q, k, support.device)
-    score = rank_score(metric, support, confidence, lift)
+    score = rank_score(metric, *dequantize_metrics(
+        support, confidence, lift,
+        n_transactions, confidence_scale, lift_scale))
     pos = torch.arange(n, dtype=torch.int32, device=support.device)
     los = los.to(torch.int32).clamp(min=0)[:, None]
     his = his.to(torch.int32).clamp(max=n)[:, None]
@@ -160,14 +169,14 @@ def topk_rank_batch_ref(
 
 
 def topk_rank_ref(support, confidence, lift, depth, lo, hi, *, k: int,
-                  metric: str = "confidence", min_depth: int = 1):
+                  metric: str = "confidence", min_depth: int = 1, **dequant):
     """The single-range slice of ``topk_rank_batch_ref``."""
     dev = support.device
     vals, pos = topk_rank_batch_ref(
         support, confidence, lift, depth,
         torch.as_tensor(lo, dtype=torch.int32, device=dev).reshape(1),
         torch.as_tensor(hi, dtype=torch.int32, device=dev).reshape(1),
-        k=k, metric=metric, min_depth=min_depth,
+        k=k, metric=metric, min_depth=min_depth, **dequant,
     )
     return vals[0], pos[0]
 
@@ -176,7 +185,8 @@ def rules_with_ref(
     support, confidence, lift, depth, node_item, post_lo, post_hi,
     plos, phis, items,
     *, k: int, metric: str = "confidence", min_depth: int = 1,
-    role: str = "any",
+    role: str = "any", n_transactions: int = 0,
+    confidence_scale: float = 1.0, lift_scale: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k of the rules involving each queried item: membership by
     ``role`` (consequent: ``node_item == item``; antecedent/any: the
@@ -189,7 +199,9 @@ def rules_with_ref(
     q = plos.shape[0]
     if n == 0 or k <= 0 or q == 0:
         return _empty_ranked(q, k, support.device)
-    score = rank_score(metric, support, confidence, lift)
+    score = rank_score(metric, *dequantize_metrics(
+        support, confidence, lift,
+        n_transactions, confidence_scale, lift_scale))
     pos = torch.arange(n, dtype=torch.int32, device=support.device)
     items = items.to(torch.int32)
     live = depth >= min_depth
@@ -287,12 +299,95 @@ def rule_search_fused_ref(
     }
 
 
-def trie_reduce_ref(support, confidence, depth):
+def rule_search_span_ref(
+    child_offsets, edge_item, edge_pos, edge_span, edge_tail,
+    node_item, support, confidence, lift, queries, ant_len,
+    max_fanout: int = 0, n_transactions: int = 0,
+    confidence_scale: float = 1.0, lift_scale: float = 1.0,
+) -> Dict[str, torch.Tensor]:
+    """Rule search on the compressed layout: per query the ``(pos, rem,
+    ctail)`` state of the main walk and of the root-anchored consequent
+    walk.  Inside a span (``rem > 0``) a step matches the item column at
+    ``pos + 1``; at a CSR node it searches the compressed bucket of
+    ``ctail`` (the reference's oracle matches the whole compressed edge
+    table instead; a bucket holds each item once, so both find the same
+    edge).  The metric columns are position-indexed and may be quantized.
+    Returns found, ``pos`` (a DFS position, -1 when absent), support,
+    confidence, lift and con_support."""
+    queries = queries.to(torch.int32)
+    ant_len = ant_len.to(torch.int32)
+    q, width = queries.shape
+    dev = queries.device
+    if edge_item.shape[0] == 0 or width == 0:
+        out = not_found(q, dev)
+        out["pos"] = out.pop("node")
+        return out
+    sup_col, conf_col, lift_col = dequantize_metrics(
+        support, confidence, lift,
+        n_transactions, confidence_scale, lift_scale)
+
+    def step(pos, rem, ctail, item):
+        return span_step(node_item, child_offsets, edge_item, edge_pos,
+                         edge_span, edge_tail, max_fanout, pos, rem, ctail,
+                         item)
+
+    z = torch.zeros((q,), dtype=torch.int32, device=dev)
+    ok0 = torch.ones((q,), dtype=torch.bool, device=dev)
+    pos, rem, ctail, ok = z, z, z, ok0
+    cpos, crem, cctail, cok = z, z, z, ok0
+    conf = torch.ones((q,), dtype=torch.float32, device=dev)
+    for s in range(width):
+        item = queries[:, s]
+        has_item = item >= 0
+        in_cons = s >= ant_len
+
+        active = has_item & ok
+        pos2, rem2, ctail2, hit = step(pos, rem, ctail, item)
+        adv = active & hit
+        ok = torch.where(active, hit, ok)
+        conf = torch.where(adv & in_cons, conf * conf_col[pos2.long()], conf)
+        pos = torch.where(adv, pos2, pos)
+        rem = torch.where(adv, rem2, rem)
+        ctail = torch.where(adv, ctail2, ctail)
+
+        c_active = has_item & in_cons & cok
+        cp2, cr2, ct2, chit = step(cpos, crem, cctail, item)
+        cadv = c_active & chit
+        cok = torch.where(c_active, chit, cok)
+        cpos = torch.where(cadv, cp2, cpos)
+        crem = torch.where(cadv, cr2, crem)
+        cctail = torch.where(cadv, ct2, cctail)
+
+    found = ok & (pos > 0)
+    conf = torch.where(found, conf, 0.0)
+    con_sup = torch.where(cok & (cpos > 0), sup_col[cpos.long()], 0.0)
+    seq_len = (queries >= 0).sum(dim=1, dtype=torch.int32)
+    single = (seq_len - ant_len) == 1
+    pl = pos.long()
+    return {
+        "found": found,
+        "pos": torch.where(found, pos, -1).to(torch.int32),
+        "confidence": conf,
+        "support": torch.where(found, sup_col[pl], 0.0),
+        "lift": compound_lift(
+            found, single, torch.where(found, lift_col[pl], 0.0), conf,
+            con_sup,
+        ),
+        "con_support": con_sup,
+    }
+
+
+def trie_reduce_ref(support, confidence, depth, n_transactions: int = 0,
+                    confidence_scale: float = 1.0):
     """``(n_rules, Σ support, max confidence, Σ confidence)`` as f32
-    scalars over the nodes at ``depth > 0``; max is 0 when none is."""
+    scalars over the nodes at ``depth > 0``; max is 0 when none is.
+    Quantized columns widen first (lift plays no part)."""
     if support.shape[0] == 0:
         z = torch.zeros((), dtype=torch.float32, device=support.device)
         return z, z.clone(), z.clone(), z.clone()
+    support, confidence, _ = dequantize_metrics(
+        support, confidence, confidence, n_transactions, confidence_scale,
+        confidence_scale)
     mask = depth > 0
     n = mask.sum().to(torch.float32)
     sup_sum = torch.where(mask, support, 0.0).sum()

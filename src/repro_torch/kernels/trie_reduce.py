@@ -11,10 +11,15 @@ work is one masked column reduction, which ``tl.sum``/``tl.max`` over a
 block express, with no data-dependent control flow and no shared-memory
 layout to design.
 
-What bounds it: memory.  It reads 12 bytes per node (support, confidence,
-depth) once and does three adds and a max per node.  Two passes -- one
-partial per program, then one program folds the partials -- instead of
-atomics, so the sums repeat bitwise from run to run.  Count and max are
+Quantized columns (the compressed layout: int32 support counts, bf16 or
+int8 confidence) are loaded in their storage types and widened in
+registers with ``dequantize_metrics``'s arithmetic (count times the f32
+reciprocal of ``n_transactions``; int8 code times its scale).
+
+What bounds it: memory.  It reads at most 12 bytes per node (support,
+confidence, depth) once and does three adds and a max per node.  Two
+passes -- one partial per program, then one program folds the partials --
+instead of atomics, so the sums repeat bitwise from run to run.  Count and max are
 exact in any order (the f32 count is exact below 2^24 nodes); the sums
 reassociate and hold to the plain version within 1e-6 relative.
 """
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from .metrics_inkernel import count_reciprocal, storage_codes
 from .ref import trie_reduce_ref
 from .tuning import DEFAULTS
 
@@ -38,13 +44,18 @@ def _triton_kernels():
     import triton.language as tl
 
     @triton.jit
-    def partials(sup_ptr, conf_ptr, depth_ptr, part_ptr, n,
-                 BLOCK: tl.constexpr):
+    def partials(sup_ptr, conf_ptr, depth_ptr, part_ptr, n, inv_n,
+                 conf_scale, SUP_COUNTS: tl.constexpr,
+                 CONF_INT8: tl.constexpr, BLOCK: tl.constexpr):
         pid = tl.program_id(0)
         offs = pid * BLOCK + tl.arange(0, BLOCK)
         live = tl.load(depth_ptr + offs, mask=offs < n, other=0) > 0
-        sup = tl.load(sup_ptr + offs, mask=live, other=0.0)
-        conf = tl.load(conf_ptr + offs, mask=live, other=0.0)
+        sup = tl.load(sup_ptr + offs, mask=live, other=0).to(tl.float32)
+        if SUP_COUNTS:
+            sup = sup * inv_n
+        conf = tl.load(conf_ptr + offs, mask=live, other=0).to(tl.float32)
+        if CONF_INT8:
+            conf = conf * conf_scale
         base = part_ptr + pid * 4
         tl.store(base, tl.sum(live.to(tl.float32), axis=0))
         tl.store(base + 1, tl.sum(tl.where(live, sup, 0.0), axis=0))
@@ -79,12 +90,15 @@ def _triton_kernels():
     return partials, fold
 
 
-def trie_reduce_columns(support, confidence, depth):
+def trie_reduce_columns(support, confidence, depth, n_transactions: int = 0,
+                        confidence_scale: float = 1.0):
     """``(n_rules, Σ support, max confidence, Σ confidence)``, f32
-    scalars."""
+    scalars; ``support`` f32, int32 counts or bf16, ``confidence`` f32,
+    bf16 or int8."""
     dev = support.device
     if dev.type == "cpu":
-        return trie_reduce_ref(support, confidence, depth)
+        return trie_reduce_ref(support, confidence, depth, n_transactions,
+                               confidence_scale)
     if dev.type != "cuda":
         raise ValueError(f"trie_reduce_columns: unsupported device {dev}")
     n = support.shape[0]
@@ -93,10 +107,11 @@ def trie_reduce_columns(support, confidence, depth):
         return z[0], z[1], z[2], z[3]
     from . import _build
 
+    storage_codes("trie_reduce_columns", support, confidence, confidence)
     _build.check_inputs(
         "trie_reduce_columns", dev,
-        support=(support, torch.float32, 1),
-        confidence=(confidence, torch.float32, 1),
+        support=(support, support.dtype, 1),
+        confidence=(confidence, confidence.dtype, 1),
         depth=(depth, torch.int32, 1),
     )
     partials, fold = _triton_kernels()
@@ -105,8 +120,12 @@ def trie_reduce_columns(support, confidence, depth):
     part = torch.empty((n_prog, 4), dtype=torch.float32, device=dev)
     out = torch.empty((4,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        partials[(n_prog,)](support, confidence, depth, part, n,
-                            BLOCK=block, num_warps=8)
+        partials[(n_prog,)](
+            support, confidence, depth, part, n,
+            count_reciprocal(n_transactions), float(confidence_scale),
+            SUP_COUNTS=support.dtype == torch.int32,
+            CONF_INT8=confidence.dtype == torch.int8,
+            BLOCK=block, num_warps=8)
         fold[(1,)](part, out, n_prog, BLOCK=_FOLD_BLOCK, num_warps=4)
     trie_reduce_columns.launches += 1
     return out[0], out[1], out[2], out[3]

@@ -1,8 +1,8 @@
 """Launch knobs of the port's kernels, and the batched-launch row pad.
 
 Defaults only: no tuning table, no autotune.  The reference's TPU knobs
-``rank_bn``, ``search_bf`` and ``posting_window_edges`` size VMEM tiles and
-have no counterpart here; the CUDA kernels fix their own tile sizes at
+``rank_bn``, ``search_bf``, ``span_bf`` and ``posting_window_edges`` size
+VMEM tiles and have no counterpart here; the CUDA kernels fix their own tile sizes at
 compile time (``csrc/topk_select.cuh``).
 """
 from __future__ import annotations

@@ -252,3 +252,105 @@ def test_build_on_gpu_equals_cpu(cuda):
         np.testing.assert_array_equal(
             getattr(gpu.frozen, name).view(np.int32),
             getattr(cpu.frozen, name).view(np.int32))
+
+
+# ----------------------------------------------------------------------
+# the compressed layout: the span search and the quantized variants
+# ----------------------------------------------------------------------
+QUANT = {
+    "f32": dict(),
+    "i32+bf16": dict(quantize=True, n_transactions=100_000),
+    "i32+int8": dict(quantize=True, n_transactions=100_000, columns="int8"),
+    "bf16": dict(quantize=True),
+    "bf16+int8": dict(quantize=True, columns="int8"),
+}
+
+
+@pytest.fixture(scope="module")
+def chain():
+    """A chain-heavy trie whose branch buckets (48 wide) and root bucket
+    (125 wide) are wider than a warp."""
+    arrs = TS.synthetic_chain_trie(8000, chain_fraction=0.6, fanout=48,
+                                   seed=5)
+    return arrs, TS.frozen_from_arrays(arrs)
+
+
+@pytest.mark.parametrize("quant", sorted(QUANT))
+def test_span_search_kernel(chain, cuda, quant):
+    from repro_torch.kernels.rule_search import rule_search_span
+
+    arrs, fz = chain
+    assert fz.max_fanout > 32
+    dt = fz.device_arrays(device=cuda, layout="compressed", **QUANT[quant])
+    e = TO.edge_metric_arrays(dt)
+    q, al = TS.mixed_queries(np.random.RandomState(6), arrs, 600, 9)
+    args = [e[n] for n in ("child_offsets", "edge_item", "edge_pos",
+                           "edge_span", "edge_tail", "node_item", "support",
+                           "confidence", "lift")]
+    args += [torch.from_numpy(q).to(cuda), torch.from_numpy(al).to(cuda)]
+    kw = dict(max_fanout=e["max_fanout"], **TO._dequant_statics(e))
+    before = rule_search_span.launches
+    got = rule_search_span(*args, **kw)
+    assert rule_search_span.launches == before + 1
+    want = ref.rule_search_span_ref(*args, **kw)
+    _bitwise([got[k] for k in want], [want[k] for k in want])
+    assert bool(got["found"][0::3].all())
+
+
+@pytest.mark.parametrize("quant", sorted(QUANT))
+def test_quantized_score_and_reduce_kernels(chain, cuda, quant):
+    arrs, fz = chain
+    dt = fz.device_arrays(device=cuda, layout="compressed", **QUANT[quant])
+    dq = TO._dequant_statics(dt)
+    t = TO.dfs_rank_arrays(dt)
+    assert t["confidence"].data_ptr() == dt.confidence.data_ptr()
+    los, his, _ = TO.prefix_ranges(dt, [[], [1], [77], [2, 5]])
+    args = (t["support"], t["confidence"], t["lift"], t["depth"], los, his)
+    for metric in TO.RANK_METRICS:
+        for k in (10, 1100):
+            got = topk_rank_batch(*args, k=k, metric=metric, **dq)
+            _bitwise(got, ref.topk_rank_batch_ref(*args, k=k, metric=metric,
+                                                  **dq))
+    ia = TO.item_rank_arrays(dt)
+    plos, phis, qitems = (
+        torch.from_numpy(a).to(cuda) for a in TO._posting_slices(
+            ia["item_offsets"], [0, 4, 29, -1, 4]))
+    margs = (ia["support"], ia["confidence"], ia["lift"], ia["depth"],
+             ia["node_item"], ia["post_lo"], ia["post_hi"], plos, phis,
+             qitems)
+    for role in TO.ROLES:
+        for metric in ("confidence", "support", "leverage"):
+            got = rules_with_member(*margs, k=20, metric=metric, role=role,
+                                    **dq)
+            _bitwise(got, ref.rules_with_ref(*margs, k=20, metric=metric,
+                                             role=role, **dq))
+    rq = dict(n_transactions=dq["n_transactions"],
+              confidence_scale=dq["confidence_scale"])
+    got = trie_reduce_columns(dt.support, dt.confidence, dt.node_depth, **rq)
+    want = ref.trie_reduce_ref(dt.support, dt.confidence, dt.node_depth, **rq)
+    _bitwise((got[0], got[2]), (want[0], want[2]))
+    for i in (1, 3):
+        torch.testing.assert_close(got[i], want[i], rtol=1e-6, atol=0)
+
+
+def test_compressed_ops_on_gpu_equal_plain(chain, cuda):
+    """Every op on the unquantized compressed trie equals the plain
+    layout's on the card, node ids, values and tie order."""
+    arrs, fz = chain
+    plain = fz.device_arrays(device=cuda)
+    comp = fz.device_arrays(device=cuda, layout="compressed")
+    q, al = TS.mixed_queries(np.random.RandomState(8), arrs, 300, 9)
+    prefixes = [[], [3], [3, 1], [999]]
+    outs = [(TO.rule_search_batch(comp, q, al),
+             TO.rule_search_batch(plain, q, al)),
+            (TO.top_k_rules_batch(comp, prefixes, 25, metric="lift"),
+             TO.top_k_rules_batch(plain, prefixes, 25, metric="lift"))]
+    for role in TO.ROLES:
+        outs.append((TO.rules_with(comp, [0, 7, -1, 7], role=role, k=15),
+                     TO.rules_with(plain, [0, 7, -1, 7], role=role, k=15)))
+    for c, p in outs:
+        keys = [k for k in p if k != "pos"]
+        _bitwise([c[k] for k in keys], [p[k] for k in keys])
+    c, p = TO.trie_reduce(comp), TO.trie_reduce(plain)
+    assert float(c["n_rules"]) == float(p["n_rules"])
+    assert float(c["confidence_max"]) == float(p["confidence_max"])
