@@ -47,7 +47,21 @@ GPU.
    served compressed with int32 + bf16 columns at its real
    ``n_transactions`` it finds all its rules.  Prints resident bytes, op
    ms compressed against plain, and the span and quantized kernels' times.
-7. Prints the GPU's name and power limit, one ``{"kernels": [...]}`` line,
+7. Seed layout (no CSR offsets): serves the 2^20 trie of step 2 (under a
+   larger ``--edges`` a 2^20 trie of its own: the sweep is O(Q L E)) as a
+   seed-layout ``DeviceTrie`` with the traffic of step 4 (the 4096 search
+   rows and the canonical rows of the 256 ragged pairs in one batch),
+   with the launch counters at 0: every answer == the CSR layout's in the
+   same run bitwise (trie_reduce sums to 1e-6), one search makes exactly
+   two full-sweep launches and no fused one, and both launches (the rows,
+   then their consequent columns) == the plain version bitwise.  Times the
+   ops, the sweep kernel beside its plain version and bound, and the
+   reference bench's grid (``benchmarks/paper_figs.py``: E in {1,000,
+   10,000, 100,000} x Q in {128, 2048}, width 6, plus the 2^20 x 4096 x 8
+   point): the sweep kernel, the seed two-launch op, the fused kernel and
+   the seed (lex binary search) and CSR oracles, with the fused-vs-sweep
+   speedup.
+8. Prints the GPU's name and power limit, one ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result when CUDA is unavailable or any phase fails.
@@ -78,6 +92,12 @@ QUANT = {
                      n_transactions=COMPRESS_N_TX, columns="int8"),
 }
 L2_FLUSH_BYTES = 128 << 20   # written between timed calls: over 2x the L2
+SEED_EDGES = 1 << 20         # the seed phase's trie: the sweep is O(Q L E)
+# the reference bench's search grid (benchmarks/paper_figs.py
+# SEARCH_KERNEL_SIZES, width 6) as (E, Q, width); the seed phase adds its
+# own 2^20 x 4096 x 8 point
+SEARCH_GRID = ((1_000, 128, 6), (1_000, 2048, 6), (10_000, 128, 6),
+               (10_000, 2048, 6), (100_000, 128, 6))
 METRICS = ("support", "confidence", "lift", "leverage", "conviction")
 ROLES = ("consequent", "antecedent", "any")
 
@@ -199,6 +219,28 @@ def prefixes_for(arrs, n_items, count, rng):
     return out
 
 
+def query_traffic(arrs, seed):
+    """The query path's traffic on one trie: 4096 search rows of width 8,
+    256 ragged pairs cut from the first 512 rows, 256 prefixes and 256
+    items."""
+    import numpy as np
+    from repro_torch.core import synthetic
+
+    n_items = int(arrs["edge_item"].max()) + 1
+    rng = np.random.RandomState(seed + 1)
+    prefixes = prefixes_for(arrs, n_items, 256, rng)
+    items = [int(x) for x in rng.randint(0, n_items, size=248)]
+    items += [items[0], items[1], -1, n_items + 3, 0, 1, 2, 3]
+    queries, ant_len = synthetic.synthetic_search_queries(
+        arrs, 4096, 8, seed=seed + 2)
+    pairs = []
+    for row in range(0, 512, 2):
+        path = [int(x) for x in queries[row] if x >= 0]
+        cut = int(rng.randint(0, len(path) + 1))
+        pairs.append((path[:cut][::-1], path[cut:]))
+    return queries, ant_len, pairs, prefixes, items
+
+
 def walk_steps(dt, queries, ant_len):
     """Bucket lookups the two walks of a rule search perform on this data
     (the data-dependent part of its byte bound)."""
@@ -292,6 +334,8 @@ PLAIN_QUERY_KERNELS = ("topk_rank_batch", "rule_search_fused",
                        "rules_with_member", "trie_reduce_columns")
 SPAN_QUERY_KERNELS = ("topk_rank_batch", "rule_search_span",
                       "rules_with_member", "trie_reduce_columns")
+SEED_QUERY_KERNELS = ("topk_rank_batch", "rule_search_sweep",
+                      "rules_with_member", "trie_reduce_columns")
 
 
 def require_launched(what, launches, names):
@@ -325,6 +369,7 @@ KERNEL_NAMES = {
                           "merge_pairs_kernel"),
     "rule_search_fused": ("rule_search_fused_kernel",),
     "rule_search_span": ("rule_search_span_kernel",),
+    "rule_search_sweep": ("rule_search_sweep_kernel",),
     "trie_reduce_columns": ("partials", "fold"),
 }
 
@@ -372,7 +417,7 @@ def member_work(n, post_lo, post_hi, plos, phis, n_items, k, score_b):
 
 
 def kernel_row(name, kern, plain, work, where, launches, max_err, reps,
-               flush, label=None):
+               flush, label=None, plain_reps=None):
     """One row of the ``kernels`` line: the kernel's device ms (its own
     kernels in a profiler trace, cold L2), and on the scope of the plain
     version's ``plain_ms`` (every device event of the call, the flush
@@ -381,12 +426,14 @@ def kernel_row(name, kern, plain, work, where, launches, max_err, reps,
     around each (``call_ms``; the device ms fall back to these when a
     trace holds no device time), and the bound of ``work = (bytes,
     operations)`` at the card's peaks.  ``where`` is (route, source,
-    file:line of the TPU kernel)."""
+    file:line of the TPU kernel); ``plain_reps`` (default ``reps``) times
+    a slow plain version fewer times."""
+    plain_reps = plain_reps or reps
     call_ms = cuda_ms(kern, reps)
-    plain_call_ms = cuda_ms(plain, reps, warmup=1)
+    plain_call_ms = cuda_ms(plain, plain_reps, warmup=1)
     ms = device_ms(kern, reps, flush, kernel=KERNEL_NAMES[name])
     whole_call_ms = device_ms(kern, reps, flush)
-    plain_ms = device_ms(plain, reps, flush)
+    plain_ms = device_ms(plain, plain_reps, flush)
     timer = "profiler"
     if ms is None or plain_ms is None:
         ms, plain_ms, timer = call_ms, plain_call_ms, "events"
@@ -1195,6 +1242,251 @@ def compressed_phase(args, dev, l2_flush, retail, retail_n_tx):
     return dq_rows
 
 
+def sweep_work(dt, e, queries, ant_len):
+    """(bytes, operations) one full-sweep launch needs on this data: the
+    (parent, item) table read once, the child and three metrics of each
+    matched edge, the rows, ant_len and the five outputs; one pair compare
+    per edge for each active row-step (a row still on the trie, at a
+    column that holds an item: the max over matches needs the whole
+    table), none for the others."""
+    import torch
+    from repro_torch.core.array_trie import child_lookup
+
+    q, width = queries.shape
+    node = torch.zeros((q,), dtype=torch.int32, device=queries.device)
+    ok = torch.ones((q,), dtype=torch.bool, device=queries.device)
+    steps = hits = 0
+    for s in range(width):
+        item = queries[:, s]
+        active = (item >= 0) & ok
+        child = child_lookup(dt, node, item)
+        steps += int(active.sum())
+        hits += int((active & (child >= 0)).sum())
+        ok = torch.where(active, child >= 0, ok)
+        node = torch.where(active & (child >= 0), child, node)
+    return 8 * e + 16 * hits + 4 * queries.numel() + 24 * q, steps * e
+
+
+def search_grid(args, dev, l2_flush, point):
+    """The reference bench's search grid on the card, and the seed phase's
+    own point ``(E, Q, width, arrs, queries, ant_len)``: per size the sweep
+    kernel (one launch), the seed two-launch op, the fused kernel, and the
+    seed (lex binary search) and CSR oracles, CUDA events per call (median
+    of --reps) and the two kernels' device ms; the four full-metric lanes
+    must agree bitwise."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import synthetic
+    from repro_torch.core.array_trie import batched_rule_search
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rule_search import (
+        rule_search_fused, rule_search_sweep,
+    )
+
+    sizes = [(e, q, w, None, None, None) for e, q, w in SEARCH_GRID]
+    sizes.append(point)
+    out = []
+    for e, q, width, arrs, queries, ant_len in sizes:
+        if arrs is None:
+            arrs = synthetic.synthetic_csr_trie(e)
+            queries, ant_len = synthetic.synthetic_search_queries(
+                arrs, q, width)
+        csr = synthetic.frozen_from_arrays(arrs).device_arrays(device=dev)
+        seed = dataclasses.replace(csr, child_offsets=None, max_fanout=0)
+        ed = ops.edge_metric_arrays(csr)
+        seed_edges = ops.edge_metric_arrays(seed)
+        q_t = torch.as_tensor(queries, device=dev)
+        al_t = torch.as_tensor(ant_len, device=dev)
+        metric_cols = (ed["edge_item"], ed["edge_child"], ed["edge_conf"],
+                       ed["edge_sup"], ed["edge_lift"])
+        lanes = {
+            "sweep_kernel": lambda: rule_search_sweep(
+                ed["edge_parent"], *metric_cols, q_t, al_t),
+            "seed_full_2launch": lambda: ops.rule_search(
+                seed, q_t, al_t, edges=seed_edges),
+            "csr_fused_kernel": lambda: rule_search_fused(
+                ed["child_offsets"], *metric_cols, q_t, al_t,
+                max_fanout=ed["max_fanout"]),
+            "oracle_binsearch": lambda: batched_rule_search(seed, q_t, al_t),
+            "oracle_csr": lambda: batched_rule_search(csr, q_t, al_t),
+        }
+        answers = {k: lanes[k]() for k in lanes if k != "sweep_kernel"}
+        keys = ("found", "node", "support", "confidence", "lift")
+        for k in ("csr_fused_kernel", "oracle_binsearch", "oracle_csr"):
+            for key in keys:
+                if not bitwise_equal(answers[k][key],
+                                     answers["seed_full_2launch"][key]):
+                    raise AssertionError(f"grid E={e} Q={q}: {k} {key} != "
+                                         f"the seed op")
+        ms = {k: cuda_ms(fn, args.reps) for k, fn in lanes.items()}
+        dev_ms = {
+            "sweep_kernel": device_ms(lanes["sweep_kernel"], args.reps,
+                                      l2_flush.zero_,
+                                      kernel=KERNEL_NAMES["rule_search_sweep"]),
+            "csr_fused_kernel": device_ms(
+                lanes["csr_fused_kernel"], args.reps, l2_flush.zero_,
+                kernel=KERNEL_NAMES["rule_search_fused"]),
+        }
+        speedup = ms["sweep_kernel"] / ms["csr_fused_kernel"]
+        dev_speedup = None if None in dev_ms.values() else \
+            dev_ms["sweep_kernel"] / dev_ms["csr_fused_kernel"]
+        out.append({"n_edges": e, "batch": q, "width": width,
+                    "ms_per_call": ms, "device_ms": dev_ms,
+                    "speedup_fused_vs_sweep": speedup,
+                    "device_speedup_fused_vs_sweep": dev_speedup})
+        log(f"[seed grid] E={e} Q={q} L={width}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in ms.items())
+            + f" ms per call; device sweep {dev_ms['sweep_kernel']} / fused "
+            f"{dev_ms['csr_fused_kernel']} ms; fused vs sweep {speedup:.1f}x"
+            f" per call, {dev_speedup} on the device")
+    return out
+
+
+def seed_phase(args, dev, l2_flush, main_trie):
+    """The seed layout (no CSR offsets) on the 2^20 query-path trie: drive
+    every op with the counters at 0, hold the answers to the CSR layout's
+    and the sweep kernel to its plain version, and time the ops, the
+    kernel and the reference bench's grid; returns the sweep's row of the
+    ``kernels`` line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core import synthetic
+    from repro_torch.kernels import launch_counts, ops, ref, \
+        reset_launch_counts
+    from repro_torch.kernels.rule_search import rule_search_sweep
+
+    reps = args.reps
+    if args.edges == SEED_EDGES:
+        arrs, frozen = main_trie
+    else:
+        arrs = synthetic.synthetic_csr_trie(SEED_EDGES, seed=args.seed)
+        frozen = synthetic.frozen_from_arrays(arrs)
+        log(f"[seed] --edges {args.edges}: the seed phase stays at 2^20 "
+            f"edges (the full sweep is O(Q L E)) on a trie of its own")
+    queries, ant_len, pairs, prefixes, items = query_traffic(arrs,
+                                                            args.seed)
+    # the search rows and the canonical rows of the ragged pairs, one batch
+    pq, pal = frozen.canonicalize_queries([p[0] for p in pairs],
+                                          [p[1] for p in pairs])
+    width = max(queries.shape[1], pq.shape[1])
+    rows = np.full((queries.shape[0] + pq.shape[0], width), -1, np.int32)
+    rows[:queries.shape[0], :queries.shape[1]] = queries
+    rows[queries.shape[0]:, :pq.shape[1]] = pq
+    rows_al = np.concatenate([ant_len, pal]).astype(np.int32)
+    csr = frozen.device_arrays(device=dev)
+    seed = dataclasses.replace(csr, child_offsets=None, max_fanout=0)
+    e = int(seed.edge_parent.shape[0])
+    log(f"[seed] {frozen.n_nodes} nodes, {e} edges, served without CSR "
+        f"offsets; {rows.shape[0]} search rows of width {width}")
+
+    # -- 8a. the main path, counters at 0 -------------------------------
+    cols = {"seed": layout_columns(seed), "csr": layout_columns(csr)}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = drive_layout(seed, cols["seed"], rows, rows_al, prefixes, items)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    log(f"[seed main path] {time.perf_counter() - t0:.2f} s, launches "
+        f"{launched}")
+    require_launched("seed main path", launched, SEED_QUERY_KERNELS)
+    if launched["rule_search_sweep"] != 2 or launched["rule_search_fused"]:
+        raise AssertionError("seed main path: the search made "
+                             f"{launched['rule_search_sweep']} sweep and "
+                             f"{launched['rule_search_fused']} fused "
+                             f"launches, expected 2 and 0")
+    reset_launch_counts()
+    ops.rule_search(seed, queries, ant_len, edges=cols["seed"]["edges"])
+    one = launch_counts()
+    if one["rule_search_sweep"] != 2 or any(
+            v for k, v in one.items() if k != "rule_search_sweep"):
+        raise AssertionError(f"seed: one rule_search launched {one}")
+
+    # -- 8b. the answers == the CSR layout's, bitwise -------------------
+    want = drive_layout(csr, cols["csr"], rows, rows_al, prefixes, items)
+    for op in want:
+        if op == "reduce":
+            continue
+        for key in want[op]:
+            if not bitwise_equal(res[op][key], want[op][key]):
+                raise AssertionError(f"seed: {op} {key} != the CSR layout's")
+    for key in ("n_rules", "confidence_max"):
+        if not bitwise_equal(res["reduce"][key], want["reduce"][key]):
+            raise AssertionError(f"seed: trie_reduce {key}")
+    for key in ("support_sum", "mean_conf"):
+        g, w = float(res["reduce"][key]), float(want["reduce"][key])
+        if abs(g - w) > 1e-6 * abs(w):
+            raise AssertionError(f"seed: trie_reduce {key} {g} vs {w}")
+    found = res["search"]["found"]
+    log(f"[seed] every answer == the CSR layout's, bitwise "
+        f"({int(found.sum())} of {rows.shape[0]} rows found)")
+
+    # -- 8c. both launches == the plain version, bitwise ----------------
+    uq, ual, _ = ops.dedup_query_rows(rows, rows_al)
+    uq_t = torch.as_tensor(uq, device=dev)
+    ual_t = torch.as_tensor(ual, device=dev)
+    pos = torch.arange(uq.shape[1], dtype=torch.int32, device=dev)
+    cons_t = torch.where(pos[None, :] >= ual_t[:, None], uq_t, -1)
+    zeros = torch.zeros_like(ual_t)
+    sw = cols["seed"]["edges"]
+    sw_cols = [sw[k] for k in ("edge_parent", "edge_item", "edge_child",
+                               "edge_conf", "edge_sup", "edge_lift")]
+    errs = []
+    for tag, (q_t, al_t) in (("rows", (uq_t, ual_t)),
+                             ("consequent rows", (cons_t, zeros))):
+        got = rule_search_sweep(*sw_cols, q_t, al_t)
+        want_k = ref.rule_search_sweep_ref(*sw_cols, q_t, al_t)
+        check_same(f"rule_search_sweep {tag}", [got[k] for k in want_k],
+                   [want_k[k] for k in want_k], errs)
+    torch.cuda.synchronize()
+    log(f"[seed] both sweep launches ({uq.shape[0]} x {uq.shape[1]} rows) "
+        f"== the plain version on the card, bitwise")
+
+    # -- 8d. op ms, seed against CSR in the same run --------------------
+    op_ms = {tag: time_layout_ops(dt, cols[tag], rows, rows_al, prefixes,
+                                  items, reps)
+             for tag, dt in (("seed", seed), ("csr", csr))}
+    log("[seed ops ms] " + json.dumps(op_ms))
+
+    # -- 8e. the kernel row: the full-row launch; the consequent launch
+    # beside it -------------------------------------------------------
+    plain_reps = 2
+    row = kernel_row(
+        "rule_search_sweep",
+        lambda: rule_search_sweep(*sw_cols, uq_t, ual_t),
+        lambda: ref.rule_search_sweep_ref(*sw_cols, uq_t, ual_t),
+        sweep_work(csr, e, uq_t, ual_t),
+        ("cuda", "src/repro_torch/kernels/csrc/rule_search.cu",
+         "src/repro/kernels/rule_search.py:153"),
+        launched["rule_search_sweep"], max(errs), reps, l2_flush.zero_,
+        plain_reps=plain_reps)
+    c_bytes, c_ops = sweep_work(csr, e, cons_t, zeros)
+    row["cons_ms"] = device_ms(
+        lambda: rule_search_sweep(*sw_cols, cons_t, zeros), reps,
+        l2_flush.zero_, kernel=KERNEL_NAMES["rule_search_sweep"])
+    row["cons_bound_ms"] = max(c_bytes / HBM_BYTES_PER_S,
+                               c_ops / FP32_OPS_PER_S) * 1e3
+    full_ops = uq.shape[0] * uq.shape[1] * e
+    row["qle_bound_ms"] = full_ops / FP32_OPS_PER_S * 1e3
+    row["plain_reps"] = plain_reps
+    row["library_note"] = (
+        "none: no single PyTorch call does a multi-step descent, and "
+        "torch.searchsorted on a fused (parent, item) key gives one lookup "
+        "step, not the sweep's max over matches")
+    log(f"[kernel] rule_search_sweep consequent launch: {row['cons_ms']} ms "
+        f"device, bound {row['cons_bound_ms']:.5f} ms; the full Q x L x E "
+        f"grid ({full_ops} compares) would bound a launch at "
+        f"{row['qle_bound_ms']:.4f} ms")
+
+    # -- 8f. the reference bench's grid ---------------------------------
+    row["grid"] = search_grid(args, dev, l2_flush,
+                              (e, queries.shape[0], queries.shape[1], arrs,
+                               queries, ant_len))
+    return row
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--edges", type=int, default=1 << 20)
@@ -1249,23 +1541,13 @@ def main():
     engine = TrieQueryEngine(frozen, device=dev)
     dt = engine.dt
     n = frozen.n_nodes
-    n_items = int(arrs["edge_item"].max()) + 1
     log(f"[trie] {n} nodes, {frozen.n_edges} edges, max_fanout "
         f"{frozen.max_fanout}, max_postings {frozen.max_postings}, "
         f"{dt.nbytes()} resident bytes, built in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    rng = np.random.RandomState(args.seed + 1)
-    prefixes = prefixes_for(arrs, n_items, 256, rng)
-    items = [int(x) for x in rng.randint(0, n_items, size=248)]
-    items += [items[0], items[1], -1, n_items + 3, 0, 1, 2, 3]
-    queries, ant_len = synthetic.synthetic_search_queries(
-        arrs, 4096, 8, seed=args.seed + 2)
-    pairs = []
-    for row in range(0, 512, 2):
-        path = [int(x) for x in queries[row] if x >= 0]
-        cut = int(rng.randint(0, len(path) + 1))
-        pairs.append((path[:cut][::-1], path[cut:]))
+    queries, ant_len, pairs, prefixes, items = query_traffic(arrs,
+                                                            args.seed)
 
     dfs = ops.dfs_rank_arrays(dt)
     dfs["_device_trie"] = dt
@@ -1454,6 +1736,10 @@ def main():
 
     # -- 7. the compressed layout: the chain trie, then the retail trie --
     rows.extend(compressed_phase(args, dev, l2_flush, retail, retail_n_tx))
+    log(f"[compress] phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 8. the seed layout: the full sweep on the query-path trie -------
+    rows.append(seed_phase(args, dev, l2_flush, (arrs, frozen)))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

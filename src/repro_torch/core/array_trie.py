@@ -766,7 +766,9 @@ class FrozenTrie:
 class DeviceTrie:
     """The frozen layout as torch tensors on one device.  ``max_fanout``
     and ``max_postings`` stay host ints; ``child_offsets=None`` marks the
-    seed full-sweep layout, which this package does not run yet.
+    seed layout: the search sweeps the whole edge table
+    (``kernels.rule_search.rule_search_sweep``) and ``child_lookup``
+    binary-searches the lex-sorted one.
 
     ``layout="compressed"`` (``CompressedTrie.device_arrays``): the node
     columns are DFS-position-indexed, ``edge_child`` holds child
@@ -823,6 +825,24 @@ def _n_search_steps(n_edges: int) -> int:
     return int(np.ceil(np.log2(n + 1))) + 1
 
 
+def _lex_binary_search(edge_parent, edge_item, qp, qi, n_steps: int):
+    """Lower-bound index of ``(qp, qi)`` in the ``(edge_parent,
+    edge_item)`` lex-sorted edge table (int32, shape of ``qp``): a fixed
+    ``n_steps = _n_search_steps(E)`` halvings, as the reference runs it."""
+    e = edge_parent.shape[0]
+    lo = torch.zeros_like(qp)
+    hi = torch.full_like(qp, e)
+    for _ in range(n_steps):
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        midc = mid.clamp(max=e - 1).long()
+        p = edge_parent[midc]
+        i = edge_item[midc]
+        less = (p < qp) | ((p == qp) & (i < qi))
+        lo = torch.where(less, mid + 1, lo)
+        hi = torch.where(less, hi, mid)
+    return lo
+
+
 def bucket_edge_lookup(
     child_offsets: torch.Tensor,
     edge_item: torch.Tensor,
@@ -858,14 +878,21 @@ def bucket_edge_lookup(
 def child_lookup(
     trie: DeviceTrie, parents: torch.Tensor, items: torch.Tensor
 ) -> torch.Tensor:
-    """Batched child id for (parent, item); -1 where there is no edge."""
-    if trie.edge_parent.shape[0] == 0:
+    """Batched child id for (parent, item); -1 where there is no edge.
+    With CSR ``child_offsets`` a bucket search, without them (the seed
+    layout) a lower bound over the whole lex-sorted edge table."""
+    e = trie.edge_parent.shape[0]
+    if e == 0:
         return torch.full_like(parents.to(torch.int32), -1)
     if trie.child_offsets is None:
-        raise NotImplementedError(
-            "the seed full-sweep layout (child_offsets is None) is not "
-            "ported yet: ROADMAP Queue 2 row 7"
-        )
+        parents = parents.to(torch.int32)
+        items = items.to(torch.int32)
+        idx = _lex_binary_search(trie.edge_parent, trie.edge_item, parents,
+                                 items, _n_search_steps(e))
+        idxc = idx.clamp(max=e - 1).long()
+        found = (idx < e) & (trie.edge_parent[idxc] == parents) & (
+            trie.edge_item[idxc] == items)
+        return torch.where(found, trie.edge_child[idxc], -1).to(torch.int32)
     j = bucket_edge_lookup(
         trie.child_offsets, trie.edge_item, trie.max_fanout, parents, items
     )

@@ -5,6 +5,8 @@ hand-written for Hopper, and the ops over them.
 - ``rule_search.rule_search_fused`` CSR descent + Eq. 1-4 lift (CUDA)
 - ``rule_search.rule_search_span`` the same on the path-compressed layout
   (CUDA)
+- ``rule_search.rule_search_sweep`` the full-sweep search of the seed
+  layout, without CSR offsets (CUDA)
 - ``item_index.rules_with_member``  item-membership top-k (CUDA)
 - ``trie_reduce.trie_reduce_columns`` masked traversal reduction (Triton)
 - ``support_count.support_count_bitmap`` itemset support over the vertical
@@ -18,7 +20,9 @@ reduction kernels take quantized metric columns and widen them in-kernel.
 from .item_index import ROLES, rules_with_member
 from .metrics_inkernel import RANK_METRICS
 from .rank import topk_rank_batch
-from .rule_search import rule_search_fused, rule_search_span
+from .rule_search import (
+    rule_search_fused, rule_search_span, rule_search_sweep,
+)
 from .support_count import support_count_bitmap
 from .trie_reduce import trie_reduce_columns
 from .tuning import KernelConfig, launch_pad
@@ -49,6 +53,7 @@ KERNELS = {
     "topk_rank_batch": topk_rank_batch,
     "rule_search_fused": rule_search_fused,
     "rule_search_span": rule_search_span,
+    "rule_search_sweep": rule_search_sweep,
     "rules_with_member": rules_with_member,
     "trie_reduce_columns": trie_reduce_columns,
     "support_count_bitmap": support_count_bitmap,
@@ -92,6 +97,7 @@ __all__ = [
     "rules_with_member",
     "rule_search_fused",
     "rule_search_span",
+    "rule_search_sweep",
     "support_count",
     "support_count_bitmap",
     "top_k_rules",

@@ -60,6 +60,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             _P, _P, _P, _P, _P, _P, *_COLUMNS, _P, _P, _I, _I,
             _P, _P, _P, _P, _P, _P, _P,
         ),
+        "rule_search_sweep_launch": (
+            _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
+            _P, _P, _P, _P, _P, _P,
+        ),
     },
     "support_count": {
         "support_count_launch": (_P, _I, _P, _I, _I, _P, _I, _P, _P),

@@ -1,5 +1,6 @@
-// Rule-search kernels: the fused CSR search of the plain layout, and the
-// span search of the path-compressed layout.
+// Rule-search kernels: the fused CSR search of the plain layout, the span
+// search of the path-compressed layout, and the full sweep of the seed
+// layout (no CSR offsets).
 //
 // Fused rule-search kernel.
 //
@@ -244,4 +245,169 @@ extern "C" int rule_search_span_launch(
                con_sup};
     cudaStream_t s = (cudaStream_t)stream;
     RT_DISPATCH_COLUMNS(sup_type, col_type, launch_span_typed, a, s)
+}
+
+// Full-sweep rule-search kernel (the seed layout, no CSR offsets).
+//
+// Replaces the TPU kernel repro/kernels/rule_search.py::rule_search_pallas:
+// at every column s of a query row (int32 items, -1 padding) the row's
+// (node, item) is compared with EVERY edge of the (parent, item) table;
+// over the matching edges it takes the max child (-1 when none) and,
+// independently, the max of each edge metric (0 when none), then advances
+// the row on a hit.  It keeps the max over matches, so a table that repeats
+// a (parent, item) pair answers as the reference does, and it stays the
+// O(Q L E) baseline the fused search is measured against.  Outputs are node
+// metrics only: found, node (-1 when absent), the confidence product over
+// the steps at or past ant_len, the final node's support and node_lift.
+// Compound lift needs a second launch over the consequent columns
+// (kernels/ops.py::rule_search).
+//
+// What bounds it here: operations, Q x L x E (parent, item) pair compares;
+// the edge table is read from L2 once per block and step.  The design:
+// a block holds SW_ROWS query rows, one per lane, and SW_WARPS warps that
+// hold the same rows and split every staged chunk of the table between
+// them; the block stages SW_CHUNK (parent, item) pairs in shared memory
+// (the next chunk's loads in flight in registers while this one is
+// compared), and every lane reads each pair of its warp's slice with a
+// broadcast read, a group of SW_GROUP pairs setting the bits of a match
+// mask.  A match (rare) reads the edge's child and metrics from global
+// memory after its group.  After the sweep of a step the warps' partial maxima
+// combine through shared memory.  A step in which no row of the block is
+// active is skipped: its qp = -9 would match no edge.  32 rows per block
+// keeps 4096 rows on 128 of the 132 SMs.
+#define SW_ROWS 32
+#define SW_WARPS 16
+#define SW_THREADS (SW_ROWS * SW_WARPS)
+#define SW_CHUNK 4096
+#define SW_PER_THREAD (SW_CHUNK / SW_THREADS)
+#define SW_PER_WARP (SW_CHUNK / SW_WARPS)
+#define SW_GROUP 16          // pairs compared before the matches are read
+
+// max that propagates NaN, as torch.maximum / amax do
+__device__ __forceinline__ float max_nan(float m, float v) {
+    return (v > m || v != v) ? v : m;
+}
+
+__device__ __forceinline__ void sweep_fetch(int2 (&pre)[SW_PER_THREAD],
+                                            const int* __restrict__ ep,
+                                            const int* __restrict__ ei,
+                                            int c0, int e) {
+#pragma unroll
+    for (int k = 0; k < SW_PER_THREAD; ++k) {
+        int j = c0 + k * SW_THREADS + threadIdx.x;
+        // padding pairs match no row: a live row has qp >= 0 or -9
+        pre[k] = j < e ? make_int2(ep[j], ei[j]) : make_int2(-7, -7);
+    }
+}
+
+__global__ void __launch_bounds__(SW_THREADS)
+rule_search_sweep_kernel(const int* __restrict__ ep, const int* __restrict__ ei,
+                         const int* __restrict__ ec,
+                         const float* __restrict__ econf,
+                         const float* __restrict__ esup,
+                         const float* __restrict__ elift, int e,
+                         const int* __restrict__ queries,
+                         const int* __restrict__ ant_len, int q, int width,
+                         int* __restrict__ node_out, int* __restrict__ found_out,
+                         float* __restrict__ conf_out,
+                         float* __restrict__ sup_out,
+                         float* __restrict__ lift_out) {
+    __shared__ __align__(16) int2 keys[SW_CHUNK];
+    __shared__ int p_child[SW_WARPS][SW_ROWS];
+    __shared__ float p_conf[SW_WARPS][SW_ROWS];
+    __shared__ float p_sup[SW_WARPS][SW_ROWS];
+    __shared__ float p_lift[SW_WARPS][SW_ROWS];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int r = blockIdx.x * SW_ROWS + lane;
+    const bool live = r < q;
+    const int* row = queries + (long long)(live ? r : 0) * width;
+    const int al = live ? ant_len[r] : 0;
+
+    int node = 0;
+    bool ok = true;
+    float conf = 1.0f, sup = 0.0f, nlift = 0.0f;
+    int2 pre[SW_PER_THREAD];
+    for (int s = 0; s < width; ++s) {
+        const int item = live ? row[s] : -1;
+        const bool active = item >= 0 && ok;
+        if (!__syncthreads_or(active)) continue;
+        const int qp = active ? node : -9;
+        int child = -1;
+        float cf = 0.0f, sp = 0.0f, lf = 0.0f;
+        sweep_fetch(pre, ep, ei, 0, e);
+        for (int c0 = 0; c0 < e; c0 += SW_CHUNK) {
+            __syncthreads();
+#pragma unroll
+            for (int k = 0; k < SW_PER_THREAD; ++k)
+                keys[k * SW_THREADS + threadIdx.x] = pre[k];
+            __syncthreads();
+            if (c0 + SW_CHUNK < e) sweep_fetch(pre, ep, ei, c0 + SW_CHUNK, e);
+            const int j0 = warp * SW_PER_WARP;
+            for (int j = j0; j < j0 + SW_PER_WARP; j += SW_GROUP) {
+                // the compares of a group of pairs set bits of a mask; the
+                // rare matches are read outside the compare loop, so it
+                // stays a load, two compares and an OR per pair
+                unsigned m = 0;
+#pragma unroll
+                for (int u = 0; u < SW_GROUP; ++u) {
+                    const int2 k = keys[j + u];
+                    m |= (unsigned)(k.x == qp && k.y == item) << u;
+                }
+                while (m) {
+                    const int x = c0 + j + __ffs(m) - 1;
+                    m &= m - 1;
+                    child = max(child, ec[x]);
+                    cf = max_nan(cf, econf[x]);
+                    sp = max_nan(sp, esup[x]);
+                    lf = max_nan(lf, elift[x]);
+                }
+            }
+        }
+        p_child[warp][lane] = child;
+        p_conf[warp][lane] = cf;
+        p_sup[warp][lane] = sp;
+        p_lift[warp][lane] = lf;
+        __syncthreads();
+        // every warp folds the partials of its lane's row, so the row state
+        // stays the same in all of them
+        child = -1;
+        cf = sp = lf = 0.0f;
+#pragma unroll
+        for (int w = 0; w < SW_WARPS; ++w) {
+            child = max(child, p_child[w][lane]);
+            cf = max_nan(cf, p_conf[w][lane]);
+            sp = max_nan(sp, p_sup[w][lane]);
+            lf = max_nan(lf, p_lift[w][lane]);
+        }
+        const bool hit = child >= 0;
+        if (active) {
+            ok = hit;
+            if (hit) {
+                node = child;
+                if (s >= al) conf = __fmul_rn(conf, cf);
+                sup = sp;
+                nlift = lf;
+            }
+        }
+    }
+    if (!live || warp != 0) return;
+    const bool found = ok && node > 0;
+    node_out[r] = found ? node : -1;
+    found_out[r] = found ? 1 : 0;
+    conf_out[r] = found ? conf : 0.0f;
+    sup_out[r] = found ? sup : 0.0f;
+    lift_out[r] = found ? nlift : 0.0f;
+}
+
+extern "C" int rule_search_sweep_launch(
+    const int* edge_parent, const int* edge_item, const int* edge_child,
+    const float* edge_conf, const float* edge_sup, const float* edge_lift,
+    int e, const int* queries, const int* ant_len, int q, int width,
+    int* node, int* found, float* conf, float* sup, float* node_lift,
+    void* stream) {
+    int blocks = (q + SW_ROWS - 1) / SW_ROWS;
+    rule_search_sweep_kernel<<<blocks, SW_THREADS, 0, (cudaStream_t)stream>>>(
+        edge_parent, edge_item, edge_child, edge_conf, edge_sup, edge_lift, e,
+        queries, ant_len, q, width, node, found, conf, sup, node_lift);
+    return (int)cudaGetLastError();
 }

@@ -22,8 +22,13 @@ query op on its span layout: the search through
 ``rule_search.rule_search_span``, the rankings over its DFS-ordered
 columns with no gathers, the consequent role of ``rules_with`` through
 the membership kernel, and its quantized columns widen inside every
-kernel (``_dequant_statics``).  Sharded plans, streaming tries and the
-seed layout without CSR offsets are later slices of the port and raise
+kernel (``_dequant_statics``).  A seed-layout ``DeviceTrie``
+(``child_offsets`` None) runs every query op too: the search as two
+``rule_search.rule_search_sweep`` calls (the full rows, then the
+consequent columns alone for compound lift), the prefix descent by a
+lower bound over the lex-sorted edge table, and the rankings and the
+reduction over its DFS and posting columns as on the CSR layout.
+Sharded plans and streaming tries are later slices of the port and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -43,11 +48,11 @@ from repro_torch.core.array_trie import (
 )
 
 from .item_index import ROLES, rules_with_member
-from .metrics_inkernel import RANK_METRICS, rank_score
+from .metrics_inkernel import RANK_METRICS, compound_lift, rank_score
 from .rank import topk_rank_batch
 from .ref import members_from_candidates  # noqa: F401  (the reference's ops name)
 from .ref import rules_with_ref, topk_rank_batch_ref
-from .rule_search import rule_search_fused, rule_search_span
+from .rule_search import rule_search_fused, rule_search_span, rule_search_sweep
 from .support_count import support_count_bitmap
 from .trie_reduce import trie_reduce_columns
 from .tuning import launch_pad
@@ -262,11 +267,6 @@ def _require_supported(trie, op: str) -> None:
         raise NotImplementedError(
             f"{op}: streaming tries are ROADMAP slice 4 (streaming)"
         )
-    if getattr(trie, "child_offsets", 0) is None:
-        raise NotImplementedError(
-            f"{op}: the seed layout without CSR offsets is ROADMAP Queue 2 "
-            f"row 7 (rule_search_pallas)"
-        )
 
 
 def _device_trie(trie, device=None) -> DeviceTrie:
@@ -464,8 +464,9 @@ def annotate_candidates(
 # trie search
 # ----------------------------------------------------------------------
 def edge_metric_arrays(trie, device=None) -> Dict:
-    """Child-node metrics gathered onto the edges once, plus the CSR
-    bucket index the fused search descends.
+    """Child-node metrics gathered onto the edges once, the edge parents
+    the seed layout's full sweep matches, and the CSR bucket index the
+    fused search descends (``child_offsets`` None on the seed layout).
 
     A compressed trie returns its span tables instead, marked
     ``"layout": "compressed"``: the compressed CSR, the span edge columns
@@ -490,6 +491,7 @@ def edge_metric_arrays(trie, device=None) -> Dict:
         }
     safe_child = dt.edge_child.clamp(min=0).long()
     return {
+        "edge_parent": dt.edge_parent,
         "edge_item": dt.edge_item,
         "edge_child": dt.edge_child,
         "edge_conf": dt.confidence[safe_child],
@@ -504,8 +506,9 @@ def rule_search(
     trie, queries, ant_len, edges: Optional[Dict] = None, device=None,
 ) -> Dict[str, torch.Tensor]:
     """Rule search with full paper metrics (compound lift included) for
-    canonical int32 rows ``[Q, L]`` (-1 padded): one fused kernel call.
-    Returns found/node/support/confidence/lift, each ``[Q]``."""
+    canonical int32 rows ``[Q, L]`` (-1 padded): one fused kernel call,
+    or on the seed layout two full-sweep calls.  Returns
+    found/node/support/confidence/lift, each ``[Q]``."""
     _require_supported(trie, "rule_search")
     if edges is None:
         edges = edge_metric_arrays(trie, device)
@@ -536,6 +539,8 @@ def rule_search(
             "confidence": out["confidence"],
             "lift": out["lift"],
         }
+    if edges["child_offsets"] is None:
+        return _seed_rule_search(edges, queries, ant_len)
     out = rule_search_fused(
         edges["child_offsets"], edges["edge_item"], edges["edge_child"],
         edges["edge_conf"], edges["edge_sup"], edges["edge_lift"],
@@ -543,6 +548,29 @@ def rule_search(
     )
     # con_support feeds the sharded merge, not the op-level contract
     return {k: v for k, v in out.items() if k != "con_support"}
+
+
+def _seed_rule_search(edges, queries, ant_len) -> Dict[str, torch.Tensor]:
+    """The seed layout's search: one full sweep over the rows, and one over
+    their consequent columns alone (the antecedent blanked, ``ant_len``
+    0) for the consequent-path Support that compound lift divides by."""
+    cols = (edges["edge_parent"], edges["edge_item"], edges["edge_child"],
+            edges["edge_conf"], edges["edge_sup"], edges["edge_lift"])
+    full = rule_search_sweep(*cols, queries, ant_len)
+    width = queries.shape[1]
+    pos = torch.arange(width, dtype=torch.int32, device=queries.device)
+    cons_q = torch.where(pos[None, :] >= ant_len[:, None], queries, -1)
+    cons = rule_search_sweep(*cols, cons_q, torch.zeros_like(ant_len))
+    seq_len = (queries >= 0).sum(dim=1, dtype=torch.int32)
+    single = (seq_len - ant_len) == 1
+    return {
+        "found": full["found"],
+        "node": full["node"],
+        "support": full["support"],
+        "confidence": full["confidence"],
+        "lift": compound_lift(full["found"], single, full["node_lift"],
+                              full["confidence"], cons["support"]),
+    }
 
 
 def rule_search_batch(

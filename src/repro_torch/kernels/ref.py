@@ -27,6 +27,9 @@ from .metrics_inkernel import compound_lift, dequantize_metrics, rank_score
 
 # masked [rows, N] score block size the plain rankings materialize at once
 _BLOCK_ELEMS = 1 << 24
+# elements of each [rows, E] match block the plain full sweep materializes
+# at once (a few bool and 4-byte blocks of it: ~0.5 GB at 2^26)
+_SWEEP_ELEMS = 1 << 26
 # elements of the [T, chunk] product (and of the [chunk, I] membership) the
 # plain support count materializes at once: 256 MB of f32
 _DENSE_ELEMS = 1 << 26
@@ -232,6 +235,84 @@ def not_found(q: int, device) -> Dict[str, torch.Tensor]:
         "found": torch.zeros((q,), dtype=torch.bool, device=device),
         "node": torch.full((q,), -1, dtype=torch.int32, device=device),
         "confidence": z(), "support": z(), "lift": z(), "con_support": z(),
+    }
+
+
+def sweep_not_found(q: int, device) -> Dict[str, torch.Tensor]:
+    """Full-sweep result of Q absent rules (no edges, width 0): node
+    metrics only, ``node_lift`` in place of lift."""
+    out = not_found(q, device)
+    out["node_lift"] = out.pop("lift")
+    del out["con_support"]
+    return out
+
+
+def rule_search_sweep_ref(
+    edge_parent, edge_item, edge_child, edge_conf, edge_sup, edge_lift,
+    queries, ant_len,
+) -> Dict[str, torch.Tensor]:
+    """The seed full-sweep search: each step matches every query row's
+    ``(node, item)`` against the whole edge table, takes the max child and
+    the max of each edge metric over the matches (0 and -1 when none),
+    and advances the rows that hit.  Node metrics only: found, node,
+    confidence (the product over the steps at or past ``ant_len``),
+    support and node_lift, each ``[Q]``.  The ``[rows, E]`` match blocks
+    are made a bounded chunk of rows at a time; the arithmetic is the
+    reference's (``repro.kernels.ref.rule_search_ref``)."""
+    queries = queries.to(torch.int32)
+    ant_len = ant_len.to(torch.int32)
+    q, width = queries.shape
+    dev = queries.device
+    e = edge_parent.shape[0]
+    if e == 0 or width == 0:
+        return sweep_not_found(q, dev)
+    step = max(1, _SWEEP_ELEMS // e)
+    parts = [
+        _sweep_rows(edge_parent, edge_item, edge_child, edge_conf, edge_sup,
+                    edge_lift, queries[r0:r0 + step], ant_len[r0:r0 + step])
+        for r0 in range(0, max(q, 1), step)
+    ]
+    return {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
+
+
+def _sweep_rows(ep, ei, ec, ecf, esp, elf, queries, ant_len):
+    """``rule_search_sweep_ref`` over one chunk of rows."""
+    q, width = queries.shape
+    dev = queries.device
+    zf = torch.zeros((q,), dtype=torch.float32, device=dev)
+    node = torch.zeros((q,), dtype=torch.int32, device=dev)
+    ok = torch.ones((q,), dtype=torch.bool, device=dev)
+    conf = torch.ones((q,), dtype=torch.float32, device=dev)
+    sup, nlift = zf, zf
+    neg1 = torch.full((q,), -1, dtype=torch.int32, device=dev)
+
+    def best(match, col, fill, init):
+        picked = torch.where(match, col[None, :], fill)
+        return torch.maximum(init, picked.amax(dim=1))
+
+    for s in range(width):
+        item = queries[:, s]
+        active = (item >= 0) & ok
+        qp = torch.where(active, node, -9)
+        match = (ep[None, :] == qp[:, None]) & (ei[None, :] == item[:, None])
+        child = best(match, ec, -1, neg1)
+        e_conf = best(match, ecf, 0.0, zf)
+        e_sup = best(match, esp, 0.0, zf)
+        e_lift = best(match, elf, 0.0, zf)
+        adv = active & (child >= 0)
+        ok = torch.where(active, child >= 0, ok)
+        node = torch.where(adv, child, node)
+        conf = torch.where(adv & (s >= ant_len), conf * e_conf, conf)
+        sup = torch.where(adv, e_sup, sup)
+        nlift = torch.where(adv, e_lift, nlift)
+
+    found = ok & (node > 0)
+    return {
+        "found": found,
+        "node": torch.where(found, node, -1).to(torch.int32),
+        "confidence": torch.where(found, conf, 0.0),
+        "support": torch.where(found, sup, 0.0),
+        "node_lift": torch.where(found, nlift, 0.0),
     }
 
 

@@ -22,7 +22,16 @@ launches the second kernel of ``csrc/rule_search.cu`` (replacing
 ``ref.rule_search_span_ref`` on CPU tensors.  The TPU knob ``span_bf``
 sized that kernel's VMEM bucket lanes; a binary search has no lane width,
 so it has no counterpart here (as ``search_bf`` has none for the fused
-kernel).  The seed full-sweep kernel is a later slice.
+kernel).
+
+``rule_search_sweep`` is the seed layout's search (a ``DeviceTrie``
+without CSR offsets): at every step each row is compared with the whole
+``(edge_parent, edge_item)`` table, and the max child and the max of each
+edge metric over the matches advance it.  It returns node metrics only;
+``ops.rule_search`` makes a second, consequent-only call for compound
+lift.  It launches the third kernel of ``csrc/rule_search.cu`` (replacing
+``repro.kernels.rule_search.rule_search_pallas``), or runs
+``ref.rule_search_sweep_ref`` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -32,7 +41,10 @@ import torch
 
 from . import _build
 from .rank import metric_column_args
-from .ref import not_found, rule_search_fused_ref, rule_search_span_ref
+from .ref import (
+    not_found, rule_search_fused_ref, rule_search_span_ref,
+    rule_search_sweep_ref, sweep_not_found,
+)
 
 
 def rule_search_fused(
@@ -162,3 +174,66 @@ def rule_search_span(
 
 
 rule_search_span.launches = 0
+
+
+def rule_search_sweep(
+    edge_parent, edge_item, edge_child, edge_conf, edge_sup, edge_lift,
+    queries, ant_len,
+) -> Dict[str, torch.Tensor]:
+    """found bool, node int32, confidence/support/node_lift f32, all
+    ``[Q]``, for int32 ``queries[Q, L]`` (-1 padded) and ``ant_len[Q]``,
+    by the full sweep of the edge table at every step."""
+    dev = queries.device
+    if dev.type == "cpu":
+        return rule_search_sweep_ref(
+            edge_parent, edge_item, edge_child, edge_conf, edge_sup,
+            edge_lift, queries, ant_len,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"rule_search_sweep: unsupported device {dev}")
+    q, width = queries.shape
+    e = edge_parent.shape[0]
+    if e == 0 or width == 0 or q == 0:
+        return sweep_not_found(q, dev)
+    queries = queries.to(torch.int32).contiguous()
+    ant_len = ant_len.to(torch.int32).contiguous()
+    i32 = torch.int32
+    f32 = torch.float32
+    _build.check_inputs(
+        "rule_search_sweep", dev,
+        edge_parent=(edge_parent, i32, 1), edge_item=(edge_item, i32, 1),
+        edge_child=(edge_child, i32, 1), edge_conf=(edge_conf, f32, 1),
+        edge_sup=(edge_sup, f32, 1), edge_lift=(edge_lift, f32, 1),
+        queries=(queries, i32, 2), ant_len=(ant_len, i32, 1),
+    )
+    if ant_len.shape[0] != q:
+        raise ValueError("rule_search_sweep: ant_len must have Q entries")
+    for name, col in (("edge_item", edge_item), ("edge_child", edge_child),
+                      ("edge_conf", edge_conf), ("edge_sup", edge_sup),
+                      ("edge_lift", edge_lift)):
+        if col.shape[0] != e:
+            raise ValueError(f"rule_search_sweep: {name} must have E "
+                             f"entries")
+    node = torch.empty((q,), dtype=i32, device=dev)
+    found = torch.empty((q,), dtype=i32, device=dev)
+    conf, sup, lift = (torch.empty((q,), dtype=f32, device=dev)
+                       for _ in range(3))
+    err = _build.lib("rule_search").rule_search_sweep_launch(
+        edge_parent.data_ptr(), edge_item.data_ptr(), edge_child.data_ptr(),
+        edge_conf.data_ptr(), edge_sup.data_ptr(), edge_lift.data_ptr(), e,
+        queries.data_ptr(), ant_len.data_ptr(), q, width, node.data_ptr(),
+        found.data_ptr(), conf.data_ptr(), sup.data_ptr(), lift.data_ptr(),
+        _build.stream_handle(dev),
+    )
+    _build.check(err, "rule_search_sweep")
+    rule_search_sweep.launches += 1
+    return {
+        "found": found != 0,
+        "node": node,
+        "confidence": conf,
+        "support": sup,
+        "node_lift": lift,
+    }
+
+
+rule_search_sweep.launches = 0

@@ -354,3 +354,105 @@ def test_compressed_ops_on_gpu_equal_plain(chain, cuda):
     c, p = TO.trie_reduce(comp), TO.trie_reduce(plain)
     assert float(c["n_rules"]) == float(p["n_rules"])
     assert float(c["confidence_max"]) == float(p["confidence_max"])
+
+
+# ----------------------------------------------------------------------
+# the seed layout (no CSR offsets): the full-sweep search
+# ----------------------------------------------------------------------
+SWEEP_COLS = ("edge_parent", "edge_item", "edge_child", "edge_conf",
+              "edge_sup", "edge_lift")
+
+
+def _with_duplicate_pairs(arrs, rng, count):
+    """The edge columns with ``count`` extra edges that repeat existing
+    (parent, item) pairs, with other children and metrics."""
+    cols = {n: arrs[n].copy() for n in SWEEP_COLS}
+    pick = rng.randint(0, cols["edge_parent"].shape[0], size=count)
+    n = arrs["node_item"].shape[0]
+    extra = {
+        "edge_parent": cols["edge_parent"][pick],
+        "edge_item": cols["edge_item"][pick],
+        "edge_child": rng.randint(-2, n, size=count).astype(np.int32),
+        "edge_conf": rng.rand(count).astype(np.float32),
+        "edge_sup": rng.rand(count).astype(np.float32),
+        "edge_lift": (3 * rng.rand(count)).astype(np.float32),
+    }
+    return {k: np.concatenate([cols[k], extra[k]]) for k in SWEEP_COLS}
+
+
+@pytest.mark.parametrize("n_rows", [1, 31, 33, 3000])
+def test_sweep_kernel(small, cuda, n_rows):
+    """Ragged row tiles (1, 31, 33 rows), thousands of rows, an edge
+    count that is no multiple of the staged chunk, and repeated (parent,
+    item) pairs."""
+    from repro_torch.kernels.rule_search import rule_search_sweep
+
+    arrs, _ = small
+    rng = np.random.RandomState(n_rows)
+    for cols in ({n: arrs[n] for n in SWEEP_COLS},
+                 _with_duplicate_pairs(arrs, rng, 700)):
+        q, al = TS.mixed_queries(rng, arrs, n_rows, 7)
+        args = [torch.from_numpy(cols[n]).to(cuda) for n in SWEEP_COLS]
+        args += [torch.from_numpy(q).to(cuda), torch.from_numpy(al).to(cuda)]
+        before = rule_search_sweep.launches
+        got = rule_search_sweep(*args)
+        assert rule_search_sweep.launches == before + 1
+        want = ref.rule_search_sweep_ref(*args)
+        _bitwise([got[k] for k in want], [want[k] for k in want])
+        cpu = ref.rule_search_sweep_ref(*[a.cpu() for a in args])
+        _bitwise([got[k].cpu() for k in cpu], [cpu[k] for k in cpu])
+
+
+def test_sweep_kernel_guards(small, cuda):
+    from repro_torch.kernels.rule_search import rule_search_sweep
+
+    arrs, _ = small
+    args = [torch.from_numpy(arrs[n]).to(cuda) for n in SWEEP_COLS]
+    q = torch.full((5, 4), -1, dtype=torch.int32, device=cuda)
+    al = torch.zeros((5,), dtype=torch.int32, device=cuda)
+    before = rule_search_sweep.launches
+    for cols, rows, lens in ((args, q, al), ([a[:0] for a in args], q, al),
+                             (args, q[:, :0], al), (args, q[:0], al[:0])):
+        got = rule_search_sweep(*cols, rows, lens)
+        want = ref.rule_search_sweep_ref(*[c.cpu() for c in cols],
+                                         rows.cpu(), lens.cpu())
+        _bitwise([got[k].cpu() for k in want], [want[k] for k in want])
+    # only the all-padding rows over a live table launch
+    assert rule_search_sweep.launches == before + 1
+
+
+def test_seed_ops_on_gpu_equal_cpu(small, cuda):
+    """Every op on a seed-layout DeviceTrie on the card equals the same
+    on the CPU and the CSR layout's answers on the card; one search makes
+    two sweep launches and no fused one."""
+    import dataclasses
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    arrs, fz = small
+    seeds = {dev: dataclasses.replace(fz.device_arrays(device=dev),
+                                      child_offsets=None, max_fanout=0)
+             for dev in (cuda, torch.device("cpu"))}
+    gpu, cpu = seeds[cuda], seeds[torch.device("cpu")]
+    csr = fz.device_arrays(device=cuda)
+    q, al = TS.mixed_queries(np.random.RandomState(10), arrs, 2000, 6)
+    prefixes = [[], [3], [3, 1], [999]]
+    reset_launch_counts()
+    got = TO.rule_search_batch(gpu, q, al)
+    counts = launch_counts()
+    assert counts["rule_search_sweep"] == 2
+    assert counts["rule_search_fused"] == 0
+    outs = [(got, TO.rule_search_batch(cpu, q, al),
+             TO.rule_search_batch(csr, q, al)),
+            (TO.top_k_rules_batch(gpu, prefixes, 25, metric="lift"),
+             TO.top_k_rules_batch(cpu, prefixes, 25, metric="lift"),
+             TO.top_k_rules_batch(csr, prefixes, 25, metric="lift"))]
+    for role in TO.ROLES:
+        outs.append(tuple(TO.rules_with(t, [0, 7, -1, 7], role=role, k=15)
+                          for t in (gpu, cpu, csr)))
+    for g, c, p in outs:
+        _bitwise([g[k].cpu() for k in c], [c[k] for k in c])
+        _bitwise([g[k] for k in p], [p[k] for k in p])
+    g, c = TO.trie_reduce(gpu), TO.trie_reduce(cpu)
+    assert float(g["n_rules"]) == float(c["n_rules"])
+    assert float(g["confidence_max"]) == float(c["confidence_max"])

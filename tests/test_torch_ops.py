@@ -242,14 +242,17 @@ def test_later_slices_raise_not_implemented(pair):
     _, tf, _ = pair["plain"]
     dt = tf.device_arrays(device="cpu")
     seed_layout = dataclasses.replace(dt, child_offsets=None)
-    # the compressed layout (slice 3) is ported: its ops answer
+    # the compressed layout (slice 3) and the seed layout (Queue 2 row 7)
+    # are ported: their ops answer (tests/test_torch_seed.py holds the
+    # seed layout's answers)
     compressed = tf.device_arrays(device="cpu", layout="compressed")
-    assert TO.rule_search_batch(compressed, np.zeros((1, 1), np.int32),
-                                np.zeros(1, np.int32))["found"].shape == (1,)
-    assert TO.top_k_rules_batch(compressed, [[]], 3)["node"].shape == (1, 3)
-    assert TO.rules_with(compressed, [1])["node"].shape == (1, 10)
-    for trie, slice_name in ((seed_layout, "row 7"),
-                             (type("ShardPlan", (), {})(), "slice 6"),
+    for trie in (compressed, seed_layout):
+        assert TO.rule_search_batch(trie, np.zeros((1, 1), np.int32),
+                                    np.zeros(1, np.int32))["found"].shape \
+            == (1,)
+        assert TO.top_k_rules_batch(trie, [[]], 3)["node"].shape == (1, 3)
+        assert TO.rules_with(trie, [1])["node"].shape == (1, 10)
+    for trie, slice_name in ((type("ShardPlan", (), {})(), "slice 6"),
                              (type("StreamingTrie", (), {})(), "slice 4")):
         with pytest.raises(NotImplementedError, match=slice_name):
             TO.rule_search_batch(trie, np.zeros((1, 1), np.int32),
