@@ -11,15 +11,19 @@ GPU.
    and uploads it.
 3. Holds every kernel against its plain PyTorch version on the card at
    full size: all rank metrics, k in {10, 100} and a k past small ranges,
-   every rules_with role, whole-trie and prefix ranges, and a tie-heavy
-   copy of the columns.  Bitwise equal, except the trie_reduce sums
-   (1e-6 relative).
+   every rules_with role (min_depth 0 too: the item -1's consequent row
+   holds the root, as in the reference), whole-trie and prefix ranges,
+   and a tie-heavy copy of the columns.  Bitwise equal, except the
+   trie_reduce sums (1e-6 relative).
 4. Drives the main path through ``TrieQueryEngine`` with the launch
    counters at 0, checks every kernel launched and every answer against
    the tensor oracles, and times each op (CUDA events, median of --reps
    runs after warm-up) and each kernel beside its plain version (device
    time from a torch.profiler trace with the L2 flushed before each call,
-   mean of --reps calls, and CUDA events around one call).
+   mean of --reps calls, and CUDA events around one call); the
+   membership kernel once per role, each with its own bound (the score
+   bytes at its members, ``ref.member_ranges_ref``, and the postings it
+   reads).
 5. Construction: makes ``online_retail_db()`` on the host, checks that
    apriori on the card finds the itemsets host apriori and fpgrowth find,
    holds the support-count kernel against its plain version on the card
@@ -41,12 +45,15 @@ GPU.
    trie_reduce), and checks: compressed f32 == plain bitwise (node ids,
    values, tie order), every kernel call == its plain version on the card
    bitwise on every trie (sums to 1e-6), the quantized answers within the
-   README's error bounds of plain f32 (found and node exact), and that the
-   span search and the quantized rank, membership and reduce variants
-   launched.  Then the retail trie of step 5: ``auto`` keeps it plain, and
-   served compressed with int32 + bf16 columns at its real
-   ``n_transactions`` it finds all its rules.  Prints resident bytes, op
-   ms compressed against plain, and the span and quantized kernels' times.
+   README's error bounds of plain f32 (found and node exact), the
+   membership kernel at min_depth 0 (the root answers the item -1's
+   consequent row), and that the span search and the quantized rank,
+   membership and reduce variants launched.  Then the retail trie of step
+   5: ``auto`` keeps it plain, and served compressed with int32 + bf16
+   columns at its real ``n_transactions`` it finds all its rules.  Prints
+   resident bytes, op ms compressed against plain, and the span and
+   quantized kernels' times (the membership kernel per role, beside its
+   f32 twin).
 7. Seed layout (no CSR offsets): serves the 2^20 trie of step 2 (under a
    larger ``--edges`` a 2^20 trie of its own: the sweep is O(Q L E)) as a
    seed-layout ``DeviceTrie`` with the traffic of step 4 (the 4096 search
@@ -268,8 +275,23 @@ def walk_steps(dt, queries, ant_len):
     return main, cons
 
 
-def drive_engine(engine, queries, ant_len, pairs, prefixes, items):
-    """One pass of every batched op through ``engine``."""
+def member_launches_by_role(role_launches, role, call):
+    """``call()``, adding the membership kernel's launches it made to
+    ``role_launches[role]`` (when a dict is given)."""
+    from repro_torch.kernels.item_index import rules_with_member
+
+    before = rules_with_member.launches
+    out = call()
+    if role_launches is not None:
+        role_launches[role] = role_launches.get(role, 0) + \
+            rules_with_member.launches - before
+    return out
+
+
+def drive_engine(engine, queries, ant_len, pairs, prefixes, items,
+                 role_launches=None):
+    """One pass of every batched op through ``engine``; the membership
+    kernel's launches per role go to ``role_launches``."""
     res = {
         "search": engine.rule_search_batch(queries, ant_len),
         "search_pairs": engine.rule_search_batch(pairs),
@@ -278,7 +300,9 @@ def drive_engine(engine, queries, ant_len, pairs, prefixes, items):
         "reduce": engine.trie_reduce(),
     }
     for role in ROLES:
-        res[role] = engine.rules_with(items, role=role, k=10)
+        res[role] = member_launches_by_role(
+            role_launches, role,
+            lambda: engine.rules_with(items, role=role, k=10))
     return res
 
 
@@ -365,8 +389,9 @@ def time_ops(engine, queries, ant_len, prefixes, items, reps):
 KERNEL_NAMES = {
     "topk_rank_batch": ("score_kernel", "chunk_topk_kernel",
                         "merge_pairs_kernel"),
-    "rules_with_member": ("score_kernel", "chunk_topk_kernel",
-                          "merge_pairs_kernel"),
+    "rules_with_member": ("member_score_kernel", "member_count_kernel",
+                          "member_ranges_kernel", "member_plan_kernel",
+                          "member_topk_kernel"),
     "rule_search_fused": ("rule_search_fused_kernel",),
     "rule_search_span": ("rule_search_span_kernel",),
     "rule_search_sweep": ("rule_search_sweep_kernel",),
@@ -400,20 +425,78 @@ def covered_positions(n, los, his):
     return int((covered.cumsum(0)[:n] > 0).sum())
 
 
-def member_work(n, post_lo, post_hi, plos, phis, n_items, k, score_b):
-    """Bytes a membership top-k (role any) needs on this data: the
-    postings of the queried items (8 bytes each), the score's columns at
-    every position those postings cover, the item rows (12 bytes each)
-    and the k results per item (8 bytes each)."""
-    import numpy as np
-    import torch
+def member_work(ia, rows, role, k, score_b):
+    """(bytes, operations) a membership top-k of ``role`` needs on this
+    data, whatever computes it: the score's columns at every member
+    position (``ref.member_ranges_ref``; each read once however many
+    queries hold it), the posting bounds the role reads (post_lo and
+    post_hi, 8 bytes a posting; post_lo alone for consequent), the item
+    rows (12 bytes each) and the k results per item (8 bytes each); a
+    score, a compare and a select per member of each query."""
+    from repro_torch.kernels import ref
 
-    idx = torch.as_tensor(np.concatenate(
-        [np.arange(a, b) for a, b in zip(plos, phis)] + [np.zeros(0, int)]),
-        dtype=torch.long, device=post_lo.device)
-    union = covered_positions(n, post_lo[idx], post_hi[idx])
-    return score_b * union + 8 * idx.numel() + 12 * n_items \
-        + 8 * n_items * k
+    plos, phis, items = rows
+    _, lo, hi = ref.member_ranges_ref(ia["post_lo"], ia["post_hi"], plos,
+                                      phis, items, ia["node_item"], role)
+    n, q = ia["node_item"].shape[0], plos.shape[0]
+    postings = int((phis.long() - plos.long()).clamp(min=0).sum())
+    per_posting = 4 if role == "consequent" else 8
+    return (score_b * covered_positions(n, lo, hi) + per_posting * postings
+            + 12 * q + 8 * q * k, 3 * float((hi - lo).sum()))
+
+
+def member_rows(ia, rows, k, role_launches, errs, reps, flush, label,
+                twin=None):
+    """One ``kernels`` row per role for the membership kernel over the
+    item arrays ``ia`` and the deduped, padded query rows ``rows`` (role
+    any keeps the plain ``label``, the others add theirs); ``twin`` maps
+    each role to the device ms of the same call on an f32 twin trie."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.item_index import rules_with_member
+
+    dq = ops._dequant_statics(ia)
+    args = (ia["support"], ia["confidence"], ia["lift"], ia["depth"],
+            ia["node_item"], ia["post_lo"], ia["post_hi"], *rows)
+    where = ("cuda", "src/repro_torch/kernels/csrc/item_index.cu",
+             "src/repro/kernels/item_index.py:162")
+    out = []
+    for role in ROLES:
+        kw = dict(k=k, metric="confidence", min_depth=1, role=role, **dq)
+        work = member_work(ia, rows, role, k,
+                           score_bytes("confidence", ia["support"],
+                                       ia["confidence"]))
+        name = label if role == "any" else f"{label} [{role}]"
+        if label.endswith("]"):
+            name = f"{label[:-1]} {role}]"
+        # the plain version launches a few kernels per query: fewer reps
+        row = kernel_row(
+            "rules_with_member",
+            lambda: rules_with_member(*args, **kw),
+            lambda: ref.rules_with_ref(*args, **kw),
+            work, where, role_launches.get(role, 0), max(errs), reps, flush,
+            label=name, plain_reps=max(2, reps // 4))
+        row["role"] = role
+        if twin is not None:
+            row["f32_ms"] = twin[role]
+            log(f"[kernel] {name}: its f32 twin on the same trie "
+                f"{twin[role]} ms device")
+        out.append(row)
+    return out
+
+
+def member_twin_ms(ia, rows, k, reps, flush):
+    """Device ms of the membership kernel per role on ``ia``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.item_index import rules_with_member
+
+    dq = ops._dequant_statics(ia)
+    args = (ia["support"], ia["confidence"], ia["lift"], ia["depth"],
+            ia["node_item"], ia["post_lo"], ia["post_hi"], *rows)
+    return {role: device_ms(
+        lambda: rules_with_member(*args, k=k, metric="confidence",
+                                  min_depth=1, role=role, **dq),
+        reps, flush, kernel=KERNEL_NAMES["rules_with_member"])
+        for role in ROLES}
 
 
 def kernel_row(name, kern, plain, work, where, launches, max_err, reps,
@@ -746,8 +829,10 @@ def layout_columns(dt):
             "ia": ops.item_rank_arrays(dt)}
 
 
-def drive_layout(dt, cols, queries, ant_len, prefixes, items):
-    """One pass of every batched op over one device trie."""
+def drive_layout(dt, cols, queries, ant_len, prefixes, items,
+                 role_launches=None):
+    """One pass of every batched op over one device trie; the membership
+    kernel's launches per role go to ``role_launches``."""
     from repro_torch.kernels import ops
 
     res = {
@@ -759,8 +844,10 @@ def drive_layout(dt, cols, queries, ant_len, prefixes, items):
         "reduce": ops.trie_reduce(dt),
     }
     for role in ROLES:
-        res[role] = ops.rules_with(dt, items, role=role, k=10,
-                                   arrays=cols["ia"])
+        res[role] = member_launches_by_role(
+            role_launches, role,
+            lambda: ops.rules_with(dt, items, role=role, k=10,
+                                   arrays=cols["ia"]))
     return res
 
 
@@ -931,12 +1018,13 @@ def compressed_phase(args, dev, l2_flush, retail, retail_n_tx):
     al_t = torch.as_tensor(ant_len, device=dev)
 
     # -- 7a. the main path on each trie, counters at 0 around each ------
-    cols, res, launched = {}, {}, {}
+    cols, res, launched, role_launched = {}, {}, {}, {}
     for tag, dt in tries.items():
         cols[tag] = layout_columns(dt)
         reset_launch_counts()
+        role_launched[tag] = {}
         res[tag] = drive_layout(dt, cols[tag], queries, ant_len, prefixes,
-                                items)
+                                items, role_launched[tag])
         torch.cuda.synchronize()
         launched[tag] = launch_counts()
         log(f"[compress main path] {tag}: launches {launched[tag]}")
@@ -976,6 +1064,12 @@ def compressed_phase(args, dev, l2_flush, retail, retail_n_tx):
         f"({int(found.sum())} of {len(queries)} rows found)")
 
     # -- 7c. every kernel call == its plain version, on every trie ------
+    # the membership kernel's rows as rules_with launches them: deduped,
+    # padded to a power of two
+    qitems = ops._posting_slices(cols["compressed"]["ia"]["item_offsets"],
+                                 items)
+    m_rows = [torch.as_tensor(a, device=dev) for a in ops._pad_pow2_rows(
+        *[a[np.unique(qitems[2], return_index=True)[1]] for a in qitems])]
     errs = {}
     for tag in QUANT:
         dt, cl = tries[tag], cols[tag]
@@ -1000,6 +1094,22 @@ def compressed_phase(args, dev, l2_flush, retail, retail_n_tx):
                        [res[tag][role][x] for x in want],
                        [want[x] for x in want],
                        errs.setdefault(("rules_with_member", tag), []))
+            # min_depth 0: the item -1's consequent row is the root
+            ia = cl["ia"]
+            m_args = (ia["support"], ia["confidence"], ia["lift"],
+                      ia["depth"], ia["node_item"], ia["post_lo"],
+                      ia["post_hi"], *m_rows)
+            m_kw = dict(k=10, metric="confidence", min_depth=0, role=role,
+                        **dq)
+            got = rules_with_member(*m_args, **m_kw)
+            check_same(f"rules_with_member {tag} {role} min_depth=0", got,
+                       ref.rules_with_ref(*m_args, **m_kw),
+                       errs[("rules_with_member", tag)])
+            absent = got[1][m_rows[2] == -1]
+            if role == "consequent" and not bool(
+                    (absent[:, 0] == 0).all()):
+                raise AssertionError(f"compress {tag}: the item -1's "
+                                     f"consequent row lost the root")
         rq = dict(n_transactions=dq["n_transactions"],
                   confidence_scale=dq["confidence_scale"])
         got = trie_reduce_columns(dt.support, dt.confidence, dt.node_depth,
@@ -1140,33 +1250,27 @@ def compressed_phase(args, dev, l2_flush, retail, retail_n_tx):
     los, his, _ = ops.prefix_ranges(comp, prefixes)
     union = covered_positions(n, los, his)
     span_len = float((his - los).clamp(min=0).sum())
-    qitems = ops._posting_slices(cols["compressed"]["ia"]["item_offsets"],
-                                 items)
-    u_plos, u_phis, u_items = ops._pad_pow2_rows(
-        *[a[np.unique(qitems[2], return_index=True)[1]] for a in qitems])
     dq_rows = []
     f32_ms = {}
     for tag in QUANT:
+        # the membership kernel per role: the f32 twin's device ms, then
+        # a row per role on each quantized trie
+        if tag == "compressed":
+            member_f32 = member_twin_ms(cols[tag]["ia"], m_rows, 10, reps,
+                                        l2_flush.zero_)
+        else:
+            dq_rows.extend(member_rows(
+                cols[tag]["ia"], m_rows, 10, role_launched[tag],
+                errs[("rules_with_member", tag)], reps, l2_flush.zero_,
+                f"rules_with_member [{tag}]", twin=member_f32))
         dt, cl = tries[tag], cols[tag]
         dq = ops._dequant_statics(dt)
         es_s, es_c = dt.support.element_size(), dt.confidence.element_size()
         sa, skw = span_args(dt)
         r_args = (dt.support, dt.confidence, dt.lift, dt.node_depth, los, his)
         r_kw = dict(k=100, metric="confidence", min_depth=1, **dq)
-        m_args = (dt.support, dt.confidence, dt.lift, dt.node_depth,
-                  dt.node_item, dt.post_lo, dt.post_hi,
-                  *[torch.as_tensor(a, device=dev)
-                    for a in (u_plos, u_phis, u_items)])
-        m_kw = dict(k=10, metric="confidence", min_depth=1, role="any", **dq)
         rq = dict(n_transactions=dq["n_transactions"],
                   confidence_scale=dq["confidence_scale"])
-        range_len = torch.cat([
-            torch.zeros((1,), dtype=torch.float64, device=dev),
-            (dt.post_hi - dt.post_lo).double().cumsum(0)])
-        members = float((range_len[torch.as_tensor(u_phis, device=dev)
-                                   .long()]
-                         - range_len[torch.as_tensor(u_plos, device=dev)
-                                     .long()]).sum())
         calls = {
             "rule_search_span": (
                 lambda: rule_search_span(*sa, q_t, al_t, **skw),
@@ -1182,16 +1286,6 @@ def compressed_phase(args, dev, l2_flush, retail, retail_n_tx):
                  3 * span_len),
                 "cuda", "src/repro_torch/kernels/csrc/rank.cu",
                 "src/repro/kernels/rank.py:178"),
-            "rules_with_member": (
-                lambda: rules_with_member(*m_args, **m_kw),
-                lambda: ref.rules_with_ref(*m_args, **m_kw),
-                (member_work(n, dt.post_lo, dt.post_hi, u_plos, u_phis,
-                             u_items.size, m_kw["k"],
-                             score_bytes(m_kw["metric"], dt.support,
-                                         dt.confidence)),
-                 3 * members),
-                "cuda", "src/repro_torch/kernels/csrc/item_index.cu",
-                "src/repro/kernels/item_index.py:162"),
             "trie_reduce_columns": (
                 lambda: trie_reduce_columns(dt.support, dt.confidence,
                                             dt.node_depth, **rq),
@@ -1590,18 +1684,25 @@ def main():
                                     **kw),
             errs["topk_rank_batch"])
     m_cols = [ia["support"], ia["confidence"], ia["lift"]]
-    sel = slice(0, 64)
+    # 56 random items and the last 8 (duplicates, -1, an absent id, fixed)
+    sel = torch.as_tensor(np.r_[0:56, len(items) - 8:len(items)],
+                          device=dev)
     for cols, tag in ((m_cols, "plain"), (tie_heavy(m_cols), "ties")):
         for role in ROLES:
             for metric in METRICS:
-                for k in ((10, 100, 1500) if metric == "confidence"
-                          else (10,)):
+                # min_depth 0: the root is a member of the item -1's
+                # consequent row (the traffic's absent items)
+                for k, min_depth in (((10, 1), (100, 1), (1500, 1), (10, 0))
+                                     if metric == "confidence"
+                                     else ((10, 1),)):
                     args_m = (*cols, ia["depth"], ia["node_item"],
                               ia["post_lo"], ia["post_hi"], plos_t[sel],
                               phis_t[sel], qitems_t[sel])
-                    kw = dict(k=k, metric=metric, min_depth=1, role=role)
+                    kw = dict(k=k, metric=metric, min_depth=min_depth,
+                              role=role)
                     check_same(
-                        f"rules_with_member {tag} {role} {metric} k={k}",
+                        f"rules_with_member {tag} {role} {metric} k={k} "
+                        f"min_depth={min_depth}",
                         rules_with_member(*args_m, **kw),
                         ref.rules_with_ref(*args_m, **kw),
                         errs["rules_with_member"])
@@ -1630,7 +1731,9 @@ def main():
     # -- 4. the main path through TrieQueryEngine ----------------------
     reset_launch_counts()
     t0 = time.perf_counter()
-    res = drive_engine(engine, queries, ant_len, pairs, prefixes, items)
+    role_launches = {}
+    res = drive_engine(engine, queries, ant_len, pairs, prefixes, items,
+                       role_launches)
     torch.cuda.synchronize()
     launches = launch_counts()
     log(f"[main path] {time.perf_counter() - t0:.2f} s, launches {launches}")
@@ -1650,11 +1753,8 @@ def main():
     u_plos, u_phis, u_items = ops._pad_pow2_rows(
         *[a[np.unique(qitems, return_index=True)[1]]
           for a in (plos, phis, qitems)])
-    m_args = (*m_cols, ia["depth"], ia["node_item"], ia["post_lo"],
-              ia["post_hi"], torch.as_tensor(u_plos, device=dev),
-              torch.as_tensor(u_phis, device=dev),
-              torch.as_tensor(u_items, device=dev))
-    m_kw = dict(k=10, metric="confidence", min_depth=1, role="any")
+    m_rows = [torch.as_tensor(a, device=dev)
+              for a in (u_plos, u_phis, u_items)]
     r_args = (*rank_cols, dfs["depth"], los, his)
     r_kw = dict(k=100, metric="confidence", min_depth=1)
     f_kw = dict(max_fanout=edges["max_fanout"])
@@ -1666,9 +1766,6 @@ def main():
         "rule_search_fused": (
             lambda: rule_search_fused(*e_args, **f_kw),
             lambda: ref.rule_search_fused_ref(*e_args, **f_kw)),
-        "rules_with_member": (
-            lambda: rules_with_member(*m_args, **m_kw),
-            lambda: ref.rules_with_ref(*m_args, **m_kw)),
         "trie_reduce_columns": (
             lambda: trie_reduce_columns(*red_args),
             lambda: ref.trie_reduce_ref(*red_args)),
@@ -1678,14 +1775,6 @@ def main():
     # the columns each score reads (score_bytes), once per covered position
     span = (his - los).clamp(min=0)
     main_steps, cons_steps = walk_steps(dt, q_t, al_t)
-    # an item's members (role any) are the positions its posting ranges
-    # cover: a score, a compare and a select each
-    range_len = torch.cat([
-        torch.zeros((1,), dtype=torch.float64, device=dev),
-        (ia["post_hi"] - ia["post_lo"]).double().cumsum(0)])
-    members = float((range_len[torch.as_tensor(u_phis, device=dev).long()]
-                     - range_len[torch.as_tensor(u_plos, device=dev).long()]
-                     ).sum())
     work = {
         "topk_rank_batch": (
             score_bytes(r_kw["metric"], *rank_cols[:2])
@@ -1696,11 +1785,6 @@ def main():
             queries.size * 4 + ant_len.size * 4 + 24 * queries.shape[0]
             + 28 * main_steps + 20 * cons_steps,
             queries.shape[0] * 8),
-        "rules_with_member": (
-            member_work(n, ia["post_lo"], ia["post_hi"], u_plos, u_phis,
-                        u_items.size, m_kw["k"],
-                        score_bytes(m_kw["metric"], *m_cols[:2])),
-            3 * members),
         "trie_reduce_columns": (12 * n + 16, 4 * n),
     }
     sources = {
@@ -1709,9 +1793,6 @@ def main():
         "rule_search_fused": (
             "cuda", "src/repro_torch/kernels/csrc/rule_search.cu",
             "src/repro/kernels/rule_search.py:333"),
-        "rules_with_member": (
-            "cuda", "src/repro_torch/kernels/csrc/item_index.cu",
-            "src/repro/kernels/item_index.py:162"),
         "trie_reduce_columns": (
             "triton", "src/repro_torch/kernels/trie_reduce.py",
             "src/repro/kernels/trie_reduce.py:50"),
@@ -1728,6 +1809,12 @@ def main():
     rows = [kernel_row(name, kern, plain, work[name], sources[name],
                        launches[name], max(errs[name]), reps, l2_flush.zero_)
             for name, (kern, plain) in calls.items()]
+    # the membership kernel per role; on this plain layout the consequent
+    # role of the main path ranks posting-ordered columns with the rank
+    # kernel, so its row shows no main-path launch
+    rows[2:2] = member_rows(ia, m_rows, 10, role_launches,
+                            errs["rules_with_member"], reps, l2_flush.zero_,
+                            "rules_with_member")
 
     # -- 6. construction: mine -> trie -> annotate, then serve it -------
     row, retail, retail_n_tx = construction_phase(args, dev, l2_flush)

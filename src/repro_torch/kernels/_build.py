@@ -48,7 +48,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "item_index": {
         "rules_with_launch": (
             *_COLUMNS, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
-            _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _P, _P, _P,
+            _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+            _P, _P, _P, _P, _P, _P, _P, _P, _P,
         ),
     },
     "rule_search": {

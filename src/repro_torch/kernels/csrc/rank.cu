@@ -30,9 +30,7 @@ struct RangeSource {
         return span > 0 ? (span + RT_TILE - 1) / RT_TILE : 0;
     }
     __device__ int tile_base(int q, int t) const { return los[q] + t * RT_TILE; }
-    __device__ bool tile_may_hit(int, int) const { return true; }
     __device__ bool in_range(int q, int pos) const { return pos < his[q]; }
-    __device__ bool member(int, int) const { return true; }
 };
 
 extern "C" int topk_rank_batch_launch(

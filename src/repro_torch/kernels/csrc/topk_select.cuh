@@ -1,5 +1,6 @@
-// Segmented top-k selection shared by the rank kernel (rank.cu) and the
-// item-membership kernel (item_index.cu).
+// Segmented top-k selection of the rank kernel (rank.cu); its key, score
+// and candidate merge are shared with the item-membership kernel
+// (item_index.cu).
 //
 // Order: value descending, ties by ascending DFS position -- jax.lax.top_k
 // order.  Each candidate becomes one 64-bit key that sorts ascending in that
@@ -16,7 +17,7 @@
 // -- in shared memory while kk <= TILE, else in the block's slices of the
 // two global scratch buffers -- and write it as one list.  Only the
 // candidates that beat the running kk-th key are sorted (bitonic) and
-// merged in, and the costly part of a membership test runs only for them.
+// merged in.
 // Pass 2 (log2(chunks) launches): merge the lists pairwise.  A merge places
 // every live element at its rank in the union -- its index in its own list
 // plus a binary search in the other list -- so it takes any k; lists stay
@@ -47,6 +48,21 @@ __device__ __forceinline__ unsigned long long topk_key(float score, int pos) {
 // the columns the metric reads (metric_reads_*: the branch is uniform
 // across the grid), and none below min_depth.
 template <class S, class C>
+__device__ __forceinline__ float position_score(
+    const S* __restrict__ sup, const C* __restrict__ conf,
+    const C* __restrict__ lift, const int* __restrict__ depth, int i,
+    int metric, int min_depth, float inv_n, float conf_scale,
+    float lift_scale) {
+    if (depth[i] < min_depth) return -INFINITY;
+    float s = metric_reads_support(metric) ? dequantize(sup[i], inv_n) : 0.0f;
+    float c = metric_reads_confidence(metric) ? dequantize(conf[i], conf_scale)
+                                              : 0.0f;
+    float l = metric_reads_lift(metric) ? dequantize(lift[i], lift_scale)
+                                        : 0.0f;
+    return rank_score(metric, s, c, l);
+}
+
+template <class S, class C>
 __global__ void __launch_bounds__(RT_THREADS)
 score_kernel(const S* __restrict__ sup, const C* __restrict__ conf,
              const C* __restrict__ lift, const int* __restrict__ depth,
@@ -54,18 +70,8 @@ score_kernel(const S* __restrict__ sup, const C* __restrict__ conf,
              float lift_scale, float* __restrict__ out) {
     int i = blockIdx.x * RT_THREADS + threadIdx.x;
     if (i >= n) return;
-    float score = -INFINITY;
-    if (depth[i] >= min_depth) {
-        float s = metric_reads_support(metric) ? dequantize(sup[i], inv_n)
-                                               : 0.0f;
-        float c = metric_reads_confidence(metric)
-                      ? dequantize(conf[i], conf_scale)
-                      : 0.0f;
-        float l = metric_reads_lift(metric) ? dequantize(lift[i], lift_scale)
-                                            : 0.0f;
-        score = rank_score(metric, s, c, l);
-    }
-    out[i] = score;
+    out[i] = position_score(sup, conf, lift, depth, i, metric, min_depth,
+                            inv_n, conf_scale, lift_scale);
 }
 
 // The metric columns and how to widen them: storage type codes
@@ -130,6 +136,71 @@ __device__ __forceinline__ void block_sort(unsigned long long* keys, int n) {
     }
 }
 
+// Merge the c > 0 collected candidate keys cand[0, c) (unsorted, c <=
+// RT_TILE) into the block's running top-kk list (run, rv), writing the new
+// list to (nxt, nv); value(key) is a candidate's score.  Sorts cand.
+template <class ValueOf>
+__device__ __forceinline__ void merge_candidates(
+    unsigned long long* cand, int c, int kk, const unsigned long long* run,
+    const float* rv, unsigned long long* nxt, float* nv, ValueOf value) {
+    int p2 = 1;
+    while (p2 < c) p2 <<= 1;
+    for (int i = c + threadIdx.x; i < p2; i += RT_THREADS)
+        cand[i] = RT_EMPTY_KEY;
+    __syncthreads();
+    block_sort(cand, p2);
+    // top kk of run[0, kk) and cand[0, lc)
+    const int lc = c < kk ? c : kk;
+    const int live = count_below(run, kk, RT_EMPTY_KEY) + lc;
+    for (int i = threadIdx.x; i < kk; i += RT_THREADS) {
+        unsigned long long key = run[i];
+        if (key != RT_EMPTY_KEY) {
+            int r = i + count_below(cand, lc, key);
+            if (r < kk) {
+                nxt[r] = key;
+                nv[r] = rv[i];
+            }
+        }
+        if (i < lc) {
+            key = cand[i];
+            int r = i + count_below(run, kk, key);
+            if (r < kk) {
+                nxt[r] = key;
+                nv[r] = value(key);
+            }
+        }
+        if (i >= live) {
+            nxt[i] = RT_EMPTY_KEY;
+            nv[i] = -INFINITY;
+        }
+    }
+}
+
+__device__ __forceinline__ void swap_lists(unsigned long long*& run,
+                                           unsigned long long*& nxt,
+                                           float*& rv, float*& nv) {
+    unsigned long long* tk = run;
+    run = nxt;
+    nxt = tk;
+    float* tv = rv;
+    rv = nv;
+    nv = tv;
+}
+
+// The block's final list to its slot (ko, vo) of the chunk lists, unless
+// it is a global list that already ended there.
+__device__ __forceinline__ void write_list(const unsigned long long* run,
+                                           const float* rv,
+                                           unsigned long long* ko, float* vo,
+                                           int kk) {
+    __syncthreads();
+    if (run == ko) return;
+    for (int i = threadIdx.x; i < kk; i += RT_THREADS) {
+        ko[i] = run[i];
+        vo[i] = rv[i];
+    }
+}
+
 // Pass 1.  One block per (query, chunk of tiles_per_chunk tiles); it keeps
 // the chunk's running top-kk sorted, in shared memory for kk <= RT_TILE,
 // else ping-ponging between its kk-long slices of (keys_out, vals_out) and
@@ -139,10 +210,7 @@ __device__ __forceinline__ void block_sort(unsigned long long* keys, int n) {
 // list is full most tiles cost one streaming pass.  Src provides:
 //   int tile_count(int q)            tiles in the query's candidate range
 //   int tile_base(int q, int t)      first position of tile t of query q
-//   bool tile_may_hit(int q, int base)  false if no position of the tile
-//                                    starting at base can be a member
 //   bool in_range(int q, int pos)    pos lies in the query's range
-//   bool member(int q, int pos)      remaining membership test (costly)
 //   const float* scores              pass 0's masked score column
 template <class Src>
 __global__ void __launch_bounds__(RT_THREADS)
@@ -171,7 +239,6 @@ chunk_topk_kernel(Src src, int n_chunks, int tiles_per_chunk, int kk,
     int t_end = min(src.tile_count(q), (chunk + 1) * tiles_per_chunk);
     for (int t = chunk * tiles_per_chunk; t < t_end; ++t) {
         const int base = src.tile_base(q, t);
-        if (!src.tile_may_hit(q, base)) continue;  // uniform over the block
         if (threadIdx.x == 0) n_cand = 0;
         __syncthreads();  // also publishes the running list
         const unsigned long long thr = run[kk - 1];
@@ -180,7 +247,7 @@ chunk_topk_kernel(Src src, int n_chunks, int tiles_per_chunk, int kk,
             if (!src.in_range(q, pos)) continue;
             float s = src.scores[pos];
             unsigned long long key = topk_key(s, pos);
-            if (key < thr && src.member(q, pos)) {
+            if (key < thr) {
                 tile_vals[i] = s;
                 cand[atomicAdd(&n_cand, 1)] = key;
             }
@@ -189,50 +256,13 @@ chunk_topk_kernel(Src src, int n_chunks, int tiles_per_chunk, int kk,
         const int c = n_cand;
         __syncthreads();  // every thread has c before the next reset
         if (c == 0) continue;
-        int p2 = 1;
-        while (p2 < c) p2 <<= 1;
-        for (int i = c + threadIdx.x; i < p2; i += RT_THREADS)
-            cand[i] = RT_EMPTY_KEY;
-        __syncthreads();
-        block_sort(cand, p2);
-        // merge: top kk of run[0, kk) and cand[0, lc)
-        const int lc = c < kk ? c : kk;
-        const int live = count_below(run, kk, RT_EMPTY_KEY) + lc;
-        for (int i = threadIdx.x; i < kk; i += RT_THREADS) {
-            unsigned long long key = run[i];
-            if (key != RT_EMPTY_KEY) {
-                int r = i + count_below(cand, lc, key);
-                if (r < kk) {
-                    nxt[r] = key;
-                    nv[r] = rv[i];
-                }
-            }
-            if (i < lc) {
-                key = cand[i];
-                int r = i + count_below(run, kk, key);
-                if (r < kk) {
-                    nxt[r] = key;
-                    nv[r] = tile_vals[(int)(unsigned int)key - base];
-                }
-            }
-            if (i >= live) {
-                nxt[i] = RT_EMPTY_KEY;
-                nv[i] = -INFINITY;
-            }
-        }
-        unsigned long long* tk = run;
-        run = nxt;
-        nxt = tk;
-        float* tv = rv;
-        rv = nv;
-        nv = tv;
+        merge_candidates(cand, c, kk, run, rv, nxt, nv,
+                         [&](unsigned long long key) {
+                             return tile_vals[(int)(unsigned int)key - base];
+                         });
+        swap_lists(run, nxt, rv, nv);
     }
-    __syncthreads();
-    if (run == ko) return;  // a global list that ended in place
-    for (int i = threadIdx.x; i < kk; i += RT_THREADS) {
-        ko[i] = run[i];
-        vo[i] = rv[i];
-    }
+    write_list(run, rv, ko, vo, kk);
 }
 
 // Pass 2: lists 2p and 2p+1 (of n_in, each l_in long) of every query merge

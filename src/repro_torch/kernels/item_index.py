@@ -2,31 +2,45 @@
 
 ``rules_with_member`` answers Q item queries in one call: the top-k rules
 involving each item, by role -- ``"consequent"`` (the node's own item),
-``"antecedent"`` (a strict ancestor carries it) or ``"any"``.  Ancestor
-membership is the laminar range count over the item's posting slice,
+``"antecedent"`` (a strict ancestor carries it) or ``"any"``.  The plain
+version tests membership per DFS position with the laminar range count
+over the item's posting slice,
 
     |{u : post_lo[u] <= p}| - |{u : post_hi[u] <= p}|,
 
-two binary searches per DFS position, never a path walk.  Rows follow
-``jax.lax.top_k`` order with ``(-inf, -1)`` empty slots; an absent item is
-an empty slice ``plos[q] == phis[q]`` plus an item id no node carries.
+never a path walk.  Rows follow ``jax.lax.top_k`` order with ``(-inf,
+-1)`` empty slots; an absent item is an empty slice ``plos[q] == phis[q]``
+plus an item id no node carries.
 
 On a CUDA tensor it launches the hand-written kernel in
 ``csrc/item_index.cu`` (replacing the TPU kernel
-``repro.kernels.item_index.rules_with_pallas``); on a CPU tensor it runs
-the plain version ``ref.rules_with_ref``.  Quantized metric columns (the
-compressed layout) widen in the kernel's score pass, as in ``rank``.
+``repro.kernels.item_index.rules_with_pallas``), which reads only each
+query's members, in the closed form of ``ref.member_ranges_ref``: the
+outermost posting ranges (antecedent, any) or the postings themselves
+(consequent).  On a CPU tensor it runs the plain version
+``ref.rules_with_ref``.  Quantized metric columns (the compressed layout)
+widen in the kernel's score pass, as in ``rank``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
 from .metrics_inkernel import metric_index
-from .rank import TILE, _scratch, chunking, metric_column_args
+from .rank import TILE, metric_column_args
 from .ref import _empty_ranked, rules_with_ref
 
 ROLES = ("consequent", "antecedent", "any")
+POSTING_CHUNK = 2048  # postings per block of the range pass (item_index.cu)
+# blocks the top-k pass spreads a call's candidates over (about a wave of
+# the card's 132 SMs), and the fewest tiles of candidates a block takes: a
+# block's first tile sorts every candidate it admits, later ones only those
+# that beat the query's running k-th key
+WORK_BLOCKS = 1024
+MIN_TILES = 8
+# list elements (k keys per block) one call's lists may take
+LIST_ELEMS = 1 << 22
 
 
 def rules_with_member(
@@ -69,8 +83,40 @@ def rules_with_member(
     )
     columns = metric_column_args("rules_with_member", support, confidence,
                                  lift, **dequant)
-    n_chunks, per_chunk, kk = chunking(q, -(-n // TILE), k)
-    sc, ka, va, kb, vb, cap = _scratch(n, q, n_chunks, kk, k, dev)
+    # the host lays out the range pass from the slice lengths: each query's
+    # range slots, and the posting chunks of every slice
+    bounds = torch.stack([plos, phis]).cpu().numpy().astype(np.int64)
+    lens = np.maximum(bounds[1] - bounds[0], 0)
+    if int(lens.sum()) >= 2**31:
+        raise ValueError("rules_with_member: posting slices over 2^31")
+    chunks = np.zeros_like(lens) if role == "consequent" else \
+        -(-lens // POSTING_CHUNK)
+    meta = torch.from_numpy(np.concatenate([
+        np.cumsum(lens) - lens, np.cumsum(chunks) - chunks,
+        np.repeat(np.arange(q), chunks),
+    ]).astype(np.int32)).to(dev)
+    # the top-k grid: about WORK_BLOCKS blocks share the candidates, plus
+    # one a query at most; every block keeps a list of k
+    work_blocks = max(1, min(WORK_BLOCKS, LIST_ELEMS // k - q))
+    grid = work_blocks + q
+
+    def scratch(size, dtype):
+        return torch.empty((max(size, 1),), dtype=dtype, device=dev)
+
+    # held here until the launch returns: the C side takes raw pointers
+    n_chunks, slots = int(chunks.sum()), int(lens.sum())
+    spill = grid * k if k > TILE else 0  # running lists past shared memory
+    bufs = [
+        scratch(n_chunks, torch.int32), scratch(n_chunks, torch.int64),
+        scratch(slots, torch.int32), scratch(slots, torch.int32),
+        scratch(2 * q, torch.int32), scratch(3 * q + grid, torch.int32),
+        scratch(q, torch.int64),
+    ]
+    lists = [
+        scratch(n, torch.float32), scratch(-(-n // TILE), torch.int64),
+        scratch(grid * k, torch.int64), scratch(grid * k, torch.float32),
+        scratch(spill, torch.int64), scratch(spill, torch.float32),
+    ]
     vals = torch.empty((q, k), dtype=torch.float32, device=dev)
     pos = torch.empty((q, k), dtype=torch.int32, device=dev)
     err = _build.lib("item_index").rules_with_launch(
@@ -78,8 +124,8 @@ def rules_with_member(
         post_lo.data_ptr(), post_hi.data_ptr(),
         plos.data_ptr(), phis.data_ptr(), items.data_ptr(),
         q, k, metric_index(metric), int(min_depth), ROLES.index(role),
-        n_chunks, per_chunk, sc.data_ptr(),
-        ka.data_ptr(), va.data_ptr(), kb.data_ptr(), vb.data_ptr(), cap,
+        meta.data_ptr(), n_chunks, *[b.data_ptr() for b in bufs],
+        MIN_TILES, work_blocks, *[b.data_ptr() for b in lists],
         vals.data_ptr(), pos.data_ptr(), _build.stream_handle(dev),
     )
     _build.check(err, "rules_with_member")

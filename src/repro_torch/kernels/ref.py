@@ -184,6 +184,77 @@ def topk_rank_ref(support, confidence, lift, depth, lo, hi, *, k: int,
     return vals[0], pos[0]
 
 
+def laminar_members(node_item, post_lo, post_hi, plos, phis, items,
+                    role: str) -> torch.Tensor:
+    """``bool[Q, N]``: which DFS positions involve each queried item, by the
+    per-position test (consequent: ``node_item == item``; antecedent/any:
+    the laminar count ``#(post_lo <= p) - #(post_hi <= p)`` over the
+    item's posting slice ``[plos[q], phis[q])``, minus the node's own entry
+    for the antecedent role)."""
+    pos = torch.arange(node_item.shape[0], dtype=torch.int32,
+                       device=node_item.device)
+    self_hit = node_item[None, :] == items.to(torch.int32)[:, None]
+    if role == "consequent":
+        return self_hit
+    cnt = torch.stack([
+        torch.searchsorted(post_lo[a:b], pos, right=True)
+        - torch.searchsorted(post_hi[a:b], pos, right=True)
+        for a, b in zip(plos.tolist(), phis.tolist())
+    ]) if plos.shape[0] else torch.zeros(
+        (0, pos.shape[0]), dtype=torch.int64, device=pos.device)
+    if role == "antecedent":
+        cnt = cnt - self_hit.to(cnt.dtype)
+    return cnt > 0
+
+
+def member_ranges_ref(post_lo, post_hi, plos, phis, items, node_item,
+                      role: str):
+    """The same members in closed form, from the posting slices alone:
+    ``(query, lo, hi)`` int64 rows, one per member range ``[lo, hi)``,
+    ascending within each query.
+
+    With an item's slice holding all its non-root nodes in DFS order
+    (``post_lo`` ascending), laminar subtree ranges and ``post_hi``
+    sorted within the slice, posting ``j`` is outermost iff ``j == plo``
+    or ``post_hi[j-1] <= post_lo[j]``, and the outermost range opened at
+    ``j`` ends at ``post_hi[j'-1]``, ``j'`` the next outermost posting
+    (``phi`` if none).  Then any = the outermost ``[lo, hi)``,
+    antecedent = the outermost ``(lo, hi)`` (empty ones dropped), and
+    consequent = ``[p, p + 1)`` for each posting, plus position 0 when the
+    root's ``node_item`` is the queried id (the item -1 of an absent
+    query).  The membership kernel reads these members and no other
+    position; the main path does not call this."""
+    dev = post_lo.device
+    plos, phis = plos.long(), phis.long()
+    lens = (phis - plos).clamp(min=0)
+    qid = torch.repeat_interleave(
+        torch.arange(plos.shape[0], device=dev), lens)
+    first = torch.repeat_interleave(plos, lens)
+    slot0 = torch.repeat_interleave(torch.cumsum(lens, 0) - lens, lens)
+    j = first + torch.arange(qid.shape[0], device=dev) - slot0
+    lo = post_lo[j].long()
+    if role == "consequent":
+        root = (items.to(torch.int32) == node_item[0]).nonzero()[:, 0] \
+            if node_item.shape[0] else qid[:0]
+        qid = torch.cat([root, qid])
+        lo = torch.cat([torch.zeros_like(root), lo])
+        order = torch.sort(qid, stable=True).indices
+        return qid[order], lo[order], lo[order] + 1
+    prev_end = post_hi[(j - 1).clamp(min=0)].long()
+    opens = ((j == first) | (prev_end <= lo)).nonzero()[:, 0]
+    qo = qid[opens]
+    tail = min(opens.shape[0], 1)
+    # the next outermost posting of the same query, else the slice's end
+    nxt = torch.cat([opens[1:], opens.new_full((tail,), qid.shape[0])])
+    last = torch.cat([qo[1:] != qo[:-1],
+                      torch.ones((tail,), dtype=torch.bool, device=dev)])
+    end_j = torch.where(last, phis[qo], torch.cat([j, j[:1]])[nxt])
+    hi = post_hi[end_j - 1].long()
+    lo = lo[opens] + (1 if role == "antecedent" else 0)
+    keep = hi > lo
+    return qo[keep], lo[keep], hi[keep]
+
+
 def rules_with_ref(
     support, confidence, lift, depth, node_item, post_lo, post_hi,
     plos, phis, items,
@@ -192,10 +263,8 @@ def rules_with_ref(
     confidence_scale: float = 1.0, lift_scale: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k of the rules involving each queried item: membership by
-    ``role`` (consequent: ``node_item == item``; antecedent/any: the
-    laminar count ``#(post_lo <= p) - #(post_hi <= p)`` over the item's
-    posting slice ``[plos[q], phis[q])``, minus the node's own entry for
-    the antecedent role)."""
+    ``role`` as ``laminar_members`` tests it, nodes at ``depth >=
+    min_depth`` only."""
     if role not in ("consequent", "antecedent", "any"):
         raise ValueError(f"unknown role {role!r}")
     n = support.shape[0]
@@ -205,25 +274,15 @@ def rules_with_ref(
     score = rank_score(metric, *dequantize_metrics(
         support, confidence, lift,
         n_transactions, confidence_scale, lift_scale))
-    pos = torch.arange(n, dtype=torch.int32, device=support.device)
-    items = items.to(torch.int32)
     live = depth >= min_depth
-    slices = list(zip(plos.tolist(), phis.tolist()))
-
-    def member(r0, r1):
-        self_hit = node_item[None, :] == items[r0:r1, None]
-        if role == "consequent":
-            return self_hit & live
-        cnt = torch.stack([
-            torch.searchsorted(post_lo[a:b], pos, right=True)
-            - torch.searchsorted(post_hi[a:b], pos, right=True)
-            for a, b in slices[r0:r1]
-        ])
-        if role == "antecedent":
-            cnt = cnt - self_hit.to(cnt.dtype)
-        return (cnt > 0) & live
-
-    return _rank_rows(score, member, q, k)
+    plos, phis = plos.cpu(), phis.cpu()  # the slices are read on the host
+    return _rank_rows(
+        score,
+        lambda r0, r1: laminar_members(
+            node_item, post_lo, post_hi, plos[r0:r1], phis[r0:r1],
+            items[r0:r1], role) & live,
+        q, k,
+    )
 
 
 def not_found(q: int, device) -> Dict[str, torch.Tensor]:

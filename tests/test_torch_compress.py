@@ -370,6 +370,31 @@ def test_item_ops_and_reduce_match_reference(chain_pairs, quant):
         assert float(oracle_t[key]) == float(oracle_j[key])
 
 
+def test_reference_root_answer_for_absent_items(chain_pairs):
+    """A fault of the reference, pinned (ROADMAP Queue 3): at min_depth=0
+    an absent item sanitizes to -1, and on the compressed layout the
+    consequent role's self-hit test ``node_item == item`` then finds the
+    root (node_item -1), while the plain layout ranks the empty posting
+    slice and finds nothing.  The port answers as the reference on both;
+    antecedent and any find nothing on either."""
+    jd, td, arrs, _ = chain_pairs["f32"]
+    jf = JS.frozen_from_arrays(arrs)
+    items = [0, 9999, -1]
+    for layout, jt, tt in (("compressed", jd, td),
+                           ("plain", jf, _port(jf))):
+        for role in ROLES:
+            want = JO.rules_with(jt, items, role=role, k=3, min_depth=0)
+            got = TO.rules_with(tt, items, role=role, k=3, min_depth=0,
+                                device="cpu")
+            _same_dict(got, want, f"{layout} rules_with {role}")
+            absent = np.asarray(want["node"])[1:]
+            if layout == "compressed" and role == "consequent":
+                np.testing.assert_array_equal(absent, [[0, -1, -1]] * 2)
+            else:
+                assert (absent == -1).all(), (layout, role)
+            assert (np.asarray(want["node"])[0] >= 0).any()
+
+
 @pytest.mark.parametrize("quant", sorted(QUANT))
 def test_use_kernel_false_matches_kernel_path(chain_pairs, quant):
     """The ops' plain-version switch and the kernel wrappers' CPU route

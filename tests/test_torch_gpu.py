@@ -61,6 +61,21 @@ def target_blocks(request, monkeypatch):
     return request.param
 
 
+@pytest.fixture(params=[None, 2, "split"])
+def member_blocks(request, monkeypatch):
+    """The membership kernel's launch shapes: the default plan, few
+    blocks with many tiles each, and one block per tile of candidates
+    (many blocks a query, whose lists its last block merges)."""
+    from repro_torch.kernels import item_index
+
+    if request.param == 2:
+        monkeypatch.setattr(item_index, "WORK_BLOCKS", 2)
+    elif request.param == "split":
+        monkeypatch.setattr(item_index, "WORK_BLOCKS", 1 << 16)
+        monkeypatch.setattr(item_index, "MIN_TILES", 1)
+    return request.param
+
+
 def test_rank_kernel(small, cuda, target_blocks):
     _, fz = small
     t = TO.dfs_rank_arrays(fz, device=cuda)
@@ -75,7 +90,7 @@ def test_rank_kernel(small, cuda, target_blocks):
             _bitwise(got, ref.topk_rank_batch_ref(*args, k=k, metric=metric))
 
 
-def test_member_kernel(small, cuda, target_blocks):
+def test_member_kernel(small, cuda, member_blocks):
     _, fz = small
     t = TO.item_rank_arrays(fz, device=cuda)
     plos, phis, qitems = (
@@ -91,6 +106,66 @@ def test_member_kernel(small, cuda, target_blocks):
                 assert rules_with_member.launches == before + 1
                 _bitwise(got, ref.rules_with_ref(*args, k=k, metric=metric,
                                                  role=role))
+
+
+MEMBER_TRIES = {
+    "hub": lambda: TS.synthetic_csr_trie(1 << 14, seed=0),
+    "chain": lambda: TS.synthetic_chain_trie(6000, chain_fraction=0.75,
+                                             seed=3),
+}
+MEMBER_LAYOUTS = {
+    "plain": None,
+    "f32": dict(layout="compressed"),
+    "i32+bf16": dict(layout="compressed", quantize=True,
+                     n_transactions=100_000),
+    "i32+int8": dict(layout="compressed", quantize=True,
+                     n_transactions=100_000, columns="int8"),
+}
+
+
+@pytest.fixture(scope="module")
+def member_tries():
+    """A small hub trie and a small chain trie (nested postings: an item
+    repeats along some paths)."""
+    return {name: TS.frozen_from_arrays(make())
+            for name, make in MEMBER_TRIES.items()}
+
+
+@pytest.mark.parametrize("layout", sorted(MEMBER_LAYOUTS))
+@pytest.mark.parametrize("trie", sorted(MEMBER_TRIES))
+def test_member_kernel_every_role(member_tries, cuda, trie, layout,
+                                  member_blocks):
+    """Every role, k in {1, 10, 1500} (1500: the chunk lists in global
+    scratch), min_depth in {0, 1}; the longest posting list, absent and
+    duplicate items, and the item -1 whose consequent row holds the root
+    at min_depth 0, as the reference's self-hit test finds it."""
+    fz = member_tries[trie]
+    kw = MEMBER_LAYOUTS[layout]
+    dt = fz.device_arrays(device=cuda, **(kw or {}))
+    ia = TO.item_rank_arrays(dt)
+    dq = TO._dequant_statics(ia)
+    offsets = ia["item_offsets"]
+    longest = int(np.argmax(np.diff(offsets)))
+    items = [0, 1, longest, 5, offsets.shape[0] + 3, -1, longest, 2]
+    plos, phis, qitems = (torch.from_numpy(a).to(cuda)
+                          for a in TO._posting_slices(offsets, items))
+    args = (ia["support"], ia["confidence"], ia["lift"], ia["depth"],
+            ia["node_item"], ia["post_lo"], ia["post_hi"], plos, phis,
+            qitems)
+    for role in TO.ROLES:
+        for k in (1, 10, 1500):
+            for min_depth in (0, 1):
+                mk = dict(k=k, metric="confidence", min_depth=min_depth,
+                          role=role, **dq)
+                before = rules_with_member.launches
+                got = rules_with_member(*args, **mk)
+                assert rules_with_member.launches == before + 1
+                _bitwise(got, ref.rules_with_ref(*args, **mk))
+                root = got[1][5, 0].item()
+                if role == "consequent" and min_depth == 0:
+                    assert root == 0 and (got[1][5, 1:] == -1).all()
+                else:
+                    assert not (got[1][4:6] >= 0).any()
 
 
 def test_search_and_reduce_kernels(small, cuda):
