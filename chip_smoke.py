@@ -13,8 +13,9 @@ GPU.
    full size: all rank metrics, k in {10, 100} and a k past small ranges,
    every rules_with role (min_depth 0 too: the item -1's consequent row
    holds the root, as in the reference), whole-trie and prefix ranges,
-   and a tie-heavy copy of the columns.  Bitwise equal, except the
-   trie_reduce sums (1e-6 relative).
+   duplicate, nested, empty and out-of-bounds ranges (a duplicate's row
+   equal to its first copy's), and a tie-heavy copy of the columns.
+   Bitwise equal, except the trie_reduce sums (1e-6 relative).
 4. Drives the main path through ``TrieQueryEngine`` with the launch
    counters at 0, checks every kernel launched and every answer against
    the tensor oracles, and times each op (CUDA events, median of --reps
@@ -99,6 +100,11 @@ QUANT = {
                      n_transactions=COMPRESS_N_TX, columns="int8"),
 }
 L2_FLUSH_BYTES = 128 << 20   # written between timed calls: over 2x the L2
+# device ms of the rank kernel's earlier design (a chunked sweep of every
+# range with pairwise merges) on the main path at k = 100 and 2^20 rules,
+# on an NVIDIA H100 80GB HBM3 at 700 W: logged beside the kernel's own,
+# never part of the kernels line
+EARLIER_RANK_MS = 0.4876
 SEED_EDGES = 1 << 20         # the seed phase's trie: the sweep is O(Q L E)
 # the reference bench's search grid (benchmarks/paper_figs.py
 # SEARCH_KERNEL_SIZES, width 6) as (E, Q, width); the seed phase adds its
@@ -226,6 +232,25 @@ def prefixes_for(arrs, n_items, count, rng):
     return out
 
 
+def items_for(n_items, rng):
+    """256 items: 248 random, two duplicates, two absent, four fixed."""
+    items = [int(x) for x in rng.randint(0, n_items, size=248)]
+    return items + [items[0], items[1], -1, n_items + 3, 0, 1, 2, 3]
+
+
+def member_kernel_rows(ia, items, dev):
+    """The membership kernel's item rows as ``rules_with`` launches them:
+    posting slices of the deduped items, padded to a power of two."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+
+    slices = ops._posting_slices(ia["item_offsets"], items)
+    first = np.unique(slices[2], return_index=True)[1]
+    return [torch.as_tensor(a, device=dev)
+            for a in ops._pad_pow2_rows(*[a[first] for a in slices])]
+
+
 def query_traffic(arrs, seed):
     """The query path's traffic on one trie: 4096 search rows of width 8,
     256 ragged pairs cut from the first 512 rows, 256 prefixes and 256
@@ -236,8 +261,7 @@ def query_traffic(arrs, seed):
     n_items = int(arrs["edge_item"].max()) + 1
     rng = np.random.RandomState(seed + 1)
     prefixes = prefixes_for(arrs, n_items, 256, rng)
-    items = [int(x) for x in rng.randint(0, n_items, size=248)]
-    items += [items[0], items[1], -1, n_items + 3, 0, 1, 2, 3]
+    items = items_for(n_items, rng)
     queries, ant_len = synthetic.synthetic_search_queries(
         arrs, 4096, 8, seed=seed + 2)
     pairs = []
@@ -246,6 +270,19 @@ def query_traffic(arrs, seed):
         cut = int(rng.randint(0, len(path) + 1))
         pairs.append((path[:cut][::-1], path[cut:]))
     return queries, ant_len, pairs, prefixes, items
+
+
+def chain_traffic(arrs, seed):
+    """The compressed phase's traffic on the chain trie: 4096
+    ``mixed_queries`` rows of width 8, 256 prefixes and 256 items."""
+    import numpy as np
+    from repro_torch.core import synthetic
+
+    n_items = int(arrs["edge_item"].max()) + 1
+    rng = np.random.RandomState(seed + 4)
+    queries, ant_len = synthetic.mixed_queries(rng, arrs, 4096, 8)
+    prefixes = prefixes_for(arrs, n_items, 256, rng)
+    return queries, ant_len, prefixes, items_for(n_items, rng)
 
 
 def walk_steps(dt, queries, ant_len):
@@ -387,9 +424,9 @@ def time_ops(engine, queries, ant_len, prefixes, items, reps):
 
 # the device kernels each wrapper launches, by name in a profiler trace
 KERNEL_NAMES = {
-    "topk_rank_batch": ("score_kernel", "chunk_topk_kernel",
-                        "merge_pairs_kernel"),
-    "rules_with_member": ("member_score_kernel", "member_count_kernel",
+    "topk_rank_batch": ("score_kernel", "rank_seed_kernel",
+                        "rank_topk_kernel"),
+    "rules_with_member": ("score_kernel", "member_count_kernel",
                           "member_ranges_kernel", "member_plan_kernel",
                           "member_topk_kernel"),
     "rule_search_fused": ("rule_search_fused_kernel",),
@@ -1001,7 +1038,7 @@ def compressed_phase(args, dev, l2_flush, retail, retail_n_tx):
         raise AssertionError("compress: layout='auto' kept the chain trie "
                              "plain")
     comp = tries["compressed"]
-    n, n_items = fz.n_nodes, int(arrs["edge_item"].max()) + 1
+    n = fz.n_nodes
     log(f"[compress] synthetic_chain_trie(2^20, 0.75, seed=3): {n} nodes, "
         f"span fraction {fz.span_fraction():.4f}, "
         f"{comp.edge_item.shape[0]} compressed edges, max fanout "
@@ -1009,11 +1046,7 @@ def compressed_phase(args, dev, l2_flush, retail, retail_n_tx):
         f"compressed and uploaded in {t_comp:.2f} s each; layout='auto' "
         f"-> compressed")
 
-    rng = np.random.RandomState(args.seed + 4)
-    queries, ant_len = synthetic.mixed_queries(rng, arrs, 4096, 8)
-    prefixes = prefixes_for(arrs, n_items, 256, rng)
-    items = [int(x) for x in rng.randint(0, n_items, size=248)]
-    items += [items[0], items[1], -1, n_items + 3, 0, 1, 2, 3]
+    queries, ant_len, prefixes, items = chain_traffic(arrs, args.seed)
     q_t = torch.as_tensor(queries, device=dev)
     al_t = torch.as_tensor(ant_len, device=dev)
 
@@ -1064,12 +1097,7 @@ def compressed_phase(args, dev, l2_flush, retail, retail_n_tx):
         f"({int(found.sum())} of {len(queries)} rows found)")
 
     # -- 7c. every kernel call == its plain version, on every trie ------
-    # the membership kernel's rows as rules_with launches them: deduped,
-    # padded to a power of two
-    qitems = ops._posting_slices(cols["compressed"]["ia"]["item_offsets"],
-                                 items)
-    m_rows = [torch.as_tensor(a, device=dev) for a in ops._pad_pow2_rows(
-        *[a[np.unique(qitems[2], return_index=True)[1]] for a in qitems])]
+    m_rows = member_kernel_rows(cols["compressed"]["ia"], items, dev)
     errs = {}
     for tag in QUANT:
         dt, cl = tries[tag], cols[tag]
@@ -1674,6 +1702,28 @@ def main():
                     ref.topk_rank_batch_ref(*cols, dfs["depth"], los, his,
                                             **kw),
                     errs["topk_rank_batch"])
+    # duplicate, nested, empty and out-of-bounds ranges in one call: each
+    # range is ranked once, and a duplicate's row is its first copy's
+    dup = torch.tensor(
+        [[0, n], [1024, 4096], [1000, 4120], [3, 1027], [2048, 2050],
+         [5, 5], [-9, 3000], [n - 700, n + 50], [n + 1, n + 9],
+         [1024, 4096], [0, n]], dtype=torch.int32, device=dev)
+    d_los, d_his = torch.cat([los, dup[:, 0]]), torch.cat([his, dup[:, 1]])
+    same_rows = [(0, 8), (0, len(prefixes)), (len(prefixes) + 1,
+                                              len(prefixes) + 9)]
+    for cols, tag in ((rank_cols, "plain"), (tie_heavy(rank_cols), "ties")):
+        for k in (10, 100, 1500):
+            kw = dict(k=k, metric="confidence", min_depth=1)
+            got = topk_rank_batch(*cols, dfs["depth"], d_los, d_his, **kw)
+            check_same(
+                f"topk_rank_batch duplicate ranges {tag} k={k}", got,
+                ref.topk_rank_batch_ref(*cols, dfs["depth"], d_los, d_his,
+                                        **kw),
+                errs["topk_rank_batch"])
+            for a, b in same_rows:
+                check_same(f"topk_rank_batch duplicate row {b} of {a}",
+                           (got[0][b], got[1][b]), (got[0][a], got[1][a]),
+                           errs["topk_rank_batch"])
     p_cols = [ia["p_support"], ia["p_confidence"], ia["p_lift"]]
     for metric in METRICS:
         kw = dict(k=10, metric=metric, min_depth=1)
@@ -1750,11 +1800,7 @@ def main():
     op_ms = time_ops(engine, queries, ant_len, prefixes, items, reps)
     log("[ops ms] " + json.dumps(op_ms))
 
-    u_plos, u_phis, u_items = ops._pad_pow2_rows(
-        *[a[np.unique(qitems, return_index=True)[1]]
-          for a in (plos, phis, qitems)])
-    m_rows = [torch.as_tensor(a, device=dev)
-              for a in (u_plos, u_phis, u_items)]
+    m_rows = member_kernel_rows(ia, items, dev)
     r_args = (*rank_cols, dfs["depth"], los, his)
     r_kw = dict(k=100, metric="confidence", min_depth=1)
     f_kw = dict(max_fanout=edges["max_fanout"])
@@ -1809,6 +1855,11 @@ def main():
     rows = [kernel_row(name, kern, plain, work[name], sources[name],
                        launches[name], max(errs[name]), reps, l2_flush.zero_)
             for name, (kern, plain) in calls.items()]
+    rank_row = rows[list(calls).index("topk_rank_batch")]
+    log(f"[kernel] topk_rank_batch: {rank_row['ms']:.4f} ms device against "
+        f"its bound {rank_row['bound_ms']:.5f} ms and the earlier design's "
+        f"{EARLIER_RANK_MS} ms (chunked sweep, same shape, H100 80GB HBM3 "
+        f"at 700 W)")
     # the membership kernel per role; on this plain layout the consequent
     # role of the main path ranks posting-ordered columns with the rank
     # kernel, so its row shows no main-path launch

@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""Time the selection kernels of two or more checkouts of the port on one
+NVIDIA GPU, in turns, at ``chip_smoke.py``'s main-path shapes.
+
+    python3 rank_ab.py TREE [TREE ...] [--edges N] [--reps R]
+
+Each TREE is the root of a checkout (a directory holding
+``src/repro_torch``); list them in the order to run, e.g. ``parent
+change change parent``, so that a drift of the card shows.  Each runs in
+its own process, which builds that tree's kernels into the tree's own
+``build/`` and times, as device ms of the wrapper's own kernels from a
+``torch.profiler`` trace with the L2 flushed before each call (mean of
+``--reps`` calls; ``chip_smoke.device_ms``):
+
+- ``topk_rank_batch`` over the 256 prefixes of ``chip_smoke``'s query
+  traffic on ``synthetic_csr_trie(--edges)`` at k = 10 and 100;
+- ``rules_with_member`` per role at k = 10 over the traffic's items on
+  the hub trie (``chip_smoke.member_kernel_rows``);
+- on ``synthetic_chain_trie(2^20, 0.75, seed=3)`` compressed with int32
+  + bf16 and with int32 + int8 columns, with ``chip_smoke.chain_traffic``:
+  the rank kernel at k = 100 and the membership kernel per role at
+  k = 10.
+
+Every tree's answers are checked against its plain versions.  Prints one
+JSON line per run and, last, the card's name and power limit.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+# every selection kernel name either version of the port launches
+RANK_KERNELS = ("score_kernel", "chunk_topk_kernel", "merge_pairs_kernel",
+                "rank_seed_kernel", "rank_topk_kernel")
+MEMBER_KERNELS = ("score_kernel", "member_count", "member_ranges",
+                  "member_plan", "member_topk")
+
+
+def one(tree, edges, reps):
+    import chip_smoke as cs  # stdlib only at import
+
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import torch
+
+    from repro_torch.core import synthetic
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.item_index import rules_with_member
+    from repro_torch.kernels.rank import topk_rank_batch
+
+    assert os.path.abspath(tree) in os.path.abspath(_build.__file__)
+    dev = torch.device("cuda", 0)
+    _build.build_all()
+    out = {"tree": tree}
+    flush = torch.empty((cs.L2_FLUSH_BYTES // 4,), dtype=torch.float32,
+                        device=dev).zero_
+
+    def timed(name, call, plain, kernels, split=False):
+        for g, w in zip(call(), plain()):
+            if not cs.bitwise_equal(g, w):
+                raise AssertionError(f"{tree}: {name} differs from plain")
+        out[name] = cs.device_ms(call, reps, flush, kernel=kernels)
+        if split:
+            # each kernel of the call alone (None: not launched here)
+            out[name + "_by_kernel"] = {
+                kern: cs.device_ms(call, reps, flush, kernel=kern)
+                for kern in kernels}
+
+    arrs = synthetic.synthetic_csr_trie(edges, seed=0)
+    frozen = synthetic.frozen_from_arrays(arrs)
+    dt = frozen.device_arrays(device=dev)
+    _, _, _, prefixes, items = cs.query_traffic(arrs, 0)
+    dfs = ops.dfs_rank_arrays(dt)
+    los, his, _ = ops.prefix_ranges(frozen, prefixes, dt=dt)
+    r_args = (dfs["support"], dfs["confidence"], dfs["lift"], dfs["depth"],
+              los, his)
+    for k in (10, 100):
+        kw = dict(k=k, metric="confidence", min_depth=1)
+        timed(f"rank_k{k}", lambda: topk_rank_batch(*r_args, **kw),
+              lambda: ref.topk_rank_batch_ref(*r_args, **kw), RANK_KERNELS,
+              split=True)
+
+    ia = ops.item_rank_arrays(dt)
+    m_args = (ia["support"], ia["confidence"], ia["lift"], ia["depth"],
+              ia["node_item"], ia["post_lo"], ia["post_hi"],
+              *cs.member_kernel_rows(ia, items, dev))
+    for role in cs.ROLES:
+        kw = dict(k=10, metric="confidence", min_depth=1, role=role)
+        timed(f"member_{role}", lambda: rules_with_member(*m_args, **kw),
+              lambda: ref.rules_with_ref(*m_args, **kw), MEMBER_KERNELS,
+              split=role == "consequent")
+
+    # the compressed phase's traffic (chip_smoke.compressed_phase)
+    carrs = synthetic.synthetic_chain_trie(1 << 20, chain_fraction=0.75,
+                                           seed=3)
+    cfz = synthetic.frozen_from_arrays(carrs)
+    _, _, cprefixes, citems = cs.chain_traffic(carrs, 0)
+    for tag in ("i32+bf16", "i32+int8"):
+        cdt = cfz.device_arrays(device=dev, **cs.QUANT[tag])
+        dq = ops._dequant_statics(cdt)
+        clos, chis, _ = ops.prefix_ranges(cdt, cprefixes)
+        c_args = (cdt.support, cdt.confidence, cdt.lift, cdt.node_depth,
+                  clos, chis)
+        kw = dict(k=100, metric="confidence", min_depth=1, **dq)
+        name = tag.replace("+", "_")
+        timed(f"rank_chain_{name}_k100",
+              lambda: topk_rank_batch(*c_args, **kw),
+              lambda: ref.topk_rank_batch_ref(*c_args, **kw), RANK_KERNELS)
+        cia = ops.item_rank_arrays(cdt)
+        cm_args = (cia["support"], cia["confidence"], cia["lift"],
+                   cia["depth"], cia["node_item"], cia["post_lo"],
+                   cia["post_hi"], *cs.member_kernel_rows(cia, citems, dev))
+        for role in cs.ROLES:
+            kw = dict(k=10, metric="confidence", min_depth=1, role=role,
+                      **dq)
+            timed(f"member_chain_{name}_{role}",
+                  lambda: rules_with_member(*cm_args, **kw),
+                  lambda: ref.rules_with_ref(*cm_args, **kw), MEMBER_KERNELS)
+    print(json.dumps(out), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("trees", nargs="+")
+    ap.add_argument("--edges", type=int, default=1 << 20)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.one:
+        one(args.trees[0], args.edges, args.reps)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("rank_ab: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    for tree in args.trees:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
+                        tree, "--edges", str(args.edges), "--reps",
+                        str(args.reps)], check=True, cwd=HERE)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

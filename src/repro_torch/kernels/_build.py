@@ -41,8 +41,8 @@ _COLUMNS = (_P, _P, _P, _I, _I, _F, _F, _F)
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "rank": {
         "topk_rank_batch_launch": (
-            *_COLUMNS, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-            _P, _P, _P, _P, _P, _L, _P, _P, _P,
+            *_COLUMNS, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+            _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P,
         ),
     },
     "item_index": {

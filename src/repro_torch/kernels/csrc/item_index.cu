@@ -30,8 +30,9 @@
 //               its depth-0 score is -inf unless min_depth is 0.
 //
 // Passes (one stream):
-//   0. member_score_kernel: the masked score column, as in rank.cu, and
-//      the smallest 64-bit key of every 1024-position DFS tile.
+//   0. score_kernel (topk_select.cuh, shared with rank.cu): the masked
+//      score column and the smallest 64-bit key of every 1024-position DFS
+//      tile.
 //   1. member_count_kernel / member_ranges_kernel (antecedent and any):
 //      blocks of RT_POSTING_CHUNK postings flag the outermost ones with
 //      coalesced reads of post_lo and post_hi, count them, then scan them
@@ -40,7 +41,7 @@
 //      end of the previous range is post_hi[j-1] at the next opening j, so
 //      each flat index is a prefix sum of local terms.
 //   2. member_plan_kernel: blocks per query in proportion to its
-//      candidates, about work_blocks in all.
+//      candidates, about work_blocks in all (topk_select.cuh::plan_blocks).
 //   3. member_topk_kernel: each query's candidates in flat order (ranges
 //      laid end to end, or the gathered postings) split evenly over its
 //      blocks; a block finds its first range with one binary search, then
@@ -50,9 +51,10 @@
 //      DFS tiles hold no key below the running k-th key is skipped (exact:
 //      a tile's smallest key bounds every member in it), and a full list's
 //      k-th key is shared by the query's blocks.  Survivors are sorted and
-//      merged as in rank.cu (topk_select.cuh::merge_candidates); the
-//      query's last block to finish merges the other blocks' lists and
-//      writes the row.
+//      merged, and the query's last block to finish merges the other
+//      blocks' lists and writes the row, with rank.cu's machinery
+//      (topk_select.cuh: run_list, running_threshold, merge_candidates,
+//      finish_query).
 //
 // What bounds it here: the candidates, not N.  A query reads 4 bytes of
 // score per candidate (the postings' positions gathered for consequent),
@@ -65,65 +67,6 @@ enum Role { RT_CONSEQUENT = 0, RT_ANTECEDENT = 1, RT_ANY = 2 };
 
 #define RT_POSTING_CHUNK 2048  // postings per block of pass 1
 #define RT_PER_THREAD (RT_POSTING_CHUNK / RT_THREADS)
-#define RT_WARPS (RT_THREADS / 32)
-
-// ---------------------------------------------------------------------
-// pass 0
-template <class S, class C>
-__global__ void __launch_bounds__(RT_TILE)
-member_score_kernel(const S* __restrict__ sup, const C* __restrict__ conf,
-                    const C* __restrict__ lift,
-                    const int* __restrict__ depth, int n, int metric,
-                    int min_depth, float inv_n, float conf_scale,
-                    float lift_scale, float* __restrict__ out,
-                    unsigned long long* __restrict__ tile_min) {
-    __shared__ unsigned long long warp_min[RT_TILE / 32];
-    const int i = blockIdx.x * RT_TILE + threadIdx.x;
-    unsigned long long key = RT_EMPTY_KEY;
-    if (i < n) {
-        float s = position_score(sup, conf, lift, depth, i, metric,
-                                 min_depth, inv_n, conf_scale, lift_scale);
-        out[i] = s;
-        key = topk_key(s, i);
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-        unsigned long long other = __shfl_xor_sync(0xffffffffu, key, o);
-        key = other < key ? other : key;
-    }
-    if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = key;
-    __syncthreads();
-    if (threadIdx.x < 32) {
-        key = warp_min[threadIdx.x];
-        for (int o = 16; o > 0; o >>= 1) {
-            unsigned long long other = __shfl_xor_sync(0xffffffffu, key, o);
-            key = other < key ? other : key;
-        }
-        if (threadIdx.x == 0) tile_min[blockIdx.x] = key;
-    }
-}
-
-template <class S, class C>
-static cudaError_t launch_member_scores_typed(
-    const MetricColumns& m, const int* depth, int n, int metric,
-    int min_depth, float* scores, unsigned long long* tile_min,
-    cudaStream_t stream) {
-    member_score_kernel<S, C><<<(n + RT_TILE - 1) / RT_TILE, RT_TILE, 0,
-                                stream>>>(
-        (const S*)m.sup, (const C*)m.conf, (const C*)m.lift, depth, n,
-        metric, min_depth, m.inv_n, m.conf_scale, m.lift_scale, scores,
-        tile_min);
-    return cudaGetLastError();
-}
-
-static cudaError_t launch_member_scores(const MetricColumns& m,
-                                        const int* depth, int n, int metric,
-                                        int min_depth, float* scores,
-                                        unsigned long long* tile_min,
-                                        cudaStream_t stream) {
-    RT_DISPATCH_COLUMNS(m.sup_type, m.col_type, launch_member_scores_typed,
-                        m, depth, n, metric, min_depth, scores, tile_min,
-                        stream)
-}
 
 // ---------------------------------------------------------------------
 // pass 1: the outermost ranges of each query's posting slice
@@ -141,36 +84,6 @@ struct RangeArgs {
     const int* chunk_q;
     int first_gap;  // 1 for antecedent: a range's members start after it
 };
-
-template <class T>
-__device__ __forceinline__ T warp_inclusive_sum(T v) {
-    const int lane = threadIdx.x & 31;
-    for (int o = 1; o < 32; o <<= 1) {
-        T y = __shfl_up_sync(0xffffffffu, v, o);
-        if (lane >= o) v += y;
-    }
-    return v;
-}
-
-// Exclusive prefix sum of v over the block's threads; *total gets the sum.
-// warp_tot: RT_WARPS elements of shared memory.
-template <class T>
-__device__ __forceinline__ T block_exclusive_sum(T v, T* warp_tot, T* total) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    T inc = warp_inclusive_sum(v);
-    if (lane == 31) warp_tot[warp] = inc;
-    __syncthreads();
-    if (warp == 0) {
-        T w = lane < RT_WARPS ? warp_tot[lane] : T(0);
-        w = warp_inclusive_sum(w);
-        if (lane < RT_WARPS) warp_tot[lane] = w;
-    }
-    __syncthreads();
-    T before = warp > 0 ? warp_tot[warp - 1] : T(0);
-    *total = warp_tot[RT_WARPS - 1];
-    __syncthreads();  // warp_tot may be reused
-    return before + inc - v;
-}
 
 // The posting indices [j0, j1) of this block's chunk of query q's slice.
 struct PostingChunk {
@@ -284,13 +197,8 @@ member_ranges_kernel(RangeArgs a, const int* __restrict__ chunk_cnt,
 // ---------------------------------------------------------------------
 // pass 2: a plan of blocks, so that the work follows the candidates
 //
-// One block lays out the top-k pass: every query takes n_q = max(1,
-// ceil(tiles_q / P)) blocks, P = max(min_tiles, ceil(sum of tiles /
-// work_blocks)), so a light query takes one block, a heavy one many, and
-// about work_blocks blocks share the call's tiles (sum n_q <= work_blocks +
-// q, the grid the host launches).  It writes each query's first block and
-// block count, each block's query (-1 past the last), and resets the
-// per-query threshold and finished-block counter.
+// One block lays out the top-k pass (topk_select.cuh::plan_blocks, with a
+// query's tiles of candidates) and resets every query's shared threshold.
 struct PlanArgs {
     const int* plos;
     const int* phis;
@@ -325,40 +233,17 @@ __device__ __forceinline__ int query_candidates(const int* plos,
 
 __global__ void __launch_bounds__(RT_THREADS)
 member_plan_kernel(PlanArgs a) {
-    __shared__ int wsum[RT_WARPS];
-    // the call's tiles of candidates
-    int tiles = 0, all = 0, carry = 0;
-    for (int q = threadIdx.x; q < a.q; q += RT_THREADS) {
-        const int c = query_candidates(a.plos, a.phis, a.items, a.node_item,
-                                       a.q_ranges, a.role, q);
-        tiles += (c + RT_TILE - 1) / RT_TILE;
-    }
-    block_exclusive_sum(tiles, wsum, &all);
-    const int per =
-        max(a.min_tiles, (all + a.work_blocks - 1) / a.work_blocks);
-    // each query's blocks, scanned in rounds of RT_THREADS queries
-    for (int q0 = 0; q0 < a.q; q0 += RT_THREADS) {
-        const int q = q0 + threadIdx.x;
-        int nb = 0;
-        if (q < a.q) {
-            const int c = query_candidates(a.plos, a.phis, a.items,
-                                           a.node_item, a.q_ranges, a.role,
-                                           q);
-            nb = max(1, ((c + RT_TILE - 1) / RT_TILE + per - 1) / per);
-        }
-        int round;
-        const int first = carry + block_exclusive_sum(nb, wsum, &round);
-        if (q < a.q) {
-            a.q_first[q] = first;
-            a.q_blocks[q] = nb;
-            a.q_done[q] = 0;
-            a.q_thr[q] = RT_EMPTY_KEY;
-            for (int j = 0; j < nb; ++j) a.block_q[first + j] = q;
-        }
-        carry += round;
-    }
-    for (int b = carry + threadIdx.x; b < a.grid; b += RT_THREADS)
-        a.block_q[b] = -1;
+    for (int q = threadIdx.x; q < a.q; q += RT_THREADS)
+        a.q_thr[q] = RT_EMPTY_KEY;
+    plan_blocks(
+        a.q,
+        [&](int q) {
+            return (query_candidates(a.plos, a.phis, a.items, a.node_item,
+                                     a.q_ranges, a.role, q) +
+                    RT_TILE - 1) / RT_TILE;
+        },
+        a.min_tiles, a.work_blocks, a.grid, a.q_first, a.q_blocks, a.q_done,
+        a.block_q);
 }
 
 // ---------------------------------------------------------------------
@@ -415,17 +300,16 @@ __device__ __forceinline__ bool may_enter(const unsigned long long* tile_min,
            tile_min[(p + len - 1) / RT_TILE] < thr;
 }
 
-// Blocks of one query each keep their candidates' top k (in dynamic shared
-// memory sized for k, 24 * k bytes, while k <= RT_TILE, so that a small k
-// leaves room for more blocks on an SM; else in their slices of the two
-// global list buffers) and write it to their slot of lists; the query's
-// last block to finish merges the other lists into its own and writes the
-// query's row.
+// Blocks of one query each keep their candidates' top k (topk_select.cuh::
+// run_list: in dynamic shared memory sized for k while k <= RT_TILE, so
+// that a small k leaves room for more blocks on an SM) and write it to
+// their slot of lists; the query's last block to finish merges the other
+// lists into its own and writes the query's row (finish_query).
 __global__ void __launch_bounds__(RT_THREADS)
 member_topk_kernel(MemberArgs a, int k, unsigned long long* lists,
                    float* list_vals, unsigned long long* alt,
                    float* alt_vals, float* out_vals, int* out_pos) {
-    extern __shared__ unsigned long long run_a[];  // run_a, run_b, rv_a, rv_b
+    extern __shared__ unsigned long long smem[];  // run, nxt, rv, nv
     __shared__ unsigned long long cand[RT_TILE];
     __shared__ int mark[RT_TILE];  // 2 * range + (its members may enter)
     __shared__ int warp_max[RT_WARPS];
@@ -433,18 +317,7 @@ member_topk_kernel(MemberArgs a, int k, unsigned long long* lists,
     const long long b = blockIdx.x;
     const int q = a.block_q[b];
     if (q < 0) return;  // past the plan's blocks
-    unsigned long long* ko = lists + b * (long long)k;
-    float* vo = list_vals + b * (long long)k;
-    const bool in_shared = k <= RT_TILE;
-    float* rv_a = (float*)(run_a + 2 * k);
-    unsigned long long* run = in_shared ? run_a : ko;
-    unsigned long long* nxt = in_shared ? run_a + k : alt + b * (long long)k;
-    float* rv = in_shared ? rv_a : vo;
-    float* nv = in_shared ? rv_a + k : alt_vals + b * (long long)k;
-    for (int i = threadIdx.x; i < k; i += RT_THREADS) {
-        run[i] = RT_EMPTY_KEY;
-        rv[i] = -INFINITY;
-    }
+    RunList l = run_list(smem, k, b, lists, list_vals, alt, alt_vals);
     auto value = [&](unsigned long long key) {
         return a.scores[(int)(unsigned int)key];
     };
@@ -481,14 +354,8 @@ member_topk_kernel(MemberArgs a, int k, unsigned long long* lists,
         const int base = t * RT_TILE;
         const int cnt = min(RT_TILE, total - base);
         __syncthreads();  // publishes cursor and the running list
-        unsigned long long thr = run[k - 1];
-        if (threadIdx.x == 0 && thr < published) {
-            atomicMin(&a.q_thr[q], thr);
-            published = thr;
-        }
-        const unsigned long long shared_thr =
-            *(volatile const unsigned long long*)&a.q_thr[q];
-        thr = shared_thr < thr ? shared_thr : thr;
+        const unsigned long long thr =
+            running_threshold(l.run, k, &a.q_thr[q], &published);
         int pos[4];
         bool live[4];
         bool any = false;
@@ -548,55 +415,24 @@ member_topk_kernel(MemberArgs a, int k, unsigned long long* lists,
             }
             if (!__syncthreads_or(any)) continue;
         }
+        unsigned long long key[4];
+        bool ok[4];
         for (int u = 0; u < 4; ++u) {
-            if (!live[u]) continue;
-            const unsigned long long key = topk_key(a.scores[pos[u]], pos[u]);
-            if (key < thr) cand[atomicAdd(&n_cand, 1)] = key;
+            key[u] = live[u] ? topk_key(a.scores[pos[u]], pos[u])
+                             : RT_EMPTY_KEY;
+            ok[u] = key[u] < thr;
         }
+        push_candidates(key, ok, cand, &n_cand);
         __syncthreads();
         const int c = n_cand;
         __syncthreads();  // every thread has c before the next reset
         if (c == 0) continue;
-        merge_candidates(cand, c, k, run, rv, nxt, nv, value);
-        swap_lists(run, nxt, rv, nv);
+        merge_candidates(cand, c, k, l.run, l.rv, l.nxt, l.nv, value);
+        swap_lists(l);
     }
-    if (n_blocks > 1) {
-        write_list(run, rv, ko, vo, k);
-        __threadfence();  // the list, before the count that publishes it
-        __syncthreads();
-        if (threadIdx.x == 0)
-            last = atomicAdd(&a.q_done[q], 1) == n_blocks - 1;
-        __syncthreads();
-        if (!last) return;
-        __threadfence();
-        // the last block: the keys of every other list of the query, laid
-        // end to end, in batches of up to RT_TILE through the same merge
-        const long long others = (long long)(n_blocks - 1) * k;
-        for (long long base = 0; base < others; base += RT_TILE) {
-            if (threadIdx.x == 0) n_cand = 0;
-            __syncthreads();
-            const unsigned long long thr = run[k - 1];
-            for (long long f = base + threadIdx.x;
-                 f < min(base + RT_TILE, others); f += RT_THREADS) {
-                const long long o = first + f / k;  // skipping this block's
-                const unsigned long long key =
-                    __ldcg(lists + (o + (o >= b ? 1 : 0)) * k + f % k);
-                if (key < thr) cand[atomicAdd(&n_cand, 1)] = key;
-            }
-            __syncthreads();
-            const int c = n_cand;
-            __syncthreads();
-            if (c == 0) continue;
-            merge_candidates(cand, c, k, run, rv, nxt, nv, value);
-            swap_lists(run, nxt, rv, nv);
-        }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < k; i += RT_THREADS) {
-        out_vals[(long long)q * k + i] = rv[i];
-        out_pos[(long long)q * k + i] =
-            run[i] == RT_EMPTY_KEY ? -1 : (int)(unsigned int)run[i];
-    }
+    if (finish_query(l, k, b, first, n_blocks, &a.q_done[q], lists, value,
+                     cand, &last))
+        write_row(l, k, out_vals, out_pos, q);
 }
 
 extern "C" int rules_with_launch(
@@ -612,13 +448,13 @@ extern "C" int rules_with_launch(
     float* list_vals, unsigned long long* alt, float* alt_vals,
     float* out_vals, int* out_pos, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    // the grid: every query's blocks fit work_blocks + q (member_plan_kernel)
+    // the grid: every query's blocks fit work_blocks + q (plan_blocks)
     const long long grid = (long long)work_blocks + q;
     if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     MetricColumns m{sup, conf, lift, sup_type, col_type,
                     inv_n, conf_scale, lift_scale};
-    cudaError_t err = launch_member_scores(m, depth, n, metric, min_depth,
-                                           scores, tile_min, s);
+    cudaError_t err = launch_scores(m, depth, n, metric, min_depth, scores,
+                                    tile_min, nullptr, nullptr, 0, s);
     if (err != cudaSuccess) return (int)err;
     const int* qoff = meta;
     if (role != RT_CONSEQUENT && n_pchunks > 0) {

@@ -28,19 +28,17 @@ import torch
 
 from . import _build
 from .metrics_inkernel import metric_index
-from .rank import TILE, metric_column_args
+from .rank import (
+    TILE, metric_column_args, scratch, selection_grid, selection_lists,
+)
 from .ref import _empty_ranked, rules_with_ref
 
 ROLES = ("consequent", "antecedent", "any")
 POSTING_CHUNK = 2048  # postings per block of the range pass (item_index.cu)
-# blocks the top-k pass spreads a call's candidates over (about a wave of
-# the card's 132 SMs), and the fewest tiles of candidates a block takes: a
-# block's first tile sorts every candidate it admits, later ones only those
-# that beat the query's running k-th key
-WORK_BLOCKS = 1024
+# the fewest tiles of candidates a block of the top-k pass takes (its grid
+# is rank.selection_grid's): a block's first tile sorts every candidate it
+# admits, later ones only those that beat the query's running k-th key
 MIN_TILES = 8
-# list elements (k keys per block) one call's lists may take
-LIST_ELEMS = 1 << 22
 
 
 def rules_with_member(
@@ -95,27 +93,21 @@ def rules_with_member(
         np.cumsum(lens) - lens, np.cumsum(chunks) - chunks,
         np.repeat(np.arange(q), chunks),
     ]).astype(np.int32)).to(dev)
-    # the top-k grid: about WORK_BLOCKS blocks share the candidates, plus
-    # one a query at most; every block keeps a list of k
-    work_blocks = max(1, min(WORK_BLOCKS, LIST_ELEMS // k - q))
-    grid = work_blocks + q
-
-    def scratch(size, dtype):
-        return torch.empty((max(size, 1),), dtype=dtype, device=dev)
-
+    work_blocks, grid = selection_grid(q, k)
     # held here until the launch returns: the C side takes raw pointers
     n_chunks, slots = int(chunks.sum()), int(lens.sum())
-    spill = grid * k if k > TILE else 0  # running lists past shared memory
     bufs = [
-        scratch(n_chunks, torch.int32), scratch(n_chunks, torch.int64),
-        scratch(slots, torch.int32), scratch(slots, torch.int32),
-        scratch(2 * q, torch.int32), scratch(3 * q + grid, torch.int32),
-        scratch(q, torch.int64),
+        scratch(n_chunks, torch.int32, dev),
+        scratch(n_chunks, torch.int64, dev),
+        scratch(slots, torch.int32, dev), scratch(slots, torch.int32, dev),
+        scratch(2 * q, torch.int32, dev),
+        scratch(3 * q + grid, torch.int32, dev),
+        scratch(q, torch.int64, dev),
     ]
     lists = [
-        scratch(n, torch.float32), scratch(-(-n // TILE), torch.int64),
-        scratch(grid * k, torch.int64), scratch(grid * k, torch.float32),
-        scratch(spill, torch.int64), scratch(spill, torch.float32),
+        scratch(n, torch.float32, dev),
+        scratch(-(-n // TILE), torch.int64, dev),
+        *selection_lists(grid, k, dev),
     ]
     vals = torch.empty((q, k), dtype=torch.float32, device=dev)
     pos = torch.empty((q, k), dtype=torch.int32, device=dev)

@@ -8,13 +8,20 @@ DFS-contiguous, an antecedent-prefix subtree is one such range, and a
 posting list in posting order is another.
 
 On a CUDA tensor it launches the hand-written kernel in ``csrc/rank.cu``
-(replacing the TPU kernel ``repro.kernels.rank.topk_rank_batch_pallas``);
-on a CPU tensor it runs the plain version ``ref.topk_rank_batch_ref``.
-The metric columns may be the compressed layout's quantized storage
-(int32 support counts, bf16 or int8 confidence and lift): the kernel
-widens them in its score pass, with ``n_transactions`` and the int8
-scales, as the TPU kernel does.  ``rank_merge`` is the reference's k-best
-list merge as a tensor op.
+(replacing the TPU kernel ``repro.kernels.rank.topk_rank_batch_pallas``):
+three launches, planned on the device with no host read.  Equal ranges
+are ranked once (``ref.dedup_ranges_ref``); a range with at least k full
+tiles (else full 32-position groups) starts from the k-th smallest of
+their keys (``ref.tile_keys_ref``, ``ref.seed_thresholds_ref``) and
+reads only the tiles below it; one planned selection launch spreads the tiles read over
+the card (``ref.plan_blocks_ref``) and a range's last block merges its
+blocks' lists.  ``ref.topk_rank_planned_ref`` runs that design in plain
+PyTorch.  On a CPU tensor it runs the plain version
+``ref.topk_rank_batch_ref``.  The metric columns may be the compressed
+layout's quantized storage (int32 support counts, bf16 or int8 confidence
+and lift): the kernel widens them in its score pass, with
+``n_transactions`` and the int8 scales, as the TPU kernel does.
+``rank_merge`` is the reference's k-best list merge as a tensor op.
 """
 from __future__ import annotations
 
@@ -24,55 +31,60 @@ from . import _build
 from .metrics_inkernel import count_reciprocal, metric_index, storage_codes
 from .ref import _empty_ranked, topk_rank_batch_ref
 
-TILE = 1024   # positions per selection tile (RT_TILE in topk_select.cuh)
-# blocks a selection launch aims for: enough to fill the card's 132 SMs
-# several times over, few enough that each block's running top-k sees
-# many tiles
-TARGET_BLOCKS = 16384
-# list elements the chunk lists of one launch may take (24 bytes each over
-# the four scratch buffers); a large k gets fewer, longer chunks instead
-SCRATCH_ELEMS = 1 << 24
+TILE = 1024   # positions per DFS tile (RT_TILE in topk_select.cuh)
+GROUP = 32    # positions per group key (RT_GROUP)
+# blocks a selection launch (here and in item_index) spreads a call's
+# tiles over: about a wave of the card's 132 SMs
+WORK_BLOCKS = 1024
+# the fewest tiles a rank block takes: a block's first tile sorts every
+# candidate it admits, later ones only those that beat the range's running
+# k-th key
+MIN_TILES = 4
+# list elements (k keys per block) one call's lists may take
+LIST_ELEMS = 1 << 22
 _BIG = 2**30
 
 
-def chunking(q: int, n_tiles: int, k: int) -> tuple:
-    """``(n_chunks, tiles_per_chunk, list_len)``: how many blocks share one
-    query's ``n_tiles`` tiles, each streaming a contiguous chunk of them
-    and keeping its chunk's best ``list_len = min(k, chunk positions)``
-    (``chunk_list_len`` in ``topk_select.cuh``).  The lists take at most
-    ``SCRATCH_ELEMS`` elements, or one list per query when ``q * k`` alone
-    is more."""
-    n_tiles = max(int(n_tiles), 1)
-    n_chunks = min(n_tiles, max(1, -(-TARGET_BLOCKS // q)),
-                   max(1, SCRATCH_ELEMS // (q * k)))
-    per = -(-n_tiles // n_chunks)
-    return -(-n_tiles // per), per, min(k, per * TILE)
+def selection_grid(q: int, k: int) -> tuple[int, int]:
+    """``(work_blocks, grid)`` of a selection launch: about
+    ``WORK_BLOCKS`` blocks share the tiles read, plus one a query at most;
+    every block keeps a list of k, and the lists stay within
+    ``LIST_ELEMS``."""
+    work_blocks = max(1, min(WORK_BLOCKS, LIST_ELEMS // k - q))
+    return work_blocks, work_blocks + q
 
 
-def scratch_elems(q: int, n_lists: int, kk: int, k: int) -> int:
-    """Elements each of the two merge scratch buffers must hold: the chunk
-    lists of ``kk`` and every level of ``topk_select.cuh``'s pairwise merge
-    before the last."""
-    cap = q * n_lists * kk
-    n, length = n_lists, kk
-    while (n + 1) // 2 > 1:
-        n = (n + 1) // 2
-        length = min(k, 2 * length)
-        cap = max(cap, q * n * length)
-    return cap
+def scratch(size: int, dtype, dev):
+    """An uninitialised device buffer of at least one element."""
+    return torch.empty((max(size, 1),), dtype=dtype, device=dev)
 
 
-def _scratch(n: int, q: int, n_lists: int, kk: int, k: int, device):
-    """The score column (``n``) and the two merge scratch buffers."""
-    cap = scratch_elems(q, n_lists, kk, k)
-    return (
-        torch.empty((n,), dtype=torch.float32, device=device),
-        torch.empty((cap,), dtype=torch.int64, device=device),
-        torch.empty((cap,), dtype=torch.float32, device=device),
-        torch.empty((cap,), dtype=torch.int64, device=device),
-        torch.empty((cap,), dtype=torch.float32, device=device),
-        cap,
-    )
+def selection_lists(grid: int, k: int, dev) -> list:
+    """The running lists of a selection launch: k keys and values a block,
+    and their spill to global scratch when k is past a tile (shared memory
+    holds a tile's)."""
+    spill = grid * k if k > TILE else 0
+    return [scratch(grid * k, torch.int64, dev),
+            scratch(grid * k, torch.float32, dev),
+            scratch(spill, torch.int64, dev),
+            scratch(spill, torch.float32, dev)]
+
+
+def launch_shape(q: int, k: int, n: int) -> dict:
+    """Host-side sizes of one launch, from its shape alone (no device
+    read): the selection grid (``work_blocks`` for the tiles plus one
+    block a query at most), the hash table of ranges (a power of two at
+    least ``2 q``), each range's tile list (``list_cap``: no range reads
+    more than ``k + 2`` tiles below its seed, nor more than the trie's
+    ``n_tiles``) and the 32-bit words of the plan scratch
+    (``rank.cu::rank_scratch_words``)."""
+    work_blocks, grid = selection_grid(q, k)
+    table = 1 << (2 * q - 1).bit_length()
+    n_tiles = -(-n // TILE)
+    list_cap = min(k + 2, n_tiles)
+    words = 2 * table + 2 * q + table + 1 + 6 * q + grid + q * list_cap
+    return dict(work_blocks=work_blocks, grid=grid, table=table,
+                n_tiles=n_tiles, list_cap=list_cap, words=words)
 
 
 def metric_column_args(what, support, confidence, lift, n_transactions,
@@ -109,8 +121,9 @@ def topk_rank_batch(
     n, q, k = support.shape[0], los.shape[0], int(k)
     if n == 0 or k <= 0 or q == 0:
         return _empty_ranked(q, k, dev)
-    los = los.to(torch.int32).clamp(0, n).contiguous()
-    his = his.to(torch.int32).clamp(max=n).contiguous()
+    # the kernel clamps each range to [0, n) itself
+    los = los.to(torch.int32).contiguous()
+    his = his.to(torch.int32).contiguous()
     _build.check_inputs(
         "topk_rank_batch", dev,
         support=(support, support.dtype, 1),
@@ -120,16 +133,25 @@ def topk_rank_batch(
     )
     columns = metric_column_args("topk_rank_batch", support, confidence,
                                  lift, **dequant)
-    span = int((his - los).clamp(min=0).max())
-    n_chunks, per_chunk, kk = chunking(q, -(-span // TILE), k)
-    sc, ka, va, kb, vb, cap = _scratch(n, q, n_chunks, kk, k, dev)
+    shape = launch_shape(q, k, n)
+    # held here until the launch returns: the C side takes raw pointers;
+    # the score column is padded to whole tiles (the selection reads a
+    # tile four positions a thread)
+    bufs = [
+        scratch(shape["n_tiles"] * TILE, torch.float32, dev),
+        scratch(shape["n_tiles"], torch.int64, dev),
+        scratch(-(-n // GROUP), torch.int64, dev),
+        scratch(shape["words"], torch.int32, dev),
+    ]
+    lists = selection_lists(shape["grid"], k, dev)
     vals = torch.empty((q, k), dtype=torch.float32, device=dev)
     pos = torch.empty((q, k), dtype=torch.int32, device=dev)
     err = _build.lib("rank").topk_rank_batch_launch(
         *columns, depth.data_ptr(), n, los.data_ptr(), his.data_ptr(),
-        q, k, metric_index(metric), int(min_depth), n_chunks, per_chunk,
-        sc.data_ptr(), ka.data_ptr(), va.data_ptr(), kb.data_ptr(),
-        vb.data_ptr(), cap,
+        q, k, metric_index(metric), int(min_depth), shape["table"],
+        shape["list_cap"], MIN_TILES, shape["work_blocks"],
+        *[b.data_ptr() for b in bufs], shape["words"],
+        *[b.data_ptr() for b in lists],
         vals.data_ptr(), pos.data_ptr(), _build.stream_handle(dev),
     )
     _build.check(err, "topk_rank_batch")

@@ -184,6 +184,178 @@ def topk_rank_ref(support, confidence, lift, depth, lo, hi, *, k: int,
     return vals[0], pos[0]
 
 
+# ----------------------------------------------------------------------
+# the rank kernel's design, step by step (csrc/rank.cu)
+# ----------------------------------------------------------------------
+# The kernels' 64-bit key (topk_select.cuh::topk_key) in int64 with its top
+# bit flipped, so that int64 order is the key's unsigned order: ascending
+# in (score desc, position asc).  The empty key ~0 becomes the int64 max.
+EMPTY_KEY = 2**63 - 1
+
+
+def masked_scores_ref(support, confidence, lift, depth, *, metric: str,
+                      min_depth: int, n_transactions: int = 0,
+                      confidence_scale: float = 1.0,
+                      lift_scale: float = 1.0) -> torch.Tensor:
+    """The score pass's column: ``rank_score(metric)``, ``-inf`` below
+    ``min_depth``."""
+    score = rank_score(metric, *dequantize_metrics(
+        support, confidence, lift,
+        n_transactions, confidence_scale, lift_scale))
+    return torch.where(depth >= min_depth, score, -torch.inf)
+
+
+def topk_keys_ref(score: torch.Tensor) -> torch.Tensor:
+    """Each position's key (``EMPTY_KEY`` for ``-inf``); +0.0 and -0.0
+    share one."""
+    s = torch.where(score == 0, torch.zeros_like(score), score)
+    u = s.view(torch.int32).long() & 0xFFFFFFFF
+    image = torch.where(u >= 2**31, u ^ 0xFFFFFFFF, u | 2**31)
+    high = image ^ 0xFFFFFFFF
+    pos = torch.arange(score.shape[0], dtype=torch.int64,
+                       device=score.device)
+    key = ((high - 2**31) << 32) + pos
+    return torch.where(score == -torch.inf, EMPTY_KEY, key)
+
+
+def tile_keys_ref(keys: torch.Tensor, tile: int) -> torch.Tensor:
+    """The smallest key of every ``tile``-position tile (the last one
+    partial): it bounds every position in the tile.  The kernel keeps
+    these for its tiles and for its groups of 32 positions."""
+    n_tiles = -(-keys.shape[0] // tile)
+    pad = keys.new_full((n_tiles * tile - keys.shape[0],), EMPTY_KEY)
+    return torch.cat([keys, pad]).view(n_tiles, tile).amin(1)
+
+
+def clamp_ranges_ref(los, his, n: int):
+    """Each range clamped to ``[0, n)``, and every empty one as
+    ``[0, 0)``, as the kernel reads them (int64)."""
+    lo = los.long().clamp(min=0)
+    hi = his.long().clamp(max=n)
+    empty = hi <= lo
+    return torch.where(empty, 0, lo), torch.where(empty, 0, hi)
+
+
+def dedup_ranges_ref(los, his, n: int):
+    """``(lo, hi, inverse)``: the distinct clamped ranges and, per query,
+    the index of its range; row ``inverse[i]`` of the distinct ranges'
+    answers is query i's answer."""
+    lo, hi = clamp_ranges_ref(los, his, n)
+    pairs, inverse = torch.unique(torch.stack([lo, hi], 1), dim=0,
+                                  return_inverse=True)
+    return pairs[:, 0], pairs[:, 1], inverse
+
+
+def seed_thresholds_ref(tile_keys, group_keys, lo, hi, k: int, tile: int,
+                        group: int):
+    """Per range, the strict threshold it starts from: one past the seed,
+    the k-th smallest key of the tiles lying wholly inside ``[lo, hi)``
+    when there are at least k of them, else of the groups lying wholly
+    inside it when there are at least k of those; ``EMPTY_KEY`` without a
+    seed or when the seed is the empty key.  The k keys up to the seed
+    belong to k distinct live positions of the range, so its k-th best key
+    is at most the seed."""
+    out = []
+    for a, b in zip(lo.tolist(), hi.tolist()):
+        seed = EMPTY_KEY
+        for keys, size in ((tile_keys, tile), (group_keys, group)):
+            f0, f1 = -(-a // size), b // size
+            if f1 - f0 >= k:
+                seed = int(torch.kthvalue(keys[f0:f1], k).values)
+                break
+        out.append(EMPTY_KEY if seed == EMPTY_KEY else seed + 1)
+    return torch.tensor(out, dtype=torch.int64, device=tile_keys.device)
+
+
+def tiles_read_ref(tile_keys, lo, hi, thr, tile: int) -> list:
+    """Per range, the tiles it reads, ascending: those meeting ``[lo,
+    hi)`` whose key is below its threshold (at most ``k + 2``)."""
+    out = []
+    for a, b, t in zip(lo.tolist(), hi.tolist(), thr.tolist()):
+        t1 = -(-b // tile) if b > a else a // tile
+        idx = torch.arange(a // tile, t1, device=tile_keys.device)
+        out.append(idx[tile_keys[idx] < t])
+    return out
+
+
+def plan_blocks_ref(tiles, min_tiles: int, work_blocks: int):
+    """``topk_select.cuh::plan_blocks``: query i takes ``max(1,
+    ceil(tiles[i] / P))`` blocks (none for ``tiles[i] < 0``), ``P =
+    max(min_tiles, ceil(sum / work_blocks))``.  Returns ``(first,
+    n_blocks, block_query)``; the kernel's grid is ``work_blocks + Q``
+    blocks, the ones past the plan idle."""
+    t = torch.as_tensor(tiles, dtype=torch.int64)
+    per = max(min_tiles, -(-int(t.clamp(min=0).sum()) // work_blocks))
+    nb = torch.where(t < 0, 0, ((t + per - 1) // per).clamp(min=1))
+    first = torch.cumsum(nb, 0) - nb
+    block_query = torch.repeat_interleave(
+        torch.arange(t.shape[0], dtype=torch.int64), nb)
+    return first, nb, block_query
+
+
+def block_tiles_ref(read, n_blocks: int, block: int):
+    """The slice of a range's tiles ``read`` that its ``block``-th block
+    streams: the tiles split evenly, in order."""
+    per = -(-read.shape[0] // n_blocks)
+    return read[block * per:(block + 1) * per]
+
+
+def topk_rank_planned_ref(
+    support, confidence, lift, depth, los, his,
+    *, k: int, metric: str = "confidence", min_depth: int = 1,
+    tile: int, group: int, work_blocks: int, min_tiles: int,
+    n_transactions: int = 0,
+    confidence_scale: float = 1.0, lift_scale: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``topk_rank_batch`` as ``csrc/rank.cu`` computes it, in plain
+    PyTorch, the blocks run one after another (``group`` divides
+    ``tile``): the distinct ranges, each range's seed and the tiles below
+    it, the plan, each block's tiles
+    (skipping a tile whose key is not below the range's running threshold,
+    admitting keys below it, keeping its best k), the merge of a range's
+    block lists, and the rows gathered back to every query.  It equals
+    ``topk_rank_batch_ref``; the main path does not call it."""
+    n, q = support.shape[0], los.shape[0]
+    if n == 0 or k <= 0 or q == 0:
+        return _empty_ranked(q, k, support.device)
+    score = masked_scores_ref(
+        support, confidence, lift, depth, metric=metric, min_depth=min_depth,
+        n_transactions=n_transactions, confidence_scale=confidence_scale,
+        lift_scale=lift_scale)
+    keys = topk_keys_ref(score)
+    tkeys = tile_keys_ref(keys, tile)
+    lo, hi, inverse = dedup_ranges_ref(los, his, n)
+    thr = seed_thresholds_ref(tkeys, tile_keys_ref(keys, group), lo, hi, k,
+                              tile, group)
+    read = tiles_read_ref(tkeys, lo, hi, thr, tile)
+    first, nblocks, _ = plan_blocks_ref([r.shape[0] for r in read],
+                                        min_tiles, work_blocks)
+    pos = torch.arange(n, device=keys.device)
+    rows = []
+    for r in range(lo.shape[0]):
+        shared = int(thr[r])
+        lists = []
+        for blk in range(int(nblocks[r])):
+            own = keys.new_full((k,), EMPTY_KEY)
+            for t in block_tiles_ref(read[r], int(nblocks[r]), blk).tolist():
+                bound = min(shared, int(own[-1]))
+                if int(tkeys[t]) >= bound:
+                    continue
+                span = slice(t * tile, min((t + 1) * tile, n))
+                inside = (pos[span] >= lo[r]) & (pos[span] < hi[r])
+                cand = keys[span][inside & (keys[span] < bound)]
+                own = torch.sort(torch.cat([own, cand])).values[:k]
+                if int(own[-1]) != EMPTY_KEY:
+                    shared = min(shared, int(own[-1]))
+            lists.append(own)
+        rows.append(torch.sort(torch.cat(lists)).values[:k])
+    best = torch.stack(rows)[inverse]
+    live = best != EMPTY_KEY
+    p = torch.where(live, best & 0xFFFFFFFF, 0)
+    return (torch.where(live, score[p], -torch.inf),
+            torch.where(live, p, -1).to(torch.int32))
+
+
 def laminar_members(node_item, post_lo, post_hi, plos, phis, items,
                     role: str) -> torch.Tensor:
     """``bool[Q, N]``: which DFS positions involve each queried item, by the

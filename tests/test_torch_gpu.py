@@ -49,15 +49,20 @@ def _bitwise(got, want):
         assert torch.equal(g, w)
 
 
-@pytest.fixture(params=[None, 2])
-def target_blocks(request, monkeypatch):
-    """The default launch shape, and one that packs many tiles into each
-    block's chunk (the running top-k path, and for k > 1024 its lists in
-    global scratch, that the small trie would not otherwise reach)."""
+@pytest.fixture(params=[None, 2, "split"])
+def rank_blocks(request, monkeypatch):
+    """The rank kernel's launch shapes: the default plan, few blocks with
+    many tiles each (the running top-k path, and for k > 1024 its lists in
+    global scratch, that the small trie would not otherwise reach), and
+    one block per tile (many blocks a range, whose lists its last block
+    merges)."""
     from repro_torch.kernels import rank
 
-    if request.param is not None:
-        monkeypatch.setattr(rank, "TARGET_BLOCKS", request.param)
+    if request.param == 2:
+        monkeypatch.setattr(rank, "WORK_BLOCKS", 2)
+    elif request.param == "split":
+        monkeypatch.setattr(rank, "WORK_BLOCKS", 1 << 16)
+        monkeypatch.setattr(rank, "MIN_TILES", 1)
     return request.param
 
 
@@ -66,17 +71,17 @@ def member_blocks(request, monkeypatch):
     """The membership kernel's launch shapes: the default plan, few
     blocks with many tiles each, and one block per tile of candidates
     (many blocks a query, whose lists its last block merges)."""
-    from repro_torch.kernels import item_index
+    from repro_torch.kernels import item_index, rank
 
     if request.param == 2:
-        monkeypatch.setattr(item_index, "WORK_BLOCKS", 2)
+        monkeypatch.setattr(rank, "WORK_BLOCKS", 2)
     elif request.param == "split":
-        monkeypatch.setattr(item_index, "WORK_BLOCKS", 1 << 16)
+        monkeypatch.setattr(rank, "WORK_BLOCKS", 1 << 16)
         monkeypatch.setattr(item_index, "MIN_TILES", 1)
     return request.param
 
 
-def test_rank_kernel(small, cuda, target_blocks):
+def test_rank_kernel(small, cuda, rank_blocks):
     _, fz = small
     t = TO.dfs_rank_arrays(fz, device=cuda)
     los, his, _ = TO.prefix_ranges(fz, [[], [1], [2, 5], [77], []],
@@ -88,6 +93,43 @@ def test_rank_kernel(small, cuda, target_blocks):
             got = topk_rank_batch(*args, k=k, metric=metric)
             assert topk_rank_batch.launches == before + 1
             _bitwise(got, ref.topk_rank_batch_ref(*args, k=k, metric=metric))
+
+
+@pytest.fixture(scope="module")
+def wide():
+    """A 2^15-edge hub trie (33 tiles of 1024 positions): enough full
+    tiles that whole-trie and depth-1 ranges are seeded at small k."""
+    return TS.frozen_from_arrays(TS.synthetic_csr_trie(1 << 15, seed=2))
+
+
+def test_rank_kernel_duplicate_and_nested_ranges(wide, cuda, rank_blocks):
+    """Duplicate, nested, empty and out-of-bounds ranges, ranges inside
+    one tile and ranges of exactly k full tiles, on plain and tie-heavy
+    columns: every row equals the plain version's bitwise, a duplicate's
+    row equals its first copy's, and the call is one launch."""
+    t = TO.dfs_rank_arrays(wide, device=cuda)
+    n = t["support"].shape[0]
+    los, his, _ = TO.prefix_ranges(wide, [[], [1], [2, 5], [1], [], [77]],
+                                   device=cuda)
+    extra = torch.tensor(
+        [[0, n], [3, 1027], [1024, 4096], [1000, 4120], [2048, 2050],
+         [5, 5], [-9, 3000], [n - 700, n + 50], [n + 1, n + 9],
+         [1024, 4096], [0, n]], dtype=torch.int32, device=cuda)
+    los = torch.cat([los, extra[:, 0]])
+    his = torch.cat([his, extra[:, 1]])
+    plain = [t["support"], t["confidence"], t["lift"]]
+    for cols in (plain, [torch.round(c * 10) / 10 for c in plain]):
+        args = (*cols, t["depth"], los, his)
+        for metric in ("confidence", "lift", "leverage"):
+            for k in (1, 3, 10, 100, 1100, 5000):
+                before = topk_rank_batch.launches
+                got = topk_rank_batch(*args, k=k, metric=metric)
+                assert topk_rank_batch.launches == before + 1
+                _bitwise(got, ref.topk_rank_batch_ref(*args, k=k,
+                                                      metric=metric))
+                for a, b in ((0, 4), (0, 6), (6, 16), (1, 3), (8, 15),
+                             (11, 14)):
+                    _bitwise((got[0][b], got[1][b]), (got[0][a], got[1][a]))
 
 
 def test_member_kernel(small, cuda, member_blocks):

@@ -137,24 +137,6 @@ def test_trie_reduce_module_vs_pallas(small):
         np.testing.assert_allclose(float(got[i]), float(want[i]), rtol=1e-6)
 
 
-@pytest.mark.parametrize("q,n_tiles,k", [
-    (256, 8193, 10), (256, 8193, 1500), (256, 1025, 1025), (3, 6, 1100),
-    (256, 8193, 1 << 16), (1, 8193, 1 << 23)])
-def test_selection_chunks_cover_tiles_with_bounded_scratch(q, n_tiles, k):
-    """The chunks of a selection launch cover every tile once, and their
-    lists stay within ``SCRATCH_ELEMS`` (or one list per query when
-    ``q * k`` alone is more) for any k: never Q x range."""
-    from repro_torch.kernels import rank
-
-    n_chunks, per, kk = rank.chunking(q, n_tiles, k)
-    assert (n_chunks - 1) * per < n_tiles <= n_chunks * per
-    assert kk == min(k, per * rank.TILE)
-    cap = rank.scratch_elems(q, n_chunks, kk, k)
-    assert cap >= q * n_chunks * kk
-    assert cap <= 2 * max(rank.SCRATCH_ELEMS,
-                          q * min(k, n_tiles * rank.TILE))
-
-
 def test_port_imports_without_jax_or_repro():
     """``repro_torch`` and everything under it import with ``jax`` and
     ``repro`` made unimportable."""
