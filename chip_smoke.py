@@ -29,7 +29,8 @@ GPU.
    apriori on the card finds the itemsets host apriori and fpgrowth find,
    holds the support-count kernel against its plain version on the card
    and the host bitmap sweep at every counting level and at the
-   annotation, exactly; then drives ``build_trie_of_rules(db, 0.002,
+   annotation, and its unstaged variant on a launch of 15,000 distinct
+   items (past the shared-memory staging limit), exactly; then drives ``build_trie_of_rules(db, 0.002,
    miner="apriori", engine="arrays")`` with the counters at 0 (one launch
    per level, one for the annotation), compares its trie with the host
    build (structure bitwise, metrics to rtol 1e-6 / atol 1e-7) and its
@@ -433,6 +434,9 @@ KERNEL_NAMES = {
     "rule_search_span": ("rule_search_span_kernel",),
     "rule_search_sweep": ("rule_search_sweep_kernel",),
     "trie_reduce_columns": ("partials", "fold"),
+    # the pre-pass clears its scratch with a memset ("Memset (Device)")
+    "support_count_bitmap": ("Memset", "support_mark_kernel",
+                             "support_tile_kernel"),
 }
 
 
@@ -592,6 +596,108 @@ def support_work(mat, n_words):
     return rows * n_words * 4 + c * k * 4 + 8 * c, 2 * distinct * n_words
 
 
+def support_levels(db, minsup, device):
+    """``apriori(db, minsup)`` on the kernel path on ``device``, with each
+    counting level's ``(candidates, lengths)`` recorded as apriori makes
+    them; returns ``(itemsets, levels)``."""
+    import numpy as np
+    from repro_torch.arm.apriori import apriori
+
+    levels = []
+    host_batch = db.support_batch
+
+    def recording(mat, lens=None, **kw):
+        levels.append((np.asarray(mat, np.int32), np.asarray(lens, np.int32)))
+        return host_batch(mat, lens, **kw)
+
+    db.support_batch = recording
+    try:
+        itemsets = apriori(db, minsup, use_kernel=True, device=device)
+    finally:
+        del db.support_batch
+    return itemsets, levels
+
+
+def annotation_rows(db, itemsets):
+    """The trie arrays of ``itemsets`` as ``build_trie_of_rules`` lays them
+    out, and the annotation's support-count rows ``(cand, lengths)``."""
+    import numpy as np
+    from repro_torch.arm.rulegen import canonical_sequences
+    from repro_torch.core.array_trie import item_tables
+    from repro_torch.core.build_arrays import (
+        canonicalize_matrix, pack_sequences, trie_arrays,
+    )
+
+    mat, _ = pack_sequences(canonical_sequences(itemsets.keys(), db))
+    _, item_rank = item_tables(db.frequency_order())
+    mat = canonicalize_matrix(mat, item_rank)
+    arrs = trie_arrays(mat, (mat >= 0).sum(axis=1))
+    return arrs, (arrs["cand"], arrs["node_depth"][1:].astype(np.int32))
+
+
+def support_launches(db, minsup, device):
+    """Every support-count launch of one build of ``db`` at ``minsup``:
+    ``(tags, [(candidates, lengths)], itemsets)``, the counting levels then
+    the annotation."""
+    itemsets, levels = support_levels(db, minsup, device)
+    levels.append(annotation_rows(db, itemsets)[1])
+    tags = [f"level {i + 2}" for i in range(len(levels) - 1)] + ["annotate"]
+    return tags, levels, itemsets
+
+
+def sm_clock_hz():
+    """The card's top SM clock (``nvidia-smi clocks.max.sm``), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def unstaged_case(dev, seed):
+    """A launch past the staging limit (every one of 15,000 items named,
+    so D > ``support_count.staging_limit(15,000)``): the unstaged variant, held
+    against the plain version on the card and the host sweep, exactly."""
+    import numpy as np
+    import torch
+    from repro_torch.arm.transactions import TransactionDB
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.support_count import (
+        _sm_count, launch_shape, staging_limit, support_count_bitmap,
+    )
+
+    rng = np.random.RandomState(seed + 5)
+    n_items, n_tx, c = 15_000, 500, 20_000
+    hot = rng.choice(n_items, size=40, replace=False)
+    txs = [sorted(set(hot[rng.rand(40) < 0.5].tolist())
+                  | set(rng.randint(0, n_items, size=60).tolist()))
+           for _ in range(n_tx)]
+    db = TransactionDB(txs, n_items)
+    mat = np.full((c, 3), -1, np.int32)
+    mat[:n_items, 0] = rng.permutation(n_items)
+    mat[n_items:, 0] = rng.randint(0, n_items, size=c - n_items)
+    mat[:, 1] = hot[rng.randint(0, 40, size=c)]
+    extra = rng.rand(c) < 0.5
+    mat[extra, 2] = hot[rng.randint(0, 40, size=int(extra.sum()))]
+    lens = (mat >= 0).sum(axis=1).astype(np.int32)
+    shape = launch_shape(n_items, db.n_words, n_items, c, _sm_count(0))
+    if n_items <= staging_limit(n_items) or shape["staged"]:
+        raise AssertionError("construct unstaged: the case stages its rows")
+    args_t = (db.device_bitmaps(dev), torch.as_tensor(mat, device=dev),
+              torch.as_tensor(lens, device=dev), n_tx)
+    got = support_count_bitmap(*args_t)
+    if not torch.equal(got, ref.support_count_bitmap_ref(*args_t)):
+        raise AssertionError("construct unstaged: kernel != plain version")
+    if not np.array_equal(got.cpu().numpy(), db.support_batch(mat, lens)):
+        raise AssertionError("construct unstaged: kernel != host sweep")
+    log(f"[construct] unstaged variant: {c} rows over {n_items} distinct "
+        f"items (staging limit {staging_limit(n_items)}), {db.n_words} "
+        f"words, "
+        f"launch {shape}: kernel == plain version == host sweep, exactly; "
+        f"{cuda_ms(lambda: support_count_bitmap(*args_t), 5):.4f} ms per "
+        f"call")
+
+
 def construction_phase(args, dev, l2_flush):
     """Mine, build and annotate ``online_retail_db()`` at ``MINSUP`` on
     the card, check every step, serve the trie, and time the support-count
@@ -601,16 +707,14 @@ def construction_phase(args, dev, l2_flush):
     from repro_torch.arm.apriori import apriori
     from repro_torch.arm.datasets import online_retail_db
     from repro_torch.arm.fpgrowth import fpgrowth
-    from repro_torch.arm.rulegen import canonical_sequences
-    from repro_torch.core.array_trie import item_tables
-    from repro_torch.core.build_arrays import (
-        build_frozen_trie, canonicalize_matrix, pack_sequences, trie_arrays,
-    )
+    from repro_torch.core.build_arrays import build_frozen_trie
     from repro_torch.core.builder import build_trie_of_rules
     from repro_torch.kernels import (
         KERNELS, launch_counts, ops, ref, reset_launch_counts,
     )
-    from repro_torch.kernels.support_count import support_count_bitmap
+    from repro_torch.kernels.support_count import (
+        _sm_count, support_count_bitmap,
+    )
     from repro_torch.serve import TrieQueryEngine
 
     minsup, reps = MINSUP, args.reps
@@ -625,19 +729,9 @@ def construction_phase(args, dev, l2_flush):
         f"({db.item_bitmaps.nbytes} bytes), made in "
         f"{time.perf_counter() - t0:.1f} s")
     # the kernel path's own counting levels, recorded as apriori makes them
-    launches_in = []
-    host_batch = db.support_batch
-
-    def recording(mat, lens=None, **kw):
-        launches_in.append((np.asarray(mat, np.int32),
-                            np.asarray(lens, np.int32)))
-        return host_batch(mat, lens, **kw)
-
-    db.support_batch = recording
     t0 = time.perf_counter()
-    on_card = apriori(db, minsup, use_kernel=True, device=dev)
+    on_card, launches_in = support_levels(db, minsup, dev)
     t1 = time.perf_counter()
-    del db.support_batch
     by_fpgrowth = fpgrowth(db, minsup)
     t2 = time.perf_counter()
     on_host = apriori(db, minsup)
@@ -657,12 +751,7 @@ def construction_phase(args, dev, l2_flush):
         return (torch.as_tensor(mat, device=dev),
                 torch.as_tensor(lens, device=dev))
 
-    seqs = canonical_sequences(on_card.keys(), db)
-    mat, _ = pack_sequences(seqs)
-    _, item_rank = item_tables(db.frequency_order())
-    mat = canonicalize_matrix(mat, item_rank)
-    arrs = trie_arrays(mat, (mat >= 0).sum(axis=1))
-    cand, clens = arrs["cand"], arrs["node_depth"][1:].astype(np.int32)
+    arrs, (cand, clens) = annotation_rows(db, on_card)
     launches_in.append((cand, clens))
     tags = [f"level {i + 2}" for i in range(len(launches_in) - 1)] + \
         ["annotate"]
@@ -679,6 +768,7 @@ def construction_phase(args, dev, l2_flush):
     log(f"[construct] {len(launches_in)} launches (C = "
         f"{[m.shape[0] for m, _ in launches_in]}): kernel == plain version "
         f"on the card == host bitmap sweep, exactly")
+    unstaged_case(dev, args.seed)
 
     # -- 6c. the main path: build_trie_of_rules on the default device --
     reset_launch_counts()
@@ -772,6 +862,9 @@ def construction_phase(args, dev, l2_flush):
         f"{annotate_s:.4f} (median of 3; each run "
         f"{[tuple(round(x, 4) for x in sp) for sp in splits]})")
     plain_reps = max(2, reps // 4)
+    # the popcount floor: one 32-bit __popc per candidate word, at 16 a
+    # clock per SM (compute capability 9.0) and the card's top SM clock
+    popc_per_s = 16 * _sm_count(0) * sm_clock_hz()
     per_launch = []
     for tag, (mat_l, lens_l) in zip(tags, launches_in):
         args_t = (bm, *upload(mat_l, lens_l), n_tx)
@@ -779,11 +872,10 @@ def construction_phase(args, dev, l2_flush):
         plain = lambda: ref.support_count_bitmap_ref(*args_t)
         call_ms = cuda_ms(kern, reps)
         plain_call_ms = cuda_ms(plain, plain_reps, warmup=1)
-        # the kernel alone: the wrapper's item-range check (a max
-        # reduction and a 4-byte copy to the host) is in call_ms
-        ms = device_ms(kern, reps, l2_flush.zero_,
-                       kernel="support_count_kernel")
-        # on plain_ms's scope: the whole call, its range check included
+        # every kernel of the wrapper by name (the pre-pass, whose 8-byte
+        # read of (largest id, D) is in call_ms, and the tile pass)
+        ms = device_ms(kern, reps, l2_flush.zero_, kernel=KERNEL_NAMES[name])
+        # on plain_ms's scope: every device event of the call
         whole_call_ms = device_ms(kern, reps, l2_flush.zero_)
         plain_ms = device_ms(plain, plain_reps, l2_flush.zero_)
         timer = "events" if ms is None else "profiler"
@@ -795,6 +887,7 @@ def construction_phase(args, dev, l2_flush):
         t_ops = nops / FP32_OPS_PER_S * 1e3
         dense_ms = 2.0 * n_tx * mat_l.shape[0] * db.n_items \
             / BF16_OPS_PER_S * 1e3
+        popc_ms = mat_l.shape[0] * n_words / popc_per_s * 1e3
         per_launch.append({
             "launch": tag, "C": int(mat_l.shape[0]), "K": int(mat_l.shape[1]),
             "ms": ms, "whole_call_ms": whole_call_ms, "call_ms": call_ms,
@@ -802,27 +895,30 @@ def construction_phase(args, dev, l2_flush):
             "plain_call_ms": plain_call_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": nops, "dense_bf16_ms": dense_ms,
-            "timer": timer, "plain_timer": plain_timer,
+            "popc_floor_ms": popc_ms, "timer": timer,
+            "plain_timer": plain_timer,
         })
         log(f"[kernel] {name} {tag} C={mat_l.shape[0]} K={mat_l.shape[1]}: "
             f"{ms:.4f} ms device ({timer}), whole call {whole_call_ms} ms "
             f"device, {call_ms:.4f} ms per call; plain "
             f"{plain_ms:.4f} ({plain_timer}) / {plain_call_ms:.4f} ms; bound "
             f"{per_launch[-1]['bound_ms']:.5f} ms "
-            f"({per_launch[-1]['bound_by']}); a dense bf16 product would "
-            f"take {dense_ms:.4f} ms at peak")
+            f"({per_launch[-1]['bound_by']}), popcount floor "
+            f"{popc_ms:.5f} ms; a dense bf16 product would take "
+            f"{dense_ms:.4f} ms at peak")
     total = {key: sum(p[key] for p in per_launch)
              for key in ("ms", "call_ms", "plain_ms", "plain_call_ms",
-                         "dense_bf16_ms")}
+                         "dense_bf16_ms", "popc_floor_ms")}
     total["whole_call_ms"] = None if any(
         p["whole_call_ms"] is None for p in per_launch) else sum(
         p["whole_call_ms"] for p in per_launch)
     t_bytes = sum(p["bytes"] for p in per_launch) / HBM_BYTES_PER_S * 1e3
     t_ops = sum(p["ops"] for p in per_launch) / FP32_OPS_PER_S * 1e3
     log(f"[construct] one build's {len(per_launch)} support counts: "
-        f"{total['ms']:.4f} ms device, bound "
-        f"{sum(p['bound_ms'] for p in per_launch):.5f} ms; the dense "
-        f"formulation's bf16 bound {total['dense_bf16_ms']:.4f} ms")
+        f"{total['ms']:.4f} ms device ({total['call_ms']:.4f} ms per call), "
+        f"bound {sum(p['bound_ms'] for p in per_launch):.5f} ms, popcount "
+        f"floor {total['popc_floor_ms']:.5f} ms; the dense formulation's "
+        f"bf16 bound {total['dense_bf16_ms']:.4f} ms")
     return {
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/support_count.cu",
@@ -835,7 +931,8 @@ def construction_phase(args, dev, l2_flush):
         "timer": "/".join(sorted({p["timer"] for p in per_launch})),
         "plain_timer": "/".join(sorted({p["plain_timer"] for p in per_launch})),
         "whole_call_ms": total["whole_call_ms"], "call_ms": total["call_ms"],
-        "plain_call_ms": total["plain_call_ms"], "per_launch": per_launch,
+        "plain_call_ms": total["plain_call_ms"],
+        "popc_floor_ms": total["popc_floor_ms"], "per_launch": per_launch,
     }, frozen, n_tx
 
 

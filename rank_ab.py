@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time the selection kernels of two or more checkouts of the port on one
-NVIDIA GPU, in turns, at ``chip_smoke.py``'s main-path shapes.
+"""Time the selection and support-count kernels of two or more checkouts
+of the port on one NVIDIA GPU, in turns, at ``chip_smoke.py``'s main-path
+shapes: the port's A/B timer.
 
     python3 rank_ab.py TREE [TREE ...] [--edges N] [--reps R]
+                       [--lanes rank,member,chain,support]
 
 Each TREE is the root of a checkout (a directory holding
 ``src/repro_torch``); list them in the order to run, e.g. ``parent
@@ -19,10 +21,17 @@ its own process, which builds that tree's kernels into the tree's own
 - on ``synthetic_chain_trie(2^20, 0.75, seed=3)`` compressed with int32
   + bf16 and with int32 + int8 columns, with ``chip_smoke.chain_traffic``:
   the rank kernel at k = 100 and the membership kernel per role at
-  k = 10.
+  k = 10;
+- ``support_count_bitmap`` at each of the 8 launches of one retail build
+  (``online_retail_db()`` at ``chip_smoke.MINSUP``: apriori's counting
+  levels on the kernel path, then the annotation;
+  ``chip_smoke.support_launches``), by kernel name, and in total; beside
+  each, CUDA events around one call (``_call_ms``), host work included.
 
-Every tree's answers are checked against its plain versions.  Prints one
-JSON line per run and, last, the card's name and power limit.
+``--lanes`` picks a subset: ``rank`` and ``member`` on the 2^20 trie,
+``chain`` on the chain trie, ``support``.  Every tree's answers are
+checked against its plain versions.  Prints one JSON line per run and,
+last, the card's name and power limit.
 """
 import argparse
 import json
@@ -36,18 +45,21 @@ RANK_KERNELS = ("score_kernel", "chunk_topk_kernel", "merge_pairs_kernel",
                 "rank_seed_kernel", "rank_topk_kernel")
 MEMBER_KERNELS = ("score_kernel", "member_count", "member_ranges",
                   "member_plan", "member_topk")
+# every support-count kernel name either version launches: the
+# warp-per-candidate kernel, or the pre-pass (a memset and the mark
+# kernel) and the tile pass
+SUPPORT_KERNELS = ("support_count_kernel", "Memset", "support_mark_kernel",
+                   "support_tile_kernel")
+LANES = ("rank", "member", "chain", "support")
 
 
-def one(tree, edges, reps):
+def one(tree, edges, reps, lanes):
     import chip_smoke as cs  # stdlib only at import
 
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
     import torch
 
-    from repro_torch.core import synthetic
-    from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels.item_index import rules_with_member
-    from repro_torch.kernels.rank import topk_rank_batch
+    from repro_torch.kernels import _build
 
     assert os.path.abspath(tree) in os.path.abspath(_build.__file__)
     dev = torch.device("cuda", 0)
@@ -67,6 +79,46 @@ def one(tree, edges, reps):
                 kern: cs.device_ms(call, reps, flush, kernel=kern)
                 for kern in kernels}
 
+    if "support" in lanes:
+        support_lane(cs, dev, timed, out, reps)
+    if lanes & {"rank", "member"}:
+        query_lanes(cs, dev, timed, edges, lanes)
+    if "chain" in lanes:
+        chain_lane(cs, dev, timed)
+    print(json.dumps(out), flush=True)
+
+
+def support_lane(cs, dev, timed, out, reps):
+    import torch
+
+    from repro_torch.arm.datasets import online_retail_db
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.support_count import support_count_bitmap
+
+    db = online_retail_db()
+    tags, launches, _ = cs.support_launches(db, cs.MINSUP, dev)
+    bm = db.device_bitmaps(dev)
+    total = call_total = 0.0
+    for tag, (mat, lens) in zip(tags, launches):
+        a = (bm, torch.as_tensor(mat, device=dev),
+             torch.as_tensor(lens, device=dev), db.n_transactions)
+        name = "support_" + tag.replace(" ", "")
+        timed(name, lambda: (support_count_bitmap(*a),),
+              lambda: (ref.support_count_bitmap_ref(*a),), SUPPORT_KERNELS,
+              split=True)
+        out[name + "_call_ms"] = cs.cuda_ms(
+            lambda: support_count_bitmap(*a), reps)
+        total += out[name]
+        call_total += out[name + "_call_ms"]
+    out["support_total"], out["support_total_call_ms"] = total, call_total
+
+
+def query_lanes(cs, dev, timed, edges, lanes):
+    from repro_torch.core import synthetic
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.item_index import rules_with_member
+    from repro_torch.kernels.rank import topk_rank_batch
+
     arrs = synthetic.synthetic_csr_trie(edges, seed=0)
     frozen = synthetic.frozen_from_arrays(arrs)
     dt = frozen.device_arrays(device=dev)
@@ -75,12 +127,13 @@ def one(tree, edges, reps):
     los, his, _ = ops.prefix_ranges(frozen, prefixes, dt=dt)
     r_args = (dfs["support"], dfs["confidence"], dfs["lift"], dfs["depth"],
               los, his)
-    for k in (10, 100):
+    for k in ((10, 100) if "rank" in lanes else ()):
         kw = dict(k=k, metric="confidence", min_depth=1)
         timed(f"rank_k{k}", lambda: topk_rank_batch(*r_args, **kw),
               lambda: ref.topk_rank_batch_ref(*r_args, **kw), RANK_KERNELS,
               split=True)
-
+    if "member" not in lanes:
+        return
     ia = ops.item_rank_arrays(dt)
     m_args = (ia["support"], ia["confidence"], ia["lift"], ia["depth"],
               ia["node_item"], ia["post_lo"], ia["post_hi"],
@@ -90,6 +143,13 @@ def one(tree, edges, reps):
         timed(f"member_{role}", lambda: rules_with_member(*m_args, **kw),
               lambda: ref.rules_with_ref(*m_args, **kw), MEMBER_KERNELS,
               split=role == "consequent")
+
+
+def chain_lane(cs, dev, timed):
+    from repro_torch.core import synthetic
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.item_index import rules_with_member
+    from repro_torch.kernels.rank import topk_rank_batch
 
     # the compressed phase's traffic (chip_smoke.compressed_phase)
     carrs = synthetic.synthetic_chain_trie(1 << 20, chain_fraction=0.75,
@@ -117,7 +177,6 @@ def one(tree, edges, reps):
             timed(f"member_chain_{name}_{role}",
                   lambda: rules_with_member(*cm_args, **kw),
                   lambda: ref.rules_with_ref(*cm_args, **kw), MEMBER_KERNELS)
-    print(json.dumps(out), flush=True)
 
 
 def main():
@@ -125,10 +184,15 @@ def main():
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--edges", type=int, default=1 << 20)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--lanes", default=",".join(LANES),
+                    help="comma-separated subset of " + ",".join(LANES))
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    lanes = set(args.lanes.split(","))
+    if not lanes <= set(LANES):
+        ap.error(f"--lanes: unknown {sorted(lanes - set(LANES))}")
     if args.one:
-        one(args.trees[0], args.edges, args.reps)
+        one(args.trees[0], args.edges, args.reps, lanes)
         return 0
     import torch
 
@@ -138,7 +202,8 @@ def main():
     for tree in args.trees:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
                         tree, "--edges", str(args.edges), "--reps",
-                        str(args.reps)], check=True, cwd=HERE)
+                        str(args.reps), "--lanes", args.lanes],
+                       check=True, cwd=HERE)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -67,7 +67,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         ),
     },
     "support_count": {
-        "support_count_launch": (_P, _I, _P, _I, _I, _P, _I, _P, _P),
+        "support_prepass_launch": (_P, _I, _I, _I, _P, _P, _P),
+        "support_count_launch": (
+            _P, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P,
+            _P,
+        ),
     },
 }
 

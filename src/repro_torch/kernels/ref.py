@@ -110,6 +110,79 @@ def support_count_bitmap_ref(bitmaps, candidates, lengths,
     return torch.cat(out)
 
 
+def support_slots_ref(candidates, n_items: int):
+    """The plain mirror of the support-count pre-pass
+    (``support_mark_kernel`` and ``support_slot_kernel``): ``(largest id,
+    D, slot_of, slot_item)``, the largest entry of the matrix (-1 when it
+    has none), the number D of distinct valid ids, ``slot_of`` int32
+    ``[I]`` (an id's slot in ascending id order, -1 for an id the matrix
+    does not name) and its inverse ``slot_item`` int32 ``[D]``.  With an
+    id ``>= n_items`` only the largest id is computed: D is 0 and the maps
+    are None, as the kernel writes no slots then."""
+    flat = candidates.reshape(-1)
+    top = int(flat.max()) if flat.numel() else -1
+    if top >= n_items:
+        return top, 0, None, None
+    named = torch.zeros((n_items,), dtype=torch.bool, device=flat.device)
+    named[flat[flat >= 0].long()] = True
+    slot_item = named.nonzero().flatten().to(torch.int32)
+    slot_of = torch.full((n_items,), -1, dtype=torch.int32,
+                         device=flat.device)
+    slot_of[slot_item.long()] = torch.arange(
+        slot_item.numel(), dtype=torch.int32, device=flat.device)
+    return top, int(slot_item.numel()), slot_of, slot_item
+
+
+def popcount32(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit word (int64 holding 0..2^32-1), int64."""
+    x = words - ((words >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def support_count_tiled_ref(bitmaps, candidates, lengths,
+                            n_transactions: int, bw: int) -> torch.Tensor:
+    """The plain mirror of the support-count kernel's plan: the slot map
+    of ``support_slots_ref``, the D item rows and the mask row (ones, the
+    tail mask at word W-1, zeros past W) cut into word tiles of ``bw``
+    words (the last one zero-padded), each candidate's valid items' tile
+    words ANDed (from ones, or from the mask row in the last tile), a
+    partial popcount per tile, the partials summed; 0 where ``lengths <=
+    0``.  Equals ``support_count_bitmap_ref`` for every ``bw >= 1``.
+    Raises ``ValueError`` on an item id ``>= I``."""
+    n_items, n_words = bitmaps.shape
+    c, k = candidates.shape
+    dev = bitmaps.device
+    top, d, slot_of, slot_item = support_slots_ref(candidates, n_items)
+    if top >= n_items:
+        raise ValueError(f"item {top} out of range [0,{n_items})")
+    counts = torch.zeros((c,), dtype=torch.int64, device=dev)
+    if c == 0 or n_words == 0:
+        return counts.to(torch.int32)
+    tiles = -(-n_words // bw)
+    ones = 0xFFFFFFFF
+    # rows 0..D-1 the items by slot, D the mask row, D + 1 all ones (the
+    # row an invalid entry reads, so that it changes nothing)
+    rows = torch.zeros((d + 2, tiles * bw), dtype=torch.int64, device=dev)
+    rows[:d, :n_words] = bitmaps[slot_item.long()].to(torch.int64) & ones
+    rows[d, :n_words] = ones
+    tail = int(n_transactions) % 32
+    rows[d, n_words - 1] = (1 << tail) - 1 if tail else ones
+    rows[d + 1] = ones
+    lookup = torch.cat([slot_of.long(),
+                        torch.tensor([d + 1], dtype=torch.int64, device=dev)])
+    slots = lookup[torch.where(candidates >= 0, candidates, n_items).long()]
+    for t in range(tiles):
+        tile = rows[:, t * bw:(t + 1) * bw]
+        last = t == tiles - 1
+        acc = tile[d if last else d + 1].expand(c, bw).clone()
+        for j in range(k):
+            acc &= tile[slots[:, j]]
+        counts += popcount32(acc).sum(1)
+    return torch.where(lengths > 0, counts, 0).to(torch.int32)
+
+
 def _empty_ranked(q: int, k: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
     k = max(int(k), 0)
     return (

@@ -7,6 +7,8 @@ on a GPU host without JAX it runs alone:
     PYTHONPATH=src python -m pytest -p no:cacheprovider --noconftest \
         -m gpu tests/test_torch_gpu.py
 """
+import importlib
+
 import numpy as np
 import pytest
 
@@ -343,6 +345,86 @@ def test_support_count_kernel(cuda):
             small.device_bitmaps("cpu"), torch.from_numpy(mat),
             torch.from_numpy(lens), small.n_transactions)
         assert torch.equal(got.cpu(), want)
+    _support_count_shapes(cuda)
+
+
+def _check_support(cuda, db, mat, lens, staged=None):
+    """One call on the card == the plain version == the host sweep, one
+    launch counted, and the launch staged or not as ``staged`` says."""
+    sc = importlib.import_module("repro_torch.kernels.support_count")
+    cand = torch.from_numpy(mat).to(cuda)
+    ln = torch.from_numpy(lens).to(cuda)
+    bm = db.device_bitmaps(cuda)
+    if staged is not None:
+        top, d, _, _ = ref.support_slots_ref(torch.from_numpy(mat),
+                                             db.n_items)
+        shape = sc.launch_shape(d, db.n_words, db.n_items, len(mat),
+                                sc._sm_count(torch.cuda.current_device()))
+        assert shape["staged"] is staged
+    before = sc.support_count_bitmap.launches
+    got = sc.support_count_bitmap(bm, cand, ln, db.n_transactions)
+    assert sc.support_count_bitmap.launches == before + 1
+    assert torch.equal(got, ref.support_count_bitmap_ref(
+        bm, cand, ln, db.n_transactions))
+    host = db.support_batch(mat, lens)
+    np.testing.assert_array_equal(
+        np.where(lens > 0, got.cpu().numpy(), db.n_transactions), host)
+
+
+def _support_count_shapes(cuda):
+    """The tile plan's edges on the card: the pre-pass's (largest id, D)
+    read and range error, a launch past the staging limit (the unstaged
+    variant), W not a multiple of the tile, and a single-word DB."""
+    from repro_torch.arm.transactions import TransactionDB
+
+    sc = importlib.import_module("repro_torch.kernels.support_count")
+    rng = np.random.RandomState(19)
+    # the pre-pass on the card == its plain mirror
+    txs = [sorted(set(rng.randint(0, 300, size=12).tolist()))
+           for _ in range(1100)]
+    db = TransactionDB(txs, 300)
+    mat, lens = _tie_heavy_candidates(rng, 300, 2000, 5)
+    mat[:40, 0] = rng.randint(0, 300, size=40)
+    top, d, bits, _ = sc._distinct_items(torch.from_numpy(mat).to(cuda), 300)
+    w_top, w_d, _, w_slot_item = ref.support_slots_ref(
+        torch.from_numpy(mat), 300)
+    assert (top, d) == (w_top, w_d)
+    named = torch.zeros(320, dtype=torch.bool)
+    named[w_slot_item.long()] = True
+    want = (named.view(10, 32).long() << torch.arange(32)).sum(1)
+    assert torch.equal(bits.cpu().long() & 0xFFFFFFFF, want)
+    # an id >= I: ValueError before the main launch, none counted
+    bad = mat.copy()
+    bad[7, 2] = 300
+    before = sc.support_count_bitmap.launches
+    with pytest.raises(ValueError, match="item 300 out of range"):
+        sc.support_count_bitmap(
+            db.device_bitmaps(cuda), torch.from_numpy(bad).to(cuda),
+            torch.from_numpy(lens).to(cuda), db.n_transactions)
+    assert sc.support_count_bitmap.launches == before
+    # W = 35 (1100 transactions): a whole tile of 32 words and a partial
+    # one; W = 32, one whole tile; W = 22 < BW; a single word
+    _check_support(cuda, db, mat, lens, staged=True)
+    for n_tx in (1000, 700, 20):
+        small = TransactionDB(txs[:n_tx], 300)
+        _check_support(cuda, small, mat, lens, staged=True)
+    # past the staging limit: every one of limit + 90 items named
+    n_items = 12_000
+    assert sc.staging_limit(n_items) < n_items
+    hot = rng.choice(n_items, size=30, replace=False)
+    txs = [sorted(set(hot[rng.rand(30) < 0.5].tolist())
+                  | set(rng.randint(0, n_items, size=40).tolist()))
+           for _ in range(300)]
+    big = TransactionDB(txs, n_items)
+    mat = np.full((n_items + 500, 3), -1, np.int32)
+    mat[:n_items, 0] = rng.permutation(n_items)
+    mat[n_items:, 0] = rng.randint(0, n_items, size=500)
+    mat[:, 1] = hot[rng.randint(0, 30, size=len(mat))]
+    mat[::3, 2] = mat[::3, 1]      # a repeated item
+    mat[1::5, 1] = -1              # a -1 ahead of a valid item
+    lens = (mat >= 0).sum(axis=1).astype(np.int32)
+    lens[::11] = 0
+    _check_support(cuda, big, mat, lens, staged=False)
 
 
 def test_build_on_gpu_equals_cpu(cuda):

@@ -5,7 +5,10 @@ oracle ``support_count_ref``, exactly, on random transaction DBs; the two
 ``support_batch`` paths of both packages; and the three reference
 behaviours the port does not share, each pinned beside the port's answer.
 The kernel itself is held against its plain version on the card in
-``test_torch_gpu.py``.
+``test_torch_gpu.py``; here its plan is, through the plain mirrors
+``ref.support_slots_ref`` (the pre-pass's slot map and largest id) and
+``ref.support_count_tiled_ref`` (word tiles of the slotted rows, partial
+counts per tile, summed), and the launch sizing of ``launch_shape``.
 """
 import numpy as np
 import pytest
@@ -20,7 +23,10 @@ from repro.kernels.ref import support_count_ref as jax_support_count_ref  # noqa
 from repro_torch.arm.transactions import TransactionDB  # noqa: E402
 from repro_torch.kernels import ops as TO  # noqa: E402
 from repro_torch.kernels import ref as TR  # noqa: E402
-from repro_torch.kernels.support_count import support_count_bitmap  # noqa: E402
+from repro_torch.kernels.support_count import (  # noqa: E402
+    SMEM_BLOCK, THREADS, launch_shape, staging_limit, support_count_bitmap,
+    tile_bytes, tile_words,
+)
 
 
 def _random_db(rng, t, i):
@@ -193,3 +199,153 @@ def test_wrapper_checks_and_counts_no_cpu_launch():
         TO.support_count(cand, lens, db.item_bitmaps, device="cpu")
     with pytest.raises(ValueError, match="need item_bitmaps"):
         TO.support_count(cand, lens, device="cpu")
+
+
+# ----------------------------------------------------------------------
+# the kernel's plan: slot map, word tiles, per-tile partial counts
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("t,i,c,k", CASES)
+def test_tiled_mirror_matches_reference(t, i, c, k):
+    """The plan's mirror at the kernel's tile widths (and at widths that
+    are not powers of two) equals the plain version and the reference's
+    interpret-mode Pallas kernel, exactly."""
+    rng = np.random.RandomState(t * 7919 + i * 31 + c + k)
+    txs, n_items = _random_db(rng, t, i)
+    jdb, tdb = JaxDB(txs, n_items), TransactionDB(txs, n_items)
+    cand, lens = _random_candidates(rng, n_items, c, k)
+    bm = tdb.device_bitmaps("cpu")
+    args = (bm, torch.from_numpy(cand), torch.from_numpy(lens), t)
+    want = np.asarray(JO.support_count(cand, lens, jdb.item_bitmaps))
+    plain = TR.support_count_bitmap_ref(*args)
+    np.testing.assert_array_equal(plain.numpy(), want)
+    d = TR.support_slots_ref(torch.from_numpy(cand), n_items)[1]
+    for bw in (4, 8, 16, 32, 3, tile_words(d, tdb.n_words, n_items)):
+        got = TR.support_count_tiled_ref(*args, bw)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _levels(db, minsup):
+    """Every counting level of ``apriori(db, minsup)`` on the kernel path,
+    recorded as apriori makes them (counted on the CPU)."""
+    from repro_torch.arm.apriori import apriori
+
+    levels = []
+    host_batch = db.support_batch
+
+    def recording(mat, lens=None, **kw):
+        levels.append((np.asarray(mat, np.int32), np.asarray(lens, np.int32)))
+        return host_batch(mat, lens, **kw)
+
+    db.support_batch = recording
+    try:
+        apriori(db, minsup, use_kernel=True, device="cpu")
+    finally:
+        del db.support_batch
+    return levels
+
+
+@pytest.mark.parametrize("n_tx", [300, 1100, 32, 20, 0])
+def test_tiled_mirror_on_apriori_levels(n_tx):
+    """The recorded apriori levels of a small DB through the plan's mirror
+    at BW = 32 (the retail tile) and at ``tile_words``' own choice: W = 10
+    (< BW), 35 (not a multiple of BW), one whole word, one partial word,
+    and T = 0 (no word: every count 0)."""
+    rng = np.random.RandomState(n_tx + 5)
+    txs, n_items = _random_db(rng, max(n_tx, 300), 30)
+    tdb = TransactionDB(txs[:n_tx], n_items)
+    levels = _levels(TransactionDB(txs[:300], n_items), 0.03)
+    assert len(levels) >= 2
+    bm = tdb.device_bitmaps("cpu")
+    for mat, lens in levels:
+        args = (bm, torch.from_numpy(mat), torch.from_numpy(lens), n_tx)
+        want = TR.support_count_bitmap_ref(*args)
+        np.testing.assert_array_equal(tdb.support_batch(mat, lens),
+                                      want.numpy())
+        d = TR.support_slots_ref(torch.from_numpy(mat), n_items)[1]
+        for bw in {32, tile_words(d, tdb.n_words, n_items)}:
+            assert torch.equal(TR.support_count_tiled_ref(*args, bw), want)
+
+
+def test_slot_map_mirror():
+    """The pre-pass's mirror: the largest entry, D distinct valid ids in
+    ascending order, and slot_of its inverse; a -1 entry or a repeat adds
+    no slot."""
+    cand = torch.tensor([[7, 2, -1], [2, 2, 9], [-1, -1, -1]],
+                        dtype=torch.int32)
+    top, d, slot_of, slot_item = TR.support_slots_ref(cand, 12)
+    assert (top, d) == (9, 3)
+    assert slot_item.tolist() == [2, 7, 9]
+    assert slot_of.tolist() == [-1, -1, 0, -1, -1, -1, -1, 1, -1, 2, -1, -1]
+    empty = torch.full((2, 3), -1, dtype=torch.int32)
+    assert TR.support_slots_ref(empty, 4)[:2] == (-1, 0)
+    assert TR.support_slots_ref(empty[:, :0], 4)[:2] == (-1, 0)
+    # an id >= I: only the largest id, no slots (the kernel writes none)
+    assert TR.support_slots_ref(cand, 9) == (9, 0, None, None)
+
+
+def test_prepass_range_error():
+    """An id >= I raises through the pre-pass (the mirror on the CPU), in
+    the wrapper and in the plan's mirror, naming the largest id."""
+    db = TransactionDB([[0, 1], [1, 2]], 3)
+    bm = db.device_bitmaps("cpu")
+    cand = torch.tensor([[0, 1], [5, -1], [3, 4]], dtype=torch.int32)
+    lens = torch.tensor([2, 1, 0], dtype=torch.int32)
+    before = support_count_bitmap.launches
+    with pytest.raises(ValueError, match=r"item 5 out of range \[0,3\)"):
+        support_count_bitmap(bm, cand, lens, 2)
+    with pytest.raises(ValueError, match=r"item 5 out of range \[0,3\)"):
+        TR.support_count_tiled_ref(bm, cand, lens, 2, 32)
+    assert support_count_bitmap.launches == before
+
+
+def test_tile_sizing_at_the_staging_limit():
+    """``tile_words`` takes the widest power-of-two tile (4..32 words, not
+    past W) whose rows, slot words and ids fit a block's shared memory; D
+    at the staging limit stages 4-word tiles, one more reads the rows
+    unstaged."""
+    n_items = 12_000
+    limit = staging_limit(n_items)
+    assert 11_000 < limit < n_items
+    assert (tile_bytes(limit, 4, n_items) <= SMEM_BLOCK
+            < tile_bytes(limit + 1, 4, n_items))
+    assert tile_bytes(462, 32, 3600) == 463 * 128 + 113 * 8 + 462 * 4
+    assert tile_words(462, 563, 3600) == 32       # the retail launches
+    assert tile_words(462, 1, 3600) == 4 and tile_words(462, 5, 3600) == 8
+    assert tile_words(462, 22, 3600) == 32 and tile_words(0, 0, 0) == 4
+    top32 = (SMEM_BLOCK - 128 - 8 * 375) // 132   # the most rows at BW = 32
+    assert (tile_bytes(top32, 32, n_items) <= SMEM_BLOCK
+            < tile_bytes(top32 + 1, 32, n_items))
+    assert tile_words(top32, 563, n_items) == 32
+    assert tile_words(top32 + 1, 563, n_items) == 16
+    assert tile_words(limit, 563, n_items) == 4
+    assert tile_words(limit + 1, 563, n_items) == 0
+    at = launch_shape(limit, 563, n_items, 20_000, 132)
+    above = launch_shape(limit + 1, 563, n_items, 20_000, 132)
+    assert at["staged"] and at["bw"] == 4
+    assert at["smem"] == tile_bytes(limit, 4, n_items)
+    assert not above["staged"] and above["bw"] == 32 and above["smem"] == 0
+    assert above["tiles"] == 18
+    # the slot words alone past a block's memory: nothing stages
+    assert staging_limit(1 << 25) < 0 and tile_words(1, 563, 1 << 25) == 0
+
+
+def test_launch_shape_fills_the_card():
+    """One block an SM in one wave: the retail level-2 launch takes 18
+    word tiles of 32 and 7 slices, 126 blocks on 132 SMs; a small launch
+    takes one slice per THREADS candidates; a DB wider than the card takes
+    one slice; every candidate lands in a slice."""
+    s = launch_shape(462, 563, 3600, 106_491, 132)
+    assert (s["bw"], s["tiles"], s["slices"]) == (32, 18, 7)
+    assert s["smem"] == tile_bytes(462, 32, 3600)
+    assert s["slices"] * s["per_slice"] >= 106_491
+    small = launch_shape(8, 563, 3600, 83, 132)
+    assert small["slices"] == 1 and small["per_slice"] == 83
+    mid = launch_shape(212, 563, 3600, 3 * THREADS + 1, 132)
+    assert mid["slices"] == 4
+    wide = launch_shape(462, 32 * 200, 3600, 106_491, 132)
+    assert wide["tiles"] == 200 and wide["slices"] == 1
+    one_word = launch_shape(30, 1, 30, 5000, 132)
+    assert (one_word["bw"], one_word["tiles"]) == (4, 1)
+    assert one_word["slices"] == -(-5000 // THREADS)
+    assert launch_shape(0, 0, 3, 5, 132)["tiles"] == 0
