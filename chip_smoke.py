@@ -63,8 +63,11 @@ GPU.
    with the launch counters at 0: every answer == the CSR layout's in the
    same run bitwise (trie_reduce sums to 1e-6), one search makes exactly
    two full-sweep launches and no fused one, and both launches (the rows,
-   then their consequent columns) == the plain version bitwise.  Times the
-   ops, the sweep kernel beside its plain version and bound, and the
+   then their consequent columns) == the plain version bitwise.  Logs each
+   launch's active row-steps per step beside the row-steps it sweeps.
+   Times the ops, the sweep kernel (both launches) beside its plain
+   version, its bound and its compare floor (one 32-bit integer
+   instruction per compare, 64 a clock per SM), and the
    reference bench's grid (``benchmarks/paper_figs.py``: E in {1,000,
    10,000, 100,000} x Q in {128, 2048}, width 6, plus the 2^20 x 4096 x 8
    point): the sweep kernel, the seed two-launch op, the fused kernel and
@@ -432,7 +435,10 @@ KERNEL_NAMES = {
                           "member_topk_kernel"),
     "rule_search_fused": ("rule_search_fused_kernel",),
     "rule_search_span": ("rule_search_span_kernel",),
-    "rule_search_sweep": ("rule_search_sweep_kernel",),
+    # the fingerprint pass, then per step the advance (and compaction)
+    # and the match launch, and a last advance
+    "rule_search_sweep": ("sweep_fingerprint_kernel", "sweep_advance_kernel",
+                          "sweep_match_kernel"),
     "trie_reduce_columns": ("partials", "fold"),
     # the pre-pass clears its scratch with a memset ("Memset (Device)")
     "support_count_bitmap": ("Memset", "support_mark_kernel",
@@ -662,8 +668,9 @@ def unstaged_case(dev, seed):
     import torch
     from repro_torch.arm.transactions import TransactionDB
     from repro_torch.kernels import ref
+    from repro_torch.kernels._build import sm_count
     from repro_torch.kernels.support_count import (
-        _sm_count, launch_shape, staging_limit, support_count_bitmap,
+        launch_shape, staging_limit, support_count_bitmap,
     )
 
     rng = np.random.RandomState(seed + 5)
@@ -680,7 +687,7 @@ def unstaged_case(dev, seed):
     extra = rng.rand(c) < 0.5
     mat[extra, 2] = hot[rng.randint(0, 40, size=int(extra.sum()))]
     lens = (mat >= 0).sum(axis=1).astype(np.int32)
-    shape = launch_shape(n_items, db.n_words, n_items, c, _sm_count(0))
+    shape = launch_shape(n_items, db.n_words, n_items, c, sm_count(0))
     if n_items <= staging_limit(n_items) or shape["staged"]:
         raise AssertionError("construct unstaged: the case stages its rows")
     args_t = (db.device_bitmaps(dev), torch.as_tensor(mat, device=dev),
@@ -712,9 +719,8 @@ def construction_phase(args, dev, l2_flush):
     from repro_torch.kernels import (
         KERNELS, launch_counts, ops, ref, reset_launch_counts,
     )
-    from repro_torch.kernels.support_count import (
-        _sm_count, support_count_bitmap,
-    )
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.support_count import support_count_bitmap
     from repro_torch.serve import TrieQueryEngine
 
     minsup, reps = MINSUP, args.reps
@@ -864,7 +870,7 @@ def construction_phase(args, dev, l2_flush):
     plain_reps = max(2, reps // 4)
     # the popcount floor: one 32-bit __popc per candidate word, at 16 a
     # clock per SM (compute capability 9.0) and the card's top SM clock
-    popc_per_s = 16 * _sm_count(0) * sm_clock_hz()
+    popc_per_s = 16 * sm_count(0) * sm_clock_hz()
     per_launch = []
     for tag, (mat_l, lens_l) in zip(tags, launches_in):
         args_t = (bm, *upload(mat_l, lens_l), n_tx)
@@ -1461,29 +1467,77 @@ def compressed_phase(args, dev, l2_flush, retail, retail_n_tx):
     return dq_rows
 
 
-def sweep_work(dt, e, queries, ant_len):
-    """(bytes, operations) one full-sweep launch needs on this data: the
-    (parent, item) table read once, the child and three metrics of each
-    matched edge, the rows, ant_len and the five outputs; one pair compare
-    per edge for each active row-step (a row still on the trie, at a
-    column that holds an item: the max over matches needs the whole
-    table), none for the others."""
+def sweep_row_steps(dt, queries):
+    """Active rows at each step of a full-sweep launch on this data: rows
+    still on the trie, at a column that holds an item (a blank column
+    neither ends a row nor advances it)."""
     import torch
     from repro_torch.core.array_trie import child_lookup
 
     q, width = queries.shape
     node = torch.zeros((q,), dtype=torch.int32, device=queries.device)
     ok = torch.ones((q,), dtype=torch.bool, device=queries.device)
-    steps = hits = 0
+    per_step, hits = [], 0
     for s in range(width):
         item = queries[:, s]
         active = (item >= 0) & ok
         child = child_lookup(dt, node, item)
-        steps += int(active.sum())
+        per_step.append(int(active.sum()))
         hits += int((active & (child >= 0)).sum())
         ok = torch.where(active, child >= 0, ok)
         node = torch.where(active & (child >= 0), child, node)
-    return 8 * e + 16 * hits + 4 * queries.numel() + 24 * q, steps * e
+    return per_step, hits
+
+
+def sweep_work(dt, e, queries, ant_len):
+    """(bytes, operations) one full-sweep launch needs on this data: the
+    (parent, item) table read once, the child and three metrics of each
+    matched edge, the rows, ant_len and the five outputs; one pair compare
+    per edge for each active row-step (``sweep_row_steps``: the max over
+    matches needs the whole table), none for the others."""
+    per_step, hits = sweep_row_steps(dt, queries)
+    return (8 * e + 16 * hits + 4 * queries.numel() + 24 * queries.shape[0],
+            sum(per_step) * e)
+
+
+def seed_rows(queries, ant_len, frozen, pairs):
+    """The seed phase's one search batch: the query path's search rows and
+    the canonical rows of its ragged pairs, ``(rows, ant_len)``."""
+    import numpy as np
+
+    pq, pal = frozen.canonicalize_queries([p[0] for p in pairs],
+                                          [p[1] for p in pairs])
+    width = max(queries.shape[1], pq.shape[1])
+    rows = np.full((queries.shape[0] + pq.shape[0], width), -1, np.int32)
+    rows[:queries.shape[0], :queries.shape[1]] = queries
+    rows[queries.shape[0]:, :pq.shape[1]] = pq
+    return rows, np.concatenate([ant_len, pal]).astype(np.int32)
+
+
+def sweep_launch_rows(rows, rows_al, dev):
+    """The rows of the two sweep launches one seed search of ``rows``
+    makes (``ops._seed_rule_search`` after the dedup): the unique rows
+    with their ant_len, then their consequent columns (the antecedent
+    blanked to -1) with ant_len 0; on ``dev``."""
+    import torch
+    from repro_torch.kernels import ops
+
+    uq, ual, _ = ops.dedup_query_rows(rows, rows_al)
+    uq_t = torch.as_tensor(uq, device=dev)
+    ual_t = torch.as_tensor(ual, device=dev)
+    pos = torch.arange(uq.shape[1], dtype=torch.int32, device=dev)
+    cons_t = torch.where(pos[None, :] >= ual_t[:, None], uq_t, -1)
+    return {"rows": (uq_t, ual_t), "consequent rows": (cons_t,
+                                                       torch.zeros_like(ual_t))}
+
+
+def compare_floor_ms(compares):
+    """Milliseconds for ``compares`` at one 32-bit integer instruction
+    each, 64 a clock per SM (compute capability 9.0), at the card's SM
+    count and top SM clock."""
+    from repro_torch.kernels._build import sm_count
+
+    return compares / (64 * sm_count(0) * sm_clock_hz()) * 1e3
 
 
 def search_grid(args, dev, l2_flush, point):
@@ -1570,7 +1624,6 @@ def seed_phase(args, dev, l2_flush, main_trie):
     ``kernels`` line."""
     import dataclasses
 
-    import numpy as np
     import torch
     from repro_torch.core import synthetic
     from repro_torch.kernels import launch_counts, ops, ref, \
@@ -1587,14 +1640,8 @@ def seed_phase(args, dev, l2_flush, main_trie):
             f"edges (the full sweep is O(Q L E)) on a trie of its own")
     queries, ant_len, pairs, prefixes, items = query_traffic(arrs,
                                                             args.seed)
-    # the search rows and the canonical rows of the ragged pairs, one batch
-    pq, pal = frozen.canonicalize_queries([p[0] for p in pairs],
-                                          [p[1] for p in pairs])
-    width = max(queries.shape[1], pq.shape[1])
-    rows = np.full((queries.shape[0] + pq.shape[0], width), -1, np.int32)
-    rows[:queries.shape[0], :queries.shape[1]] = queries
-    rows[queries.shape[0]:, :pq.shape[1]] = pq
-    rows_al = np.concatenate([ant_len, pal]).astype(np.int32)
+    rows, rows_al = seed_rows(queries, ant_len, frozen, pairs)
+    width = rows.shape[1]
     csr = frozen.device_arrays(device=dev)
     seed = dataclasses.replace(csr, child_offsets=None, max_fanout=0)
     e = int(seed.edge_parent.shape[0])
@@ -1643,25 +1690,32 @@ def seed_phase(args, dev, l2_flush, main_trie):
         f"({int(found.sum())} of {rows.shape[0]} rows found)")
 
     # -- 8c. both launches == the plain version, bitwise ----------------
-    uq, ual, _ = ops.dedup_query_rows(rows, rows_al)
-    uq_t = torch.as_tensor(uq, device=dev)
-    ual_t = torch.as_tensor(ual, device=dev)
-    pos = torch.arange(uq.shape[1], dtype=torch.int32, device=dev)
-    cons_t = torch.where(pos[None, :] >= ual_t[:, None], uq_t, -1)
-    zeros = torch.zeros_like(ual_t)
+    launch_rows = sweep_launch_rows(rows, rows_al, dev)
+    uq_t, ual_t = launch_rows["rows"]
+    cons_t, zeros = launch_rows["consequent rows"]
     sw = cols["seed"]["edges"]
     sw_cols = [sw[k] for k in ("edge_parent", "edge_item", "edge_child",
                                "edge_conf", "edge_sup", "edge_lift")]
     errs = []
-    for tag, (q_t, al_t) in (("rows", (uq_t, ual_t)),
-                             ("consequent rows", (cons_t, zeros))):
+    for tag, (q_t, al_t) in launch_rows.items():
         got = rule_search_sweep(*sw_cols, q_t, al_t)
         want_k = ref.rule_search_sweep_ref(*sw_cols, q_t, al_t)
         check_same(f"rule_search_sweep {tag}", [got[k] for k in want_k],
                    [want_k[k] for k in want_k], errs)
     torch.cuda.synchronize()
-    log(f"[seed] both sweep launches ({uq.shape[0]} x {uq.shape[1]} rows) "
-        f"== the plain version on the card, bitwise")
+    log(f"[seed] both sweep launches ({uq_t.shape[0]} x {uq_t.shape[1]} "
+        f"rows) == the plain version on the card, bitwise")
+    # the row-steps each launch must compare with the table, and the ones
+    # it sweeps: each step's active rows in whole tiles of SWEEP_ROWS
+    steps = {}
+    for tag, (q_t, _) in launch_rows.items():
+        per_step, _ = sweep_row_steps(csr, q_t)
+        swept = sum(-(-n // ref.SWEEP_ROWS) * ref.SWEEP_ROWS
+                    for n in per_step)
+        steps[tag] = per_step
+        log(f"[seed] {tag}: {sum(per_step)} active row-steps (per step "
+            f"{per_step}), {swept} swept in tiles of {ref.SWEEP_ROWS}, of "
+            f"{q_t.numel()} row-steps in the launch")
 
     # -- 8d. op ms, seed against CSR in the same run --------------------
     op_ms = {tag: time_layout_ops(dt, cols[tag], rows, rows_al, prefixes,
@@ -1682,21 +1736,33 @@ def seed_phase(args, dev, l2_flush, main_trie):
         launched["rule_search_sweep"], max(errs), reps, l2_flush.zero_,
         plain_reps=plain_reps)
     c_bytes, c_ops = sweep_work(csr, e, cons_t, zeros)
-    row["cons_ms"] = device_ms(
-        lambda: rule_search_sweep(*sw_cols, cons_t, zeros), reps,
-        l2_flush.zero_, kernel=KERNEL_NAMES["rule_search_sweep"])
+    cons_call = lambda: rule_search_sweep(*sw_cols, cons_t, zeros)  # noqa
+    row["cons_ms"] = device_ms(cons_call, reps, l2_flush.zero_,
+                               kernel=KERNEL_NAMES["rule_search_sweep"])
+    row["cons_whole_call_ms"] = device_ms(cons_call, reps, l2_flush.zero_)
+    row["cons_call_ms"] = cuda_ms(cons_call, reps)
     row["cons_bound_ms"] = max(c_bytes / HBM_BYTES_PER_S,
                                c_ops / FP32_OPS_PER_S) * 1e3
-    full_ops = uq.shape[0] * uq.shape[1] * e
+    row["compare_floor_ms"] = compare_floor_ms(sum(steps["rows"]) * e)
+    row["cons_compare_floor_ms"] = compare_floor_ms(
+        sum(steps["consequent rows"]) * e)
+    row["active_row_steps"] = sum(steps["rows"])
+    row["cons_active_row_steps"] = sum(steps["consequent rows"])
+    full_ops = uq_t.shape[0] * uq_t.shape[1] * e
     row["qle_bound_ms"] = full_ops / FP32_OPS_PER_S * 1e3
     row["plain_reps"] = plain_reps
     row["library_note"] = (
         "none: no single PyTorch call does a multi-step descent, and "
         "torch.searchsorted on a fused (parent, item) key gives one lookup "
         "step, not the sweep's max over matches")
-    log(f"[kernel] rule_search_sweep consequent launch: {row['cons_ms']} ms "
-        f"device, bound {row['cons_bound_ms']:.5f} ms; the full Q x L x E "
-        f"grid ({full_ops} compares) would bound a launch at "
+    log(f"[kernel] rule_search_sweep: compare floor "
+        f"{row['compare_floor_ms']:.4f} ms (one 32-bit integer instruction "
+        f"per compare, 64 a clock per SM); consequent launch: "
+        f"{row['cons_ms']} ms device, whole call "
+        f"{row['cons_whole_call_ms']} ms, {row['cons_call_ms']:.4f} ms per "
+        f"call; bound {row['cons_bound_ms']:.5f} ms, compare floor "
+        f"{row['cons_compare_floor_ms']:.4f} ms; the full Q x L x E grid "
+        f"({full_ops} compares) would bound a launch at "
         f"{row['qle_bound_ms']:.4f} ms")
 
     # -- 8f. the reference bench's grid ---------------------------------

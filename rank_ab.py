@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time the selection and support-count kernels of two or more checkouts
-of the port on one NVIDIA GPU, in turns, at ``chip_smoke.py``'s main-path
-shapes: the port's A/B timer.
+"""Time the selection, support-count and full-sweep kernels of two or
+more checkouts of the port on one NVIDIA GPU, in turns, at
+``chip_smoke.py``'s main-path shapes: the port's A/B timer.
 
     python3 rank_ab.py TREE [TREE ...] [--edges N] [--reps R]
-                       [--lanes rank,member,chain,support]
+                       [--lanes rank,member,chain,support,sweep]
 
 Each TREE is the root of a checkout (a directory holding
 ``src/repro_torch``); list them in the order to run, e.g. ``parent
@@ -26,10 +26,15 @@ its own process, which builds that tree's kernels into the tree's own
   (``online_retail_db()`` at ``chip_smoke.MINSUP``: apriori's counting
   levels on the kernel path, then the annotation;
   ``chip_smoke.support_launches``), by kernel name, and in total; beside
-  each, CUDA events around one call (``_call_ms``), host work included.
+  each, CUDA events around one call (``_call_ms``), host work included;
+- ``rule_search_sweep``, both launches of one seed-layout search
+  (``chip_smoke.seed_phase``: the 2^20 trie served without CSR offsets,
+  its rows from ``chip_smoke.seed_rows`` and ``sweep_launch_rows``), by
+  kernel name, and in total, with CUDA events around one call beside each.
 
 ``--lanes`` picks a subset: ``rank`` and ``member`` on the 2^20 trie,
-``chain`` on the chain trie, ``support``.  Every tree's answers are
+``chain`` on the chain trie, ``support``, ``sweep`` (always on a 2^20
+trie).  Every tree's answers are
 checked against its plain versions.  Prints one JSON line per run and,
 last, the card's name and power limit.
 """
@@ -50,7 +55,11 @@ MEMBER_KERNELS = ("score_kernel", "member_count", "member_ranges",
 # kernel) and the tile pass
 SUPPORT_KERNELS = ("support_count_kernel", "Memset", "support_mark_kernel",
                    "support_tile_kernel")
-LANES = ("rank", "member", "chain", "support")
+# every full-sweep kernel name either version launches: one kernel a
+# launch, or the fingerprint pass and per step the advance and the match
+SWEEP_KERNELS = ("rule_search_sweep_kernel", "sweep_fingerprint_kernel",
+                 "sweep_advance_kernel", "sweep_match_kernel")
+LANES = ("rank", "member", "chain", "support", "sweep")
 
 
 def one(tree, edges, reps, lanes):
@@ -85,6 +94,8 @@ def one(tree, edges, reps, lanes):
         query_lanes(cs, dev, timed, edges, lanes)
     if "chain" in lanes:
         chain_lane(cs, dev, timed)
+    if "sweep" in lanes:
+        sweep_lane(cs, dev, timed, out, reps)
     print(json.dumps(out), flush=True)
 
 
@@ -111,6 +122,37 @@ def support_lane(cs, dev, timed, out, reps):
         total += out[name]
         call_total += out[name + "_call_ms"]
     out["support_total"], out["support_total_call_ms"] = total, call_total
+
+
+def sweep_lane(cs, dev, timed, out, reps):
+    import dataclasses
+
+    from repro_torch.core import synthetic
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rule_search import rule_search_sweep
+
+    arrs = synthetic.synthetic_csr_trie(cs.SEED_EDGES, seed=0)
+    frozen = synthetic.frozen_from_arrays(arrs)
+    queries, ant_len, pairs, _, _ = cs.query_traffic(arrs, 0)
+    rows, rows_al = cs.seed_rows(queries, ant_len, frozen, pairs)
+    seed = dataclasses.replace(frozen.device_arrays(device=dev),
+                               child_offsets=None, max_fanout=0)
+    sw = ops.edge_metric_arrays(seed)
+    cols = [sw[k] for k in ("edge_parent", "edge_item", "edge_child",
+                            "edge_conf", "edge_sup", "edge_lift")]
+    total = call_total = 0.0
+    for tag, (q_t, al_t) in cs.sweep_launch_rows(rows, rows_al, dev).items():
+        name = "sweep_" + tag.replace(" ", "_")
+        timed(name,
+              lambda: tuple(rule_search_sweep(*cols, q_t, al_t).values()),
+              lambda: tuple(ref.rule_search_sweep_ref(
+                  *cols, q_t, al_t).values()),
+              SWEEP_KERNELS, split=True)
+        out[name + "_call_ms"] = cs.cuda_ms(
+            lambda: rule_search_sweep(*cols, q_t, al_t), reps)
+        total += out[name]
+        call_total += out[name + "_call_ms"]
+    out["sweep_total"], out["sweep_total_call_ms"] = total, call_total
 
 
 def query_lanes(cs, dev, timed, edges, lanes):

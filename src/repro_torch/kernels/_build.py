@@ -9,6 +9,7 @@ rebuilds and an unchanged one loads.  Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -62,7 +63,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             _P, _P, _P, _P, _P, _P, _P,
         ),
         "rule_search_sweep_launch": (
-            _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
+            _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P,
             _P, _P, _P, _P, _P, _P,
         ),
     },
@@ -183,6 +184,16 @@ def check_inputs(what: str, device, **tensors) -> None:
             )
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} is not contiguous")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """SMs of a CUDA device (a ``torch.device`` or an index; the current
+    device when the index is unset): the launch shapes size their grids by
+    it."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_handle(device) -> int:

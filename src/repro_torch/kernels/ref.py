@@ -557,8 +557,9 @@ def rule_search_sweep_ref(
 ) -> Dict[str, torch.Tensor]:
     """The seed full-sweep search: each step matches every query row's
     ``(node, item)`` against the whole edge table, takes the max child and
-    the max of each edge metric over the matches (0 and -1 when none),
-    and advances the rows that hit.  Node metrics only: found, node,
+    the max of each edge metric over the matches (0 and -1 when none;
+    the canonical quiet NaN when a matched value is NaN), and advances the
+    rows that hit.  Node metrics only: found, node,
     confidence (the product over the steps at or past ``ant_len``),
     support and node_lift, each ``[Q]``.  The ``[rows, E]`` match blocks
     are made a bounded chunk of rows at a time; the arithmetic is the
@@ -594,15 +595,21 @@ def _sweep_rows(ep, ei, ec, ecf, esp, elf, queries, ant_len):
         picked = torch.where(match, col[None, :], fill)
         return torch.maximum(init, picked.amax(dim=1))
 
+    def best_metric(match, col):
+        # the NaN-propagating max over {0.0} and the matches, as the bits
+        # metric_key_ref gives it: no device's choice among NaNs or zeros
+        # reaches the answer
+        return metric_key_ref(best(match, col, 0.0, zf)).view(torch.float32)
+
     for s in range(width):
         item = queries[:, s]
         active = (item >= 0) & ok
         qp = torch.where(active, node, -9)
         match = (ep[None, :] == qp[:, None]) & (ei[None, :] == item[:, None])
         child = best(match, ec, -1, neg1)
-        e_conf = best(match, ecf, 0.0, zf)
-        e_sup = best(match, esp, 0.0, zf)
-        e_lift = best(match, elf, 0.0, zf)
+        e_conf = best_metric(match, ecf)
+        e_sup = best_metric(match, esp)
+        e_lift = best_metric(match, elf)
         adv = active & (child >= 0)
         ok = torch.where(active, child >= 0, ok)
         node = torch.where(adv, child, node)
@@ -610,6 +617,161 @@ def _sweep_rows(ep, ei, ec, ecf, esp, elf, queries, ant_len):
         sup = torch.where(adv, e_sup, sup)
         nlift = torch.where(adv, e_lift, nlift)
 
+    found = ok & (node > 0)
+    return {
+        "found": found,
+        "node": torch.where(found, node, -1).to(torch.int32),
+        "confidence": torch.where(found, conf, 0.0),
+        "support": torch.where(found, sup, 0.0),
+        "node_lift": torch.where(found, nlift, 0.0),
+    }
+
+
+# ----------------------------------------------------------------------
+# the full sweep as csrc/rule_search.cu computes it
+# ----------------------------------------------------------------------
+SWEEP_ROWS = 32       # rows a warp holds: a tile (SW_R)
+SWEEP_CHUNK = 128     # edges a warp reads at once, 4 a lane (SW_CHUNK)
+CANON_NAN_BITS = 0x7FC00000
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(h, c: int):
+    """``h * c`` mod 2^32 for int64 ``h`` in [0, 2^32), with no int64
+    overflow."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def sweep_fingerprint_ref(parent, item):
+    """``rule_search.cu::sweep_fp``: the 32-bit fingerprint of each
+    ``(parent, item)`` pair (int64 values in [0, 2^32)).  Equal pairs have
+    equal fingerprints; the kernel checks the exact pair on a match, so
+    two pairs that share one (``parent * 0x9E3779B1 + item`` equal mod
+    2^32) never change an answer."""
+    h = (_mul32(parent.long() & _U32, 0x9E3779B1) + (item.long() & _U32)) \
+        & _U32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def metric_key_ref(values):
+    """``rule_search.cu::metric_key``: int32 keys that order as the f32
+    values do over {0.0} and the values, one key per answer: the bits of a
+    value above 0, ``CANON_NAN_BITS`` for any NaN, else 0 (+0.0).  The
+    max of keys is the NaN-propagating max, and its bits, in any order."""
+    keys = torch.where(values > 0, values.view(torch.int32), 0)
+    return torch.where(torch.isnan(values), CANON_NAN_BITS, keys) \
+        .to(torch.int32)
+
+
+def sweep_active_rows_ref(items, ok):
+    """The rows active at a step, ascending: still on the trie (``ok``)
+    with an item (``>= 0``) in the step's column.  The kernel's list holds
+    the same rows in another order, which no answer depends on."""
+    return torch.nonzero(ok & (items >= 0)).flatten()
+
+
+def sweep_plan_ref(n_active: int, n_chunks: int, warps: int) -> dict:
+    """A match launch's split of its step: ``n_tiles`` tiles of
+    ``SWEEP_ROWS`` active rows, each against ``n_chunks`` chunks, the
+    ``total`` (tile, chunk) units in tile-major order, and ``per`` units a
+    warp, every warp of the grid the same share."""
+    n_tiles = -(-int(n_active) // SWEEP_ROWS)
+    total = n_tiles * int(n_chunks)
+    return {"n_tiles": n_tiles, "total": total,
+            "per": -(-total // int(warps))}
+
+
+def sweep_segments_ref(n_active: int, n_chunks: int, warps: int) -> list:
+    """Per warp of the match grid, its ``(tile, c0, c1)`` segments: a
+    tile's rows against chunks ``[c0, c1)``; one or two, or more when a
+    warp's share passes whole tiles."""
+    plan = sweep_plan_ref(n_active, n_chunks, warps)
+    out = []
+    for g in range(int(warps)):
+        u = g * plan["per"]
+        u_end = min(plan["total"], u + plan["per"])
+        segs = []
+        while u < u_end:
+            t = u // n_chunks
+            c0 = u - t * n_chunks
+            c1 = min(n_chunks, c0 + u_end - u)
+            segs.append((t, c0, c1))
+            u += c1 - c0
+        out.append(segs)
+    return out
+
+
+def rule_search_sweep_split_ref(
+    edge_parent, edge_item, edge_child, edge_conf, edge_sup, edge_lift,
+    queries, ant_len, *, warps: int,
+) -> Dict[str, torch.Tensor]:
+    """``rule_search_sweep`` as ``csrc/rule_search.cu`` computes it on a
+    grid of ``warps`` warps, in plain PyTorch: the edge fingerprints, per
+    step the active rows (``sweep_active_rows_ref``), each warp's
+    segments (``sweep_segments_ref``), the fingerprint compares of a
+    segment, the exact pair at each fingerprint hit (padding slots past E
+    rejected), the true matches merged into the rows' slots by max (the
+    child, and the metrics as ``metric_key_ref`` keys), and the rows
+    advanced from their slots.  It equals ``rule_search_sweep_ref``; the
+    main path does not call it."""
+    queries = queries.to(torch.int32)
+    ant_len = ant_len.to(torch.int32)
+    q, width = queries.shape
+    dev = queries.device
+    e = edge_parent.shape[0]
+    if e == 0 or width == 0:
+        return sweep_not_found(q, dev)
+    n_chunks = -(-e // SWEEP_CHUNK)
+    fp = torch.zeros((n_chunks * SWEEP_CHUNK,), dtype=torch.int64,
+                     device=dev)
+    fp[:e] = sweep_fingerprint_ref(edge_parent, edge_item)
+    keys = [metric_key_ref(c) for c in (edge_conf, edge_sup, edge_lift)]
+    node = torch.zeros((q,), dtype=torch.int32, device=dev)
+    ok = torch.ones((q,), dtype=torch.bool, device=dev)
+    conf = torch.ones((q,), dtype=torch.float32, device=dev)
+    sup = torch.zeros((q,), dtype=torch.float32, device=dev)
+    nlift = torch.zeros((q,), dtype=torch.float32, device=dev)
+    for s in range(width):
+        item = queries[:, s]
+        rows = sweep_active_rows_ref(item, ok)
+        a_node, a_item = node[rows], item[rows]
+        a_fp = sweep_fingerprint_ref(a_node, a_item)
+        child = torch.full((q,), -1, dtype=torch.int32, device=dev)
+        slots = [torch.zeros((q,), dtype=torch.int32, device=dev)
+                 for _ in keys]
+        for segs in sweep_segments_ref(rows.numel(), n_chunks, warps):
+            for t, c0, c1 in segs:
+                tile = torch.arange(t * SWEEP_ROWS,
+                                    min((t + 1) * SWEEP_ROWS, rows.numel()),
+                                    device=dev)
+                x = torch.arange(c0 * SWEEP_CHUNK, c1 * SWEEP_CHUNK,
+                                 device=dev)
+                ti, xi = torch.nonzero(
+                    a_fp[tile][:, None] == fp[x][None, :], as_tuple=True)
+                a, xs = tile[ti], x[xi]
+                real = xs < e
+                a, xs = a[real], xs[real]
+                exact = (edge_parent[xs] == a_node[a]) \
+                    & (edge_item[xs] == a_item[a])
+                a, xs = rows[a[exact]], xs[exact]
+                child.scatter_reduce_(0, a, edge_child[xs], "amax")
+                for slot, key in zip(slots, keys):
+                    slot.scatter_reduce_(0, a, key[xs], "amax")
+        active = torch.zeros((q,), dtype=torch.bool, device=dev)
+        active[rows] = True
+        hit = active & (child >= 0)
+        ok = torch.where(active, child >= 0, ok)
+        node = torch.where(hit, child, node)
+        kc, ks, kl = (slot.view(torch.float32) for slot in slots)
+        conf = torch.where(hit & (s >= ant_len), conf * kc, conf)
+        sup = torch.where(hit, ks, sup)
+        nlift = torch.where(hit, kl, nlift)
     found = ok & (node > 0)
     return {
         "found": found,

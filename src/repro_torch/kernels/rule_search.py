@@ -29,9 +29,14 @@ without CSR offsets): at every step each row is compared with the whole
 ``(edge_parent, edge_item)`` table, and the max child and the max of each
 edge metric over the matches advance it.  It returns node metrics only;
 ``ops.rule_search`` makes a second, consequent-only call for compound
-lift.  It launches the third kernel of ``csrc/rule_search.cu`` (replacing
-``repro.kernels.rule_search.rule_search_pallas``), or runs
-``ref.rule_search_sweep_ref`` on CPU tensors.
+lift.  It launches the sweep kernels of ``csrc/rule_search.cu``
+(replacing ``repro.kernels.rule_search.rule_search_pallas``), or runs
+``ref.rule_search_sweep_ref`` on CPU tensors.  Each step sweeps only the
+rows active in it, compacted on the device, with the (row tile, edge
+chunk) units split evenly over a fixed grid of warps
+(``sweep_launch_shape``), 32-bit fingerprints compared first and the
+exact pair on a fingerprint hit; ``ref.rule_search_sweep_split_ref`` runs
+that design in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -42,9 +47,14 @@ import torch
 from . import _build
 from .rank import metric_column_args
 from .ref import (
-    not_found, rule_search_fused_ref, rule_search_span_ref,
-    rule_search_sweep_ref, sweep_not_found,
+    SWEEP_CHUNK, SWEEP_ROWS, not_found, rule_search_fused_ref,
+    rule_search_span_ref, rule_search_sweep_ref, sweep_not_found,
 )
+
+# mirrors of csrc/rule_search.cu's sweep constants (SW_THREADS,
+# SW_BLOCKS_PER_SM; SW_R and SW_CHUNK are ref.SWEEP_ROWS and SWEEP_CHUNK)
+SWEEP_WARPS_PER_BLOCK = 8
+SWEEP_BLOCKS_PER_SM = 4
 
 
 def rule_search_fused(
@@ -176,6 +186,24 @@ def rule_search_span(
 rule_search_span.launches = 0
 
 
+def sweep_launch_shape(q: int, width: int, e: int, sms: int) -> dict:
+    """Sizes of one sweep call from its shape alone (no device read):
+    ``n_chunks`` chunks of ``SWEEP_CHUNK`` edges (the fingerprint table
+    padded to whole chunks), the int32 ``words`` of scratch
+    (``rule_search.cu::sweep_scratch``: the table, a count per step
+    rounded up to 4, and 9 words a row) and the match grid:
+    ``SWEEP_BLOCKS_PER_SM`` blocks an SM, fewer when even Q active rows
+    give fewer (tile, chunk) units than warps; ``warps`` is the grid's
+    warp count, over which every step's units split evenly."""
+    n_chunks = -(-int(e) // SWEEP_CHUNK)
+    words = n_chunks * SWEEP_CHUNK + -(-int(width) // 4) * 4 + 9 * int(q)
+    units = -(-int(q) // SWEEP_ROWS) * n_chunks
+    blocks = max(1, min(SWEEP_BLOCKS_PER_SM * int(sms),
+                        -(-units // SWEEP_WARPS_PER_BLOCK)))
+    return {"n_chunks": n_chunks, "words": words, "match_blocks": blocks,
+            "warps": blocks * SWEEP_WARPS_PER_BLOCK}
+
+
 def rule_search_sweep(
     edge_parent, edge_item, edge_child, edge_conf, edge_sup, edge_lift,
     queries, ant_len,
@@ -214,16 +242,22 @@ def rule_search_sweep(
         if col.shape[0] != e:
             raise ValueError(f"rule_search_sweep: {name} must have E "
                              f"entries")
+    shape = sweep_launch_shape(q, width, e, _build.sm_count(dev))
+    if shape["n_chunks"] * SWEEP_CHUNK >= 1 << 31:
+        raise ValueError(f"rule_search_sweep: {e} edges, at most 2^31 - "
+                         f"{SWEEP_CHUNK + 1}")
     node = torch.empty((q,), dtype=i32, device=dev)
     found = torch.empty((q,), dtype=i32, device=dev)
     conf, sup, lift = (torch.empty((q,), dtype=f32, device=dev)
                        for _ in range(3))
+    scratch = torch.empty((shape["words"],), dtype=i32, device=dev)
     err = _build.lib("rule_search").rule_search_sweep_launch(
         edge_parent.data_ptr(), edge_item.data_ptr(), edge_child.data_ptr(),
         edge_conf.data_ptr(), edge_sup.data_ptr(), edge_lift.data_ptr(), e,
-        queries.data_ptr(), ant_len.data_ptr(), q, width, node.data_ptr(),
-        found.data_ptr(), conf.data_ptr(), sup.data_ptr(), lift.data_ptr(),
-        _build.stream_handle(dev),
+        queries.data_ptr(), ant_len.data_ptr(), q, width,
+        shape["n_chunks"], shape["match_blocks"], scratch.data_ptr(),
+        node.data_ptr(), found.data_ptr(), conf.data_ptr(), sup.data_ptr(),
+        lift.data_ptr(), _build.stream_handle(dev),
     )
     _build.check(err, "rule_search_sweep")
     rule_search_sweep.launches += 1

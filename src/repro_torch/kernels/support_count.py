@@ -21,8 +21,6 @@ plan.  On a CPU tensor it runs the plain version
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import _build
@@ -97,11 +95,6 @@ def launch_shape(n_distinct: int, n_words: int, n_items: int, c: int,
             "slices": slices, "per_slice": -(-int(c) // slices)}
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _distinct_items(candidates, n_items: int):
     """The pre-pass on the card: ``(largest id, D, bits, counts)``, the
     first two read back in one copy (-1 for the largest id of a matrix of
@@ -169,8 +162,7 @@ def support_count_bitmap(bitmaps, candidates, lengths, n_transactions: int):
         return torch.empty((0,), dtype=torch.int32, device=dev)
     top, d, bits, counts = _distinct_items(candidates, n_items)
     _check_range(top, n_items)
-    index = torch.cuda.current_device() if dev.index is None else dev.index
-    shape = launch_shape(d, n_words, n_items, c, _sm_count(index))
+    shape = launch_shape(d, n_words, n_items, c, _build.sm_count(dev))
     err = _build.lib("support_count").support_count_launch(
         bitmaps.data_ptr(), n_words, candidates.data_ptr(), c, k,
         lengths.data_ptr(), int(n_transactions), n_items, bits.data_ptr(),

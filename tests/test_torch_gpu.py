@@ -15,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import synthetic as TS  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ops as TO  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.item_index import rules_with_member  # noqa: E402
@@ -359,7 +360,7 @@ def _check_support(cuda, db, mat, lens, staged=None):
         top, d, _, _ = ref.support_slots_ref(torch.from_numpy(mat),
                                              db.n_items)
         shape = sc.launch_shape(d, db.n_words, db.n_items, len(mat),
-                                sc._sm_count(torch.cuda.current_device()))
+                                _build.sm_count(torch.cuda.current_device()))
         assert shape["staged"] is staged
     before = sc.support_count_bitmap.launches
     got = sc.support_count_bitmap(bm, cand, ln, db.n_transactions)
@@ -600,6 +601,90 @@ def test_sweep_kernel(small, cuda, n_rows):
         _bitwise([got[k] for k in want], [want[k] for k in want])
         cpu = ref.rule_search_sweep_ref(*[a.cpu() for a in args])
         _bitwise([got[k].cpu() for k in cpu], [cpu[k] for k in cpu])
+
+
+K_FP = 0x9E3779B1   # rule_search.cu::sweep_fp's multiplier
+
+
+def _sweep_case(arrs, case, rng):
+    """``(edge columns, queries, ant_len)`` of an edge case of the sweep
+    kernel on the small trie."""
+    cols = {n: arrs[n].copy() for n in SWEEP_COLS}
+    q, al = TS.mixed_queries(rng, arrs, 600, 7)
+    if case == "nan":
+        # NaN of either sign, -0.0 and negative metrics, and repeated
+        # pairs that mix them in one match set
+        cols = _with_duplicate_pairs(arrs, rng, 700)
+        nan = np.float32(np.nan)
+        for name in ("edge_conf", "edge_sup", "edge_lift"):
+            c = cols[name]
+            pick = rng.randint(0, 5, size=c.shape[0])
+            c[pick == 0] = nan
+            c[pick == 1] = -nan
+            c[pick == 2] = np.float32(-0.0)
+            c[pick == 3] = -c[pick == 3]
+    elif case == "consequent":
+        # the antecedent blanked (ant_len 0), and a -1 gap in every third
+        # row
+        pos = np.arange(q.shape[1])[None, :]
+        q = np.where(pos >= al[:, None], q, -1).astype(np.int32)
+        q[::3, 1:] = np.concatenate(
+            [np.full((q[::3].shape[0], 1), -1, np.int32), q[::3, 1:-1]], 1)
+        al = np.zeros_like(al)
+    elif case == "junk":
+        q = np.where(q >= 0, q + 10_000, -1).astype(np.int32)
+    elif case == "many_splits":
+        # three rows: one tile, the table split over dozens of warps
+        q, al = q[:3], al[:3]
+    elif case == "one_split":
+        # a table under one chunk: each tile in one warp
+        cols = {n: c[:100] for n, c in cols.items()}
+    elif case == "collision":
+        # every 5th edge (p, i) gets a twin (p + 1, i - K_FP mod 2^32)
+        # with its fingerprint: rows at p with item i hit both
+        # fingerprints and must match only the real pair
+        pick = np.arange(0, cols["edge_parent"].shape[0], 5)
+        twin = {n: c[pick].copy() for n, c in cols.items()}
+        twin["edge_parent"] = twin["edge_parent"] + 1
+        twin["edge_item"] = ((twin["edge_item"].astype(np.int64) - K_FP)
+                             % 2**32).astype(np.uint32).view(np.int32)
+        cols = {n: np.concatenate([cols[n], twin[n]]) for n in SWEEP_COLS}
+    return cols, q, al
+
+
+@pytest.mark.parametrize("case", ["nan", "consequent", "junk",
+                                  "many_splits", "one_split", "collision"])
+def test_sweep_kernel_cases(small, cuda, case):
+    """The sweep kernel's edge cases, bitwise against the plain version
+    on the card (and on the CPU, but for the bits of a NaN confidence:
+    the card's f32 product gives its own canonical NaN there)."""
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.rule_search import (
+        rule_search_sweep, sweep_launch_shape,
+    )
+
+    arrs, _ = small
+    cols, q, al = _sweep_case(arrs, case, np.random.RandomState(7))
+    args = [torch.from_numpy(cols[n]).to(cuda) for n in SWEEP_COLS]
+    args += [torch.from_numpy(q).to(cuda), torch.from_numpy(al).to(cuda)]
+    shape = sweep_launch_shape(q.shape[0], q.shape[1], args[0].shape[0],
+                               sm_count(torch.cuda.current_device()))
+    active0 = int((args[-2][:, 0] >= 0).sum())
+    plan = ref.sweep_plan_ref(active0, shape["n_chunks"], shape["warps"])
+    if case == "many_splits":
+        assert 0 < plan["per"] < shape["n_chunks"] // 8
+    if case == "one_split":
+        assert shape["n_chunks"] == 1
+    before = rule_search_sweep.launches
+    got = rule_search_sweep(*args)
+    assert rule_search_sweep.launches == before + 1
+    want = ref.rule_search_sweep_ref(*args)
+    _bitwise([got[k] for k in want], [want[k] for k in want])
+    cpu = ref.rule_search_sweep_ref(*[a.cpu() for a in args])
+    keys = [k for k in cpu if case != "nan" or k != "confidence"]
+    _bitwise([got[k].cpu() for k in keys], [cpu[k] for k in keys])
+    if case not in ("junk",):
+        assert bool(got["found"].any())
 
 
 def test_sweep_kernel_guards(small, cuda):
