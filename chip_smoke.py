@@ -6,7 +6,8 @@ GPU.
     python3 chip_smoke.py [--edges N] [--seed S] [--reps R]
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, in
-   parallel) and the Triton reduction.
+   parallel, beside the latency probe ``probes/pointer_chase.cu``) and the
+   Triton reduction.
 2. Builds ``synthetic_csr_trie(--edges)`` (default 2^20 rules) on the host
    and uploads it.
 3. Holds every kernel against its plain PyTorch version on the card at
@@ -24,7 +25,12 @@ GPU.
    mean of --reps calls, and CUDA events around one call); the
    membership kernel once per role, each with its own bound (the score
    bytes at its members, ``ref.member_ranges_ref``, and the postings it
-   reads).
+   reads).  The two descent searches (fused here, span in step 6) also
+   get a latency floor: their longest chain of dependent load rounds on
+   this data (the plain mirrors ``ref.rule_search_*_group_ref`` count it
+   on the CPU) times one dependent load's latency, which a one-thread
+   pointer chase measures on the card, cold (device memory) and warm
+   (L2).
 5. Construction: makes ``online_retail_db()`` on the host, checks that
    apriori on the card finds the itemsets host apriori and fpgrowth find,
    holds the support-count kernel against its plain version on the card
@@ -52,7 +58,11 @@ GPU.
    consequent row), and that the span search and the quantized rank,
    membership and reduce variants launched.  Then the retail trie of step
    5: ``auto`` keeps it plain, and served compressed with int32 + bf16
-   columns at its real ``n_transactions`` it finds all its rules.  Prints
+   columns at its real ``n_transactions`` it finds all its rules.  Both
+   descent kernels == their plain versions on the plain chain trie, the
+   retail trie (plain, and compressed f32 and int32 + bf16) and a 2^20
+   hub trie with a 5,000-wide root (plain and compressed), with the
+   edge-case rows of ``synthetic.edge_case_queries``.  Prints
    resident bytes, op ms compressed against plain, and the span and
    quantized kernels' times (the membership kernel per role, beside its
    f32 twin).
@@ -1110,10 +1120,11 @@ def within(what, got, want, bound, mask, rtol):
     return int((err > rtol * w.abs()).sum())
 
 
-def compressed_phase(args, dev, l2_flush, retail, retail_n_tx):
+def compressed_phase(args, dev, l2_flush, retail, retail_n_tx, lat):
     """The path-compressed, quantized layout at 2^20 rules and on the
     retail trie: drive, check and time it; returns the span kernel's and
-    the quantized variants' rows of the ``kernels`` line."""
+    the quantized variants' rows of the ``kernels`` line, the span row
+    with its latency floor at the load latencies ``lat``."""
     import numpy as np
     import torch
     from repro_torch.core import synthetic
@@ -1202,6 +1213,15 @@ def compressed_phase(args, dev, l2_flush, retail, retail_n_tx):
     # -- 7c. every kernel call == its plain version, on every trie ------
     m_rows = member_kernel_rows(cols["compressed"]["ia"], items, dev)
     errs = {}
+    pe = cols["plain"]["edges"]
+    fused = [pe[k] for k in ("child_offsets", "edge_item", "edge_child",
+                             "edge_conf", "edge_sup", "edge_lift")]
+    want = ref.rule_search_fused_ref(*fused, q_t, al_t,
+                                     max_fanout=pe["max_fanout"])
+    check_same("rule_search_fused plain chain trie",
+               [rule_search_fused(*fused, q_t, al_t,
+                                  max_fanout=pe["max_fanout"])[k]
+                for k in want], list(want.values()), [])
     for tag in QUANT:
         dt, cl = tries[tag], cols[tag]
         dq = ops._dequant_statics(dt)
@@ -1446,13 +1466,9 @@ def compressed_phase(args, dev, l2_flush, retail, retail_n_tx):
                     f"{f32_ms[name]} ms device")
             else:
                 # the plain layout's fused search on the same rows
-                pe = cols["plain"]["edges"]
-                fused = (pe["child_offsets"], pe["edge_item"],
-                         pe["edge_child"], pe["edge_conf"], pe["edge_sup"],
-                         pe["edge_lift"], q_t, al_t)
                 row["plain_layout_fused_ms"] = device_ms(
                     lambda: rule_search_fused(
-                        *fused, max_fanout=pe["max_fanout"]),
+                        *fused, q_t, al_t, max_fanout=pe["max_fanout"]),
                     reps, l2_flush.zero_,
                     kernel=KERNEL_NAMES["rule_search_fused"])
                 log(f"[kernel] rule_search_fused on the plain chain trie, "
@@ -1462,6 +1478,10 @@ def compressed_phase(args, dev, l2_flush, retail, retail_n_tx):
     span_row["quantized_ms"] = {k.split(" ", 1)[1]: v
                                 for k, v in f32_ms.items()
                                 if k.startswith("rule_search_span")}
+    sa, skw = span_args(comp)
+    latency_floor(span_row, chain_rounds(
+        ref.rule_search_span_group_ref, [*sa, q_t, al_t],
+        **{k: v for k, v in skw.items() if k != "max_fanout"}), lat)
     log(f"[kernel] rule_search_span on the quantized tries (device ms): "
         f"{span_row['quantized_ms']}")
     return dq_rows
@@ -1538,6 +1558,180 @@ def compare_floor_ms(compares):
     from repro_torch.kernels._build import sm_count
 
     return compares / (64 * sm_count(0) * sm_clock_hz()) * 1e3
+
+
+PROBE_SRC = os.path.join(HERE, "probes", "pointer_chase.cu")
+CHASE_STEPS = 20_000         # dependent loads one latency reading chases
+CHASE_LINE = 32              # int32 words of a 128-byte line
+
+
+def start_probe_build():
+    """Start nvcc on the latency probe (``probes/pointer_chase.cu``, built
+    by this script alone) into ``build/probes/<hash>/``, beside the
+    kernels' own build; ``load_probe`` waits for it."""
+    import hashlib
+
+    from repro_torch.kernels import _build
+
+    with open(PROBE_SRC, "rb") as f:
+        key = f.read() + " ".join(_build.NVCC_FLAGS).encode()
+    out_dir = os.path.join(HERE, "build", "probes",
+                           hashlib.sha256(key).hexdigest()[:16])
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, "libpointer_chase.so")
+    if os.path.exists(so):
+        return None, so
+    tmp = f"{so}.{os.getpid()}.tmp"
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", tmp, PROBE_SRC],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return (proc, tmp), so
+
+
+def load_probe(build):
+    import ctypes
+
+    pending, so = build
+    if pending is not None:
+        proc, tmp = pending
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {PROBE_SRC}:\n{out}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    lib.pointer_chase_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]
+    lib.pointer_chase_launch.restype = ctypes.c_int
+    return lib
+
+
+def load_latency_ns(lib, dev, flush, seed):
+    """Nanoseconds of one dependent device load: ``cold_ns`` over a
+    random cycle of the 128-byte lines of a 64 MB array with the L2
+    flushed first (each load reads device memory), ``warm_ns`` over a
+    4 MB cycle walked once just before (each load reads the L2); CUDA
+    events around a ``CHASE_STEPS``-load chase of one thread, over its
+    length, median of 5."""
+    import torch
+    from repro_torch.kernels import _build
+
+    gen = torch.Generator().manual_seed(seed)
+    end = torch.empty((1,), dtype=torch.int32, device=dev)
+    stream = _build.stream_handle(dev)
+    out = {}
+    for tag, n_bytes in (("cold", 64 << 20), ("warm", 4 << 20)):
+        lines = n_bytes // (4 * CHASE_LINE)
+        perm = torch.randperm(lines, generator=gen)
+        nxt = torch.zeros((lines * CHASE_LINE,), dtype=torch.int32)
+        nxt[perm * CHASE_LINE] = (perm.roll(-1) * CHASE_LINE).to(torch.int32)
+        nxt = nxt.to(dev)
+        start = int(perm[0]) * CHASE_LINE
+
+        def chase(n):
+            _build.check(lib.pointer_chase_launch(
+                nxt.data_ptr(), start, n, end.data_ptr(), stream),
+                "pointer_chase")
+
+        times = []
+        for _ in range(5):
+            if tag == "cold":
+                flush()
+            else:
+                chase(lines)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            chase(CHASE_STEPS)
+            t1.record()
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1) * 1e6 / CHASE_STEPS)
+        if int(end) != int(perm[CHASE_STEPS % lines]) * CHASE_LINE:
+            raise AssertionError(f"pointer chase ({tag}) ended off its "
+                                 f"cycle")
+        out[f"{tag}_ns"] = statistics.median(times)
+    return out
+
+
+def chain_rounds(group_ref, args, **kw):
+    """The descent design's dependent chain on these rows: rounds of
+    device loads per row, the longer of its two walks (the mirror
+    ``group_ref`` of ``kernels/ref.py``, on the CPU), as (longest, mean)."""
+    _, rounds = group_ref(*[a.cpu() for a in args], **kw)
+    return int(rounds.max()), float(rounds.double().mean())
+
+
+def latency_floor(row, chain, lat):
+    """Put the latency floor on a descent kernel's row: ``floor_ms`` =
+    the longest chain of dependent rounds x the cold load latency (the
+    timing flushes the L2), ``floor_warm_ms`` the same at the warm one."""
+    row["chain_max"], row["chain_mean"] = chain
+    row["load_ns"] = lat
+    row["floor_ms"] = chain[0] * lat["cold_ns"] * 1e-6
+    row["floor_warm_ms"] = chain[0] * lat["warm_ns"] * 1e-6
+    log(f"[kernel] {row['name']}: latency floor {row['floor_ms']:.5f} ms "
+        f"({chain[0]} dependent rounds, mean {chain[1]:.2f}, x "
+        f"{lat['cold_ns']:.1f} ns cold; {row['floor_warm_ms']:.5f} ms at "
+        f"{lat['warm_ns']:.1f} ns warm); device {row['ms']:.4f} ms")
+
+
+def descent_cases(dev, retail, retail_n_tx, seed):
+    """Both descent kernels against their plain versions past the main
+    path's tries, bitwise: the retail trie's root paths (fused on its plain
+    layout, span on its compressed f32 and int32 + bf16 layouts), and a
+    2^20 hub trie with a 5,000-wide root (past the staged cap and two
+    probe rounds), with the query traffic's rows and the edge-case rows
+    of ``synthetic.edge_case_queries``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import synthetic
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rule_search import (
+        rule_search_fused, rule_search_span,
+    )
+
+    def both(what, plain, compressed, rows):
+        e = ops.edge_metric_arrays(plain)
+        fused = [e[k] for k in ("child_offsets", "edge_item", "edge_child",
+                                "edge_conf", "edge_sup", "edge_lift")]
+        for q, al in rows:
+            qa = (torch.as_tensor(q, device=dev),
+                  torch.as_tensor(al, device=dev))
+            kw = dict(max_fanout=e["max_fanout"])
+            want = ref.rule_search_fused_ref(*fused, *qa, **kw)
+            check_same(f"rule_search_fused {what}",
+                       [rule_search_fused(*fused, *qa, **kw)[k]
+                        for k in want], list(want.values()), [])
+            for tag, dt in compressed.items():
+                sa, skw = span_args(dt)
+                want = ref.rule_search_span_ref(*sa, *qa, **skw)
+                check_same(f"rule_search_span {what} {tag}",
+                           [rule_search_span(*sa, *qa, **skw)[k]
+                            for k in want], list(want.values()), [])
+        log(f"[search] {what}: fused and span ({', '.join(compressed)}) "
+            f"== plain versions bitwise over {sum(len(r[0]) for r in rows)} "
+            f"rows")
+
+    paths = np.full((retail.n_nodes - 1, max(retail.max_depth, 1)), -1,
+                    np.int32)
+    for v in range(1, retail.n_nodes):
+        path = retail.path_items(v)
+        paths[v - 1, :len(path)] = path
+    r_al = np.maximum((paths >= 0).sum(1) - 1, 0).astype(np.int32)
+    both("retail", retail.device_arrays(device=dev), {
+        "compressed": retail.device_arrays(device=dev, layout="compressed"),
+        "i32+bf16": retail.device_arrays(
+            device=dev, layout="compressed", quantize=True,
+            n_transactions=retail_n_tx)}, [(paths, r_al)])
+    arrs = synthetic.synthetic_csr_trie(1 << 20, root_fanout=5000,
+                                        seed=seed)
+    fz = synthetic.frozen_from_arrays(arrs)
+    queries, ant_len = query_traffic(arrs, seed)[:2]
+    edge = synthetic.edge_case_queries(np.random.RandomState(seed), arrs,
+                                       4096, 8)
+    both("hub 2^20, root fanout 5000", fz.device_arrays(device=dev),
+         {"compressed": fz.device_arrays(device=dev, layout="compressed")},
+         [(queries, ant_len), edge])
 
 
 def search_grid(args, dev, l2_flush, point):
@@ -1811,8 +2005,16 @@ def main():
 
     # -- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build_all()
-    log(f"[build] nvcc {sorted(_build.SIGNATURES)} in "
+    probe = start_probe_build()
+    try:
+        _build.build_all()
+    except BaseException:
+        if probe[0] is not None:
+            probe[0][0].kill()
+            probe[0][0].wait()
+        raise
+    chase = load_probe(probe)
+    log(f"[build] nvcc {sorted(_build.SIGNATURES)} and the latency probe in "
         f"{time.perf_counter() - t0:.1f} s -> {_build.build_info['dir']}")
     for name, text in _build.build_info["ptxas"].items():
         for line in text.splitlines():
@@ -2018,6 +2220,14 @@ def main():
     rows = [kernel_row(name, kern, plain, work[name], sources[name],
                        launches[name], max(errs[name]), reps, l2_flush.zero_)
             for name, (kern, plain) in calls.items()]
+    # the descent kernels' latency floor: their longest chain of dependent
+    # load rounds on these rows x one load's latency on this card
+    lat = load_latency_ns(chase, dev, l2_flush.zero_, args.seed)
+    log(f"[latency] dependent load: {lat['cold_ns']:.1f} ns cold (device "
+        f"memory), {lat['warm_ns']:.1f} ns warm (L2); pointer chase of "
+        f"{CHASE_STEPS} loads")
+    latency_floor(rows[list(calls).index("rule_search_fused")],
+                  chain_rounds(ref.rule_search_fused_group_ref, e_args), lat)
     rank_row = rows[list(calls).index("topk_rank_batch")]
     log(f"[kernel] topk_rank_batch: {rank_row['ms']:.4f} ms device against "
         f"its bound {rank_row['bound_ms']:.5f} ms and the earlier design's "
@@ -2036,7 +2246,9 @@ def main():
     log(f"[construct] phase done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 7. the compressed layout: the chain trie, then the retail trie --
-    rows.extend(compressed_phase(args, dev, l2_flush, retail, retail_n_tx))
+    rows.extend(compressed_phase(args, dev, l2_flush, retail, retail_n_tx,
+                                 lat))
+    descent_cases(dev, retail, retail_n_tx, args.seed)
     log(f"[compress] phase done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 8. the seed layout: the full sweep on the query-path trie -------

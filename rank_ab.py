@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time the selection, support-count and full-sweep kernels of two or
-more checkouts of the port on one NVIDIA GPU, in turns, at
+"""Time the selection, support-count, full-sweep and descent-search
+kernels of two or more checkouts of the port on one NVIDIA GPU, in turns, at
 ``chip_smoke.py``'s main-path shapes: the port's A/B timer.
 
     python3 rank_ab.py TREE [TREE ...] [--edges N] [--reps R]
-                       [--lanes rank,member,chain,support,sweep]
+                       [--lanes rank,member,chain,support,sweep,search]
 
 Each TREE is the root of a checkout (a directory holding
 ``src/repro_torch``); list them in the order to run, e.g. ``parent
@@ -30,11 +30,19 @@ its own process, which builds that tree's kernels into the tree's own
 - ``rule_search_sweep``, both launches of one seed-layout search
   (``chip_smoke.seed_phase``: the 2^20 trie served without CSR offsets,
   its rows from ``chip_smoke.seed_rows`` and ``sweep_launch_rows``), by
-  kernel name, and in total, with CUDA events around one call beside each.
+  kernel name, and in total, with CUDA events around one call beside each;
+- ``rule_search_fused`` over the 4096 search rows of the query traffic on
+  ``synthetic_csr_trie(--edges)`` (the call ``chip_smoke.py`` times), and
+  ``rule_search_span`` over ``chip_smoke.chain_traffic``'s rows on the
+  chain trie compressed with f32, int32 + bf16 and int32 + int8 columns,
+  each with CUDA events around one call beside it, and around one
+  ``ops.rule_search_batch`` over the same rows (``_op_ms``, host prep
+  included); and the fused kernel over as many all-padding rows (no
+  walk takes a step: its fixed cost).
 
 ``--lanes`` picks a subset: ``rank`` and ``member`` on the 2^20 trie,
 ``chain`` on the chain trie, ``support``, ``sweep`` (always on a 2^20
-trie).  Every tree's answers are
+trie), ``search``.  Every tree's answers are
 checked against its plain versions.  Prints one JSON line per run and,
 last, the card's name and power limit.
 """
@@ -59,7 +67,10 @@ SUPPORT_KERNELS = ("support_count_kernel", "Memset", "support_mark_kernel",
 # launch, or the fingerprint pass and per step the advance and the match
 SWEEP_KERNELS = ("rule_search_sweep_kernel", "sweep_fingerprint_kernel",
                  "sweep_advance_kernel", "sweep_match_kernel")
-LANES = ("rank", "member", "chain", "support", "sweep")
+# the two descent searches' kernels, by name in either version
+SEARCH_KERNELS = ("rule_search_fused_kernel", "rule_search_span_kernel")
+SEARCH_KEYS = ("found", "confidence", "support", "lift", "con_support")
+LANES = ("rank", "member", "chain", "support", "sweep", "search")
 
 
 def one(tree, edges, reps, lanes):
@@ -96,6 +107,8 @@ def one(tree, edges, reps, lanes):
         chain_lane(cs, dev, timed)
     if "sweep" in lanes:
         sweep_lane(cs, dev, timed, out, reps)
+    if "search" in lanes:
+        search_lane(cs, dev, timed, out, edges, reps)
     print(json.dumps(out), flush=True)
 
 
@@ -153,6 +166,66 @@ def sweep_lane(cs, dev, timed, out, reps):
         total += out[name]
         call_total += out[name + "_call_ms"]
     out["sweep_total"], out["sweep_total_call_ms"] = total, call_total
+
+
+def search_lane(cs, dev, timed, out, edges, reps):
+    import torch
+
+    from repro_torch.core import synthetic
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rule_search import (
+        rule_search_fused, rule_search_span,
+    )
+
+    def answers(res, where):
+        return tuple(res[k] for k in (where, *SEARCH_KEYS))
+
+    arrs = synthetic.synthetic_csr_trie(edges, seed=0)
+    dt = synthetic.frozen_from_arrays(arrs).device_arrays(device=dev)
+    queries, ant_len, _, _, _ = cs.query_traffic(arrs, 0)
+    e = ops.edge_metric_arrays(dt)
+    f_args = [e[k] for k in ("child_offsets", "edge_item", "edge_child",
+                             "edge_conf", "edge_sup", "edge_lift")]
+    f_args += [torch.as_tensor(queries, device=dev),
+               torch.as_tensor(ant_len, device=dev)]
+    f_kw = dict(max_fanout=e["max_fanout"])
+    timed("search_fused",
+          lambda: answers(rule_search_fused(*f_args, **f_kw), "node"),
+          lambda: answers(ref.rule_search_fused_ref(*f_args, **f_kw),
+                          "node"), SEARCH_KERNELS)
+    out["search_fused_call_ms"] = cs.cuda_ms(
+        lambda: rule_search_fused(*f_args, **f_kw), reps)
+    # the search op around it, host prep included
+    out["search_op_ms"] = cs.cuda_ms(
+        lambda: ops.rule_search_batch(dt, queries, ant_len, edges=e), reps)
+    # the same launch over all-padding rows: no walk takes a step, what is
+    # left is the launch, the row's round and the writes
+    blank = [*f_args[:6], torch.full_like(f_args[6], -1), f_args[7]]
+    timed("search_fused_blank_rows",
+          lambda: answers(rule_search_fused(*blank, **f_kw), "node"),
+          lambda: answers(ref.rule_search_fused_ref(*blank, **f_kw),
+                          "node"), SEARCH_KERNELS)
+    carrs = synthetic.synthetic_chain_trie(1 << 20, chain_fraction=0.75,
+                                           seed=3)
+    cfz = synthetic.frozen_from_arrays(carrs)
+    cq, cal, _, _ = cs.chain_traffic(carrs, 0)
+    cq_t = torch.as_tensor(cq, device=dev)
+    cal_t = torch.as_tensor(cal, device=dev)
+    for tag in cs.QUANT:
+        cdt = cfz.device_arrays(device=dev, **cs.QUANT[tag])
+        sa, skw = cs.span_args(cdt)
+        name = "search_span_" + tag.replace("+", "_")
+        timed(name,
+              lambda: answers(rule_search_span(*sa, cq_t, cal_t, **skw),
+                              "pos"),
+              lambda: answers(ref.rule_search_span_ref(*sa, cq_t, cal_t,
+                                                       **skw), "pos"),
+              SEARCH_KERNELS)
+        out[name + "_call_ms"] = cs.cuda_ms(
+            lambda: rule_search_span(*sa, cq_t, cal_t, **skw), reps)
+        ce = ops.edge_metric_arrays(cdt)
+        out[name + "_op_ms"] = cs.cuda_ms(
+            lambda: ops.rule_search_batch(cdt, cq, cal, edges=ce), reps)
 
 
 def query_lanes(cs, dev, timed, edges, lanes):

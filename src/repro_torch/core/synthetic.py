@@ -264,6 +264,50 @@ def mixed_queries(
     return queries, ant_len
 
 
+def edge_case_queries(
+    rng, arrs: Dict[str, np.ndarray], q: int, width: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Search rows for the descent's edge cases, in turn: a real root path
+    (its first ``width`` items) with a random split; a real path of at
+    most ``width // 2`` items spread over the row with -1 between them; a
+    real path with an absent item (``n_items + 5``) in it; an all-padding
+    row; a real path with ant_len 0 (all of it consequent); a real path
+    with ant_len past its last item (no consequent); and a copy of the row
+    before it."""
+    n_nodes = arrs["node_item"].shape[0]
+    n_items = int(arrs["edge_item"].max()) + 1 if n_nodes > 1 else 1
+    queries = np.full((q, width), -1, np.int32)
+    ant_len = np.zeros((q,), np.int32)
+
+    def path(limit):
+        nid = rng.randint(1, n_nodes) if n_nodes > 1 else 0
+        items = []
+        while nid > 0:
+            items.append(int(arrs["node_item"][nid]))
+            nid = int(arrs["node_parent"][nid])
+        return items[::-1][:max(limit, 1)]
+
+    for row in range(q):
+        kind = row % 7
+        if kind == 3 or n_nodes <= 1:
+            continue
+        if kind == 6 and row > 0:
+            queries[row], ant_len[row] = queries[row - 1], ant_len[row - 1]
+            continue
+        if kind == 1:
+            p = path(width // 2)
+            cols = np.sort(rng.choice(width, size=len(p), replace=False))
+            queries[row, cols] = p
+            ant_len[row] = rng.randint(0, width + 1)
+            continue
+        p = path(width)
+        if kind == 2:
+            p[rng.randint(len(p))] = n_items + 5
+        queries[row, :len(p)] = p
+        ant_len[row] = {4: 0, 5: len(p)}.get(kind, rng.randint(0, len(p) + 1))
+    return queries, ant_len
+
+
 def frozen_from_arrays(arrs: Dict[str, np.ndarray]) -> FrozenTrie:
     """``FrozenTrie`` over one of this module's dicts.  The synthetic
     items are already canonical ids, so identity frequency tables stand

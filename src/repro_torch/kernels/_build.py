@@ -55,11 +55,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "rule_search": {
         "rule_search_fused_launch": (
-            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
             _P, _P, _P, _P, _P, _P, _P,
         ),
         "rule_search_span_launch": (
-            _P, _P, _P, _P, _P, _P, *_COLUMNS, _P, _P, _I, _I,
+            _P, _P, _P, _P, _P, _P, *_COLUMNS, _P, _P, _I, _I, _I, _I,
             _P, _P, _P, _P, _P, _P, _P,
         ),
         "rule_search_sweep_launch": (

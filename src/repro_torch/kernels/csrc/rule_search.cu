@@ -2,41 +2,165 @@
 // search of the path-compressed layout, and the full sweep of the seed
 // layout (no CSR offsets).
 //
+// The two descent searches (fused and span) share one design.
+//
+// What bounds them here: memory latency.  A walk is a chain of dependent
+// loads (a node's bucket bounds, its items, then the found edge's child),
+// and a row runs two walks: the full path, and its consequent items alone
+// from the root.  The bytes and flops are tiny, so the time is the longest
+// chain times a load's latency.  The design cuts the chain:
+// - a group of RS_GROUP lanes runs one walk.  Per step every lane reads
+//   the bucket bounds co[node], co[node + 1] (one round), then the group
+//   reads the bucket's items in one round of 16-byte loads, 4 a lane
+//   (group_find), and finds the item by a ballot; a bucket wider than one
+//   round covers takes pivot rounds first.  Buckets are item-sorted and
+//   item-unique (csr_offsets_from_edges; compress_pos_space for the
+//   compressed layout), so the first equal item is the edge the binary
+//   search of the earlier design (and of the plain version) finds.  The
+//   found edge's child and metric columns load together, in one round.
+// - the two walks of a row run at once, in two groups of one block; they
+//   meet at the end, through shared memory, for the Eq. 1-4 compound lift
+//   (metrics.cuh).  The row's chain is the longer walk, not the sum.
+// - every walk starts at the root: each block stages the table's first
+//   RS_ROOT_CAP edges (the root's bucket, when the root's edges start the
+//   table and fit) in shared memory, in the round that reads the row, so
+//   a walk's first step reads no device memory.
+// - a confidence factor loads beside the step that finds it and is
+//   multiplied in at the next step, after that step's loads are issued:
+//   the product stays in order (__fmul_rn, left to right over the
+//   consequent steps) and off the chain.
+// ref.rule_search_fused_group_ref and ref.rule_search_span_group_ref run
+// the design in plain PyTorch and count each walk's rounds.
+#include <stdint.h>
+
+#include "metrics.cuh"
+
+#define RS_GROUP 8                        // lanes of one walk
+#define RS_ROUND (4 * RS_GROUP)           // items a round of int4 loads reads
+#define RS_SLICE (RS_ROUND - 3)           // items it covers at any alignment
+#define RS_THREADS 256                    // block
+#define RS_WALKS (RS_THREADS / RS_GROUP)  // walks a block runs
+#define RS_ROWS (RS_WALKS / 2)            // rows a block runs
+#define RS_ROOT_CAP 256                   // root edges staged per block
+
+// The lanes of this thread's walk in its warp, and its lane among them.
+struct Group {
+    unsigned mask;
+    int lane, shift;  // lane in the group; warp lane of the group's lane 0
+};
+
+__device__ __forceinline__ Group this_group() {
+    const int wl = threadIdx.x & 31;
+    Group g;
+    g.lane = wl % RS_GROUP;
+    g.shift = wl - g.lane;
+    g.mask = (unsigned)((1ull << RS_GROUP) - 1ull) << g.shift;
+    return g;
+}
+
+// The group's lanes whose `p` holds, as bits at their warp lanes.
+__device__ __forceinline__ unsigned group_ballot(const Group& g, bool p) {
+    return __ballot_sync(g.mask, p) & g.mask;
+}
+
+// The warp lane of the n-th (from 0) set bit of m; n < __popc(m).
+__device__ __forceinline__ int nth_bit(unsigned m, int n) {
+    int at = 0;
+#pragma unroll
+    for (int w = 16; w; w >>= 1) {
+        const unsigned low = m & ((1u << w) - 1u);
+        const int c = __popc(low);
+        if (n >= c) {
+            n -= c;
+            m >>= w;
+            at += w;
+        } else {
+            m = low;
+        }
+    }
+    return at;
+}
+
+// The first index i in [a, b) with items[i] == item, -1 if none (the
+// range item-sorted; the same answer in every lane of the group).  While
+// the range is wider than a round covers, a pivot round reads RS_ROUND
+// pivots s apart (s = ceil(n / (RS_ROUND + 1)), 4 a lane) and keeps the
+// s-wide slice after the last pivot below `item`: two rounds up to about
+// RS_ROUND^2 items, a third past that.  Then one round of 16-byte loads
+// from the aligned word at or below a reads the range; lanes whose word
+// misses [a, b) load nothing, and items outside it are masked.  `items`
+// is a device or a shared-memory array.
+__device__ __forceinline__ int group_find(const Group& g,
+                                          const int* __restrict__ items,
+                                          int a, int b, int item) {
+    while (b - a > RS_SLICE) {
+        const int s = (b - a + RS_ROUND) / (RS_ROUND + 1);
+        int below = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const int x = min(a + (g.lane * 4 + k + 1) * s - 1, b - 1);
+            below += items[x] < item;
+        }
+        const int cnt = __reduce_add_sync(g.mask, below);
+        const int a2 = min(a + cnt * s, b);
+        b = min(a + (cnt + 1) * s, b);
+        a = a2;
+    }
+    const int4* word = reinterpret_cast<const int4*>(
+                           reinterpret_cast<uintptr_t>(items + a) &
+                           ~(uintptr_t)15) +
+                       g.lane;
+    const long long i0 = reinterpret_cast<const int*>(word) - items;
+    unsigned hit = 0;
+    if (i0 < b && i0 + 4 > a) {
+        const int4 v = *word;
+        const int vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+            hit |= (unsigned)(vs[k] == item && i0 + k >= a && i0 + k < b)
+                   << k;
+    }
+    const unsigned lanes = group_ballot(g, hit != 0);
+    if (!lanes) return -1;
+    return __shfl_sync(g.mask, (int)i0 + __ffs(hit) - 1, __ffs(lanes) - 1);
+}
+
+// A walk's place in the launch: its row, which walk it is (the consequent
+// walk when `cons`), and its row's slot in the block.
+struct Walk {
+    int row, slot;
+    bool cons, live;
+};
+
+__device__ __forceinline__ Walk this_walk(int q) {
+    const int w = threadIdx.x / RS_GROUP;
+    Walk k;
+    k.slot = w >> 1;
+    k.row = blockIdx.x * RS_ROWS + k.slot;
+    k.cons = w & 1;
+    k.live = k.row < q;
+    return k;
+}
+
+// The row's column c0 + lane (-1 past the width or for a dead row).
+__device__ __forceinline__ int row_item(const int* __restrict__ queries,
+                                        const Walk& k, const Group& g,
+                                        int width, int c0) {
+    const int c = c0 + g.lane;
+    return k.live && c < width ? queries[(long long)k.row * width + c] : -1;
+}
+
 // Fused rule-search kernel.
 //
 // Replaces the TPU kernel repro/kernels/rule_search.py::rule_search_fused_pallas:
 // for each canonical query row (int32 items, -1 padding) it walks the trie
 // from the root, one CSR bucket [co[n], co[n+1]) per item, keeps the
 // compound confidence (product over the consequent steps), the final node's
-// support and lift, and in the same pass walks the consequent items alone
-// from the root for the consequent-path Support; then it selects the
-// Eq. 1-4 compound lift in-kernel (metrics.cuh).
-//
-// What bounds it here: memory latency.  A row's work is a chain of
-// dependent loads (offsets, then a binary search in the bucket, then the
-// child id), two walks of L steps each; the bytes and flops are tiny.  So
-// the kernel runs one thread per row, enough rows per block to keep many
-// chains in flight, and reads each step's edge only once it is found.  The
-// TPU kernel scans the whole bucket in block_f-lane chunks and max-reduces
-// the match; because the items of a bucket are distinct and sorted
-// (csr_offsets_from_edges), a binary search finds the same edge, and hub
-// buckets (the 256-wide root) cost log2(256) = 8 probes, not a chunked sweep.
-#include "metrics.cuh"
-
-#define RS_THREADS 128
-
-// Edge index of `item` in node's bucket, -1 if absent.
-__device__ __forceinline__ int bucket_find(const int* __restrict__ co,
-                                           const int* __restrict__ ei,
-                                           int node, int item) {
-    int lo = co[node], hi = co[node + 1];
-    while (lo < hi) {
-        int mid = (lo + hi) >> 1;
-        if (ei[mid] < item) lo = mid + 1; else hi = mid;
-    }
-    return (lo < co[node + 1] && ei[lo] == item) ? lo : -1;
-}
-
+// support and lift, and, in the other walk, the consequent items alone from
+// the root for the consequent-path Support; then it selects the Eq. 1-4
+// compound lift in-kernel.  The TPU kernel scans the whole bucket in
+// block_f-lane chunks and max-reduces the match; the group's rounds find
+// the same edge.
 __global__ void __launch_bounds__(RS_THREADS)
 rule_search_fused_kernel(const int* __restrict__ co, const int* __restrict__ ei,
                          const int* __restrict__ ec,
@@ -45,47 +169,79 @@ rule_search_fused_kernel(const int* __restrict__ co, const int* __restrict__ ei,
                          const float* __restrict__ elift,
                          const int* __restrict__ queries,
                          const int* __restrict__ ant_len, int q, int width,
-                         int* __restrict__ node_out, int* __restrict__ found_out,
-                         float* __restrict__ conf_out, float* __restrict__ sup_out,
+                         int e, int* __restrict__ node_out,
+                         int* __restrict__ found_out,
+                         float* __restrict__ conf_out,
+                         float* __restrict__ sup_out,
                          float* __restrict__ lift_out,
                          float* __restrict__ csup_out) {
-    int r = blockIdx.x * RS_THREADS + threadIdx.x;
-    if (r >= q) return;
-    const int* row = queries + (long long)r * width;
-    const int al = ant_len[r];
+    __shared__ __align__(16) int s_item[RS_ROOT_CAP];
+    __shared__ int s_child[RS_ROOT_CAP];
+    __shared__ float s_csup[RS_ROWS];
+    const Group g = this_group();
+    const Walk k = this_walk(q);
 
-    int node = 0, cnode = 0, seq_len = 0;
-    bool ok = true, cok = true;
-    float conf = 1.0f, sup = 0.0f, nlift = 0.0f, csup = 0.0f;
-    for (int s = 0; s < width; ++s) {
-        int item = row[s];
-        if (item < 0) continue;
-        ++seq_len;
-        bool in_cons = s >= al;
-        if (ok) {
-            int j = bucket_find(co, ei, node, item);
-            if (j >= 0) {
-                node = ec[j];
-                if (in_cons) conf = __fmul_rn(conf, econf[j]);
-                sup = esup[j];
-                nlift = elift[j];
+    // round 1: the row's first columns, its ant_len, the root's bounds and
+    // the staged edges
+    int v = row_item(queries, k, g, width, 0);
+    const int al = k.live ? ant_len[k.row] : 0;
+    const int root_lo = co[0], root_hi = co[1];
+    const int n_staged = min(e, RS_ROOT_CAP);
+    for (int i = threadIdx.x; i < n_staged; i += RS_THREADS) {
+        s_item[i] = ei[i];
+        s_child[i] = ec[i];
+    }
+    __syncthreads();
+    const bool staged = root_lo == 0 && root_hi <= n_staged;
+
+    int node = 0, seq_len = 0;
+    bool ok = true, pend = false;
+    float conf = 1.0f, sup = 0.0f, nlift = 0.0f, factor = 1.0f;
+    for (int c0 = 0; c0 < width; c0 += RS_GROUP) {
+        if (c0) v = row_item(queries, k, g, width, c0);
+        const unsigned valid = group_ballot(g, v >= 0);
+        seq_len += __popc(valid);
+        // the walk's items: every valid one, or for the consequent walk
+        // those at or past ant_len
+        unsigned todo =
+            k.cons ? group_ballot(g, v >= 0 && c0 + g.lane >= al) : valid;
+        while (ok && todo) {
+            const int src = __ffs(todo) - 1;
+            todo &= todo - 1;
+            const int item = __shfl_sync(g.mask, v, src);
+            int j, child = 0;
+            if (node == 0 && staged) {
+                j = group_find(g, s_item, 0, root_hi, item);
+                if (j >= 0) child = s_child[j];
             } else {
-                ok = false;
+                j = group_find(g, ei, co[node], co[node + 1], item);
+                if (j >= 0) child = ec[j];
             }
-        }
-        if (in_cons && cok) {
-            int j = bucket_find(co, ei, cnode, item);
-            if (j >= 0) {
-                cnode = ec[j];
-                csup = esup[j];
-            } else {
-                cok = false;
+            if (pend) conf = __fmul_rn(conf, factor);
+            pend = false;
+            if (j < 0) {
+                ok = false;
+                break;
+            }
+            node = child;
+            sup = esup[j];
+            if (!k.cons) {
+                nlift = elift[j];
+                if (c0 + src - g.shift >= al) {
+                    factor = econf[j];
+                    pend = true;
+                }
             }
         }
     }
-    bool found = ok && node > 0;
-    float con_sup = (cok && cnode > 0) ? csup : 0.0f;
-    float fconf = found ? conf : 0.0f;
+    if (pend) conf = __fmul_rn(conf, factor);
+    if (k.cons && g.lane == 0) s_csup[k.slot] = ok && node > 0 ? sup : 0.0f;
+    __syncthreads();
+    if (k.cons || g.lane != 0 || !k.live) return;
+    const int r = k.row;
+    const bool found = ok && node > 0;
+    const float con_sup = s_csup[k.slot];
+    const float fconf = found ? conf : 0.0f;
     node_out[r] = found ? node : -1;
     found_out[r] = found ? 1 : 0;
     conf_out[r] = fconf;
@@ -98,65 +254,35 @@ rule_search_fused_kernel(const int* __restrict__ co, const int* __restrict__ ei,
 extern "C" int rule_search_fused_launch(
     const int* co, const int* edge_item, const int* edge_child,
     const float* edge_conf, const float* edge_sup, const float* edge_lift,
-    const int* queries, const int* ant_len, int q, int width, int* node,
-    int* found, float* conf, float* sup, float* lift, float* con_sup,
-    void* stream) {
-    int blocks = (q + RS_THREADS - 1) / RS_THREADS;
+    const int* queries, const int* ant_len, int q, int width, int e,
+    int blocks, int* node, int* found, float* conf, float* sup, float* lift,
+    float* con_sup, void* stream) {
     rule_search_fused_kernel<<<blocks, RS_THREADS, 0, (cudaStream_t)stream>>>(
         co, edge_item, edge_child, edge_conf, edge_sup, edge_lift, queries,
-        ant_len, q, width, node, found, conf, sup, lift, con_sup);
+        ant_len, q, width, e, node, found, conf, sup, lift, con_sup);
     return (int)cudaGetLastError();
 }
 
 // Span rule-search kernel (the path-compressed layout).
 //
 // Replaces the TPU kernel repro/kernels/rule_search.py::rule_search_span_pallas:
-// the same two walks per query row (the full path, and the consequent items
-// alone from the root) over the compressed layout, where every maximal
-// single-child run is a contiguous DFS interval and only run heads, tails
-// and branching nodes keep a CSR row.  Per walk the state is (pos, rem,
-// ctail): the DFS position reached, the span steps left before the next CSR
-// node, and the compressed id of the run's tail.  Inside a span (rem > 0)
-// a step is one gather, node_item[pos + 1]; at a CSR node it is bucket_find
-// over child_offsets[ctail]..[ctail + 1] on edge_item, then three gathers
-// (edge_pos, edge_span, edge_tail).  A compressed bucket is item-sorted
-// and item-unique (compress_pos_space sorts it by (parent, item)), so the
-// binary search finds the edge the TPU kernel's masked max over block_f
-// lanes finds.  The metric columns are indexed by DFS position and arrive
-// in their storage types (f32, int32 counts or bf16 support; f32, bf16 or
-// int8 confidence and lift), widened per gather (metrics.cuh).  The
-// confidence product runs over the consequent steps; Eq. 1-4 lift is
-// selected in-kernel.  Outputs: found, pos (a DFS position, -1 when
-// absent), conf, sup, lift and con_support.
-//
-// What bounds it here: memory latency, as in the fused kernel: a chain of
-// dependent gathers per row (about 2 x width), one thread per row.  The
-// TPU knob span_bf sized the VMEM lanes of the bucket scan; a binary search
-// has no such width, so it is not carried over.
-struct SpanState {
-    int pos, rem, ctail;
-};
-
-// One item of the span-aware descent; false (state unchanged) on a miss.
-__device__ __forceinline__ bool span_step(
-    SpanState& st, int item, const int* __restrict__ co,
-    const int* __restrict__ ei, const int* __restrict__ epos,
-    const int* __restrict__ espan, const int* __restrict__ etail,
-    const int* __restrict__ node_item) {
-    if (st.rem > 0) {
-        if (node_item[st.pos + 1] != item) return false;
-        ++st.pos;
-        --st.rem;
-        return true;
-    }
-    int j = bucket_find(co, ei, st.ctail, item);
-    if (j < 0) return false;
-    st.pos = epos[j];
-    st.rem = espan[j];
-    st.ctail = etail[j];
-    return true;
-}
-
+// the same two walks per query row over the compressed layout, where
+// every maximal single-child run is a contiguous DFS interval and only run
+// heads, tails and branching nodes keep a CSR row.  Per walk the state is
+// (pos, rem, ctail): the DFS position reached, the span steps left before
+// the next CSR node, and the compressed id of the run's tail.  Inside a
+// span (rem > 0) the group takes the next m <= min(rem, RS_GROUP) items of
+// the walk in one round: lane i gathers node_item[pos + 1 + i] (and, on
+// the full walk's consequent steps, the confidence there), and pos and rem
+// advance by the matching prefix; one lane's order of multiplies keeps the
+// product left to right.  At a CSR node a step is group_find over
+// child_offsets[ctail]..[ctail + 1] on edge_item, then edge_pos, edge_span
+// and edge_tail in one round.  The metric columns are indexed by DFS
+// position and arrive in their storage types (f32, int32 counts or bf16
+// support; f32, bf16 or int8 confidence and lift), widened per gather
+// (metrics.cuh).  Outputs: found, pos (a DFS position, -1 when absent),
+// conf, sup, lift and con_support.  The TPU knob span_bf sized the VMEM
+// lanes of the bucket scan; the group's width is RS_GROUP here.
 template <class S, class C>
 __global__ void __launch_bounds__(RS_THREADS)
 rule_search_span_kernel(const int* __restrict__ co, const int* __restrict__ ei,
@@ -169,43 +295,120 @@ rule_search_span_kernel(const int* __restrict__ co, const int* __restrict__ ei,
                         float conf_scale, float lift_scale,
                         const int* __restrict__ queries,
                         const int* __restrict__ ant_len, int q, int width,
-                        int* __restrict__ pos_out, int* __restrict__ found_out,
+                        int e, int* __restrict__ pos_out,
+                        int* __restrict__ found_out,
                         float* __restrict__ conf_out,
                         float* __restrict__ sup_out,
                         float* __restrict__ lift_out,
                         float* __restrict__ csup_out) {
-    int r = blockIdx.x * RS_THREADS + threadIdx.x;
-    if (r >= q) return;
-    const int* row = queries + (long long)r * width;
-    const int al = ant_len[r];
+    __shared__ __align__(16) int s_item[RS_ROOT_CAP];
+    __shared__ int s_pos[RS_ROOT_CAP], s_span[RS_ROOT_CAP],
+        s_tail[RS_ROOT_CAP];
+    __shared__ float s_csup[RS_ROWS];
+    const Group g = this_group();
+    const Walk k = this_walk(q);
 
-    SpanState st{0, 0, 0}, cst{0, 0, 0};
-    bool ok = true, cok = true;
-    int seq_len = 0;
-    float cf = 1.0f;
-    for (int s = 0; s < width; ++s) {
-        int item = row[s];
-        if (item < 0) continue;
-        ++seq_len;
-        bool in_cons = s >= al;
-        if (ok) {
-            ok = span_step(st, item, co, ei, epos, espan, etail, node_item);
-            if (ok && in_cons)
-                cf = __fmul_rn(cf, dequantize(conf[st.pos], conf_scale));
-        }
-        if (in_cons && cok)
-            cok = span_step(cst, item, co, ei, epos, espan, etail, node_item);
+    int v = row_item(queries, k, g, width, 0);
+    const int al = k.live ? ant_len[k.row] : 0;
+    const int root_lo = co[0], root_hi = co[1];
+    const int n_staged = min(e, RS_ROOT_CAP);
+    for (int i = threadIdx.x; i < n_staged; i += RS_THREADS) {
+        s_item[i] = ei[i];
+        s_pos[i] = epos[i];
+        s_span[i] = espan[i];
+        s_tail[i] = etail[i];
     }
-    bool found = ok && st.pos > 0;
-    float con_sup =
-        (cok && cst.pos > 0) ? dequantize(sup[cst.pos], inv_n) : 0.0f;
-    float fconf = found ? cf : 0.0f;
-    float nlift = found ? dequantize(lift[st.pos], lift_scale) : 0.0f;
-    pos_out[r] = found ? st.pos : -1;
-    found_out[r] = found ? 1 : 0;
+    __syncthreads();
+    const bool staged = root_lo == 0 && root_hi <= n_staged;
+
+    int pos = 0, rem = 0, ctail = 0, seq_len = 0;
+    bool ok = true, pend = false;
+    float cf = 1.0f, factor = 1.0f;
+    for (int c0 = 0; c0 < width; c0 += RS_GROUP) {
+        if (c0) v = row_item(queries, k, g, width, c0);
+        const unsigned valid = group_ballot(g, v >= 0);
+        seq_len += __popc(valid);
+        unsigned todo =
+            k.cons ? group_ballot(g, v >= 0 && c0 + g.lane >= al) : valid;
+        while (ok && todo) {
+            if (rem > 0) {
+                // a span run: lane i takes the walk's i-th next item
+                const int m = min(rem, __popc(todo));
+                const bool mine = g.lane < m;
+                const int src = mine ? nth_bit(todo, g.lane) : g.shift;
+                const int item = __shfl_sync(g.mask, v, src);
+                const bool in_cons = !k.cons && c0 + src - g.shift >= al;
+                int at_item = -1;
+                float c = 1.0f;
+                if (mine) {
+                    at_item = node_item[pos + 1 + g.lane];
+                    if (in_cons)
+                        c = dequantize(conf[pos + 1 + g.lane], conf_scale);
+                }
+                if (pend) cf = __fmul_rn(cf, factor);
+                pend = false;
+                const unsigned miss = group_ballot(g, mine && at_item != item);
+                const unsigned mul = group_ballot(g, mine && in_cons);
+                const int run = miss ? __ffs(miss) - 1 - g.shift : m;
+                for (int i = 0; i < run; ++i) {
+                    const float ci = __shfl_sync(g.mask, c, g.shift + i);
+                    if (mul >> (g.shift + i) & 1u) cf = __fmul_rn(cf, ci);
+                    todo &= todo - 1;
+                }
+                pos += run;
+                rem -= run;
+                if (run < m) ok = false;
+                continue;
+            }
+            const int src = __ffs(todo) - 1;
+            todo &= todo - 1;
+            const int item = __shfl_sync(g.mask, v, src);
+            int j, p2 = 0, r2 = 0, t2 = 0;
+            if (ctail == 0 && staged) {
+                j = group_find(g, s_item, 0, root_hi, item);
+                if (j >= 0) {
+                    p2 = s_pos[j];
+                    r2 = s_span[j];
+                    t2 = s_tail[j];
+                }
+            } else {
+                j = group_find(g, ei, co[ctail], co[ctail + 1], item);
+                if (j >= 0) {
+                    p2 = epos[j];
+                    r2 = espan[j];
+                    t2 = etail[j];
+                }
+            }
+            if (pend) cf = __fmul_rn(cf, factor);
+            pend = false;
+            if (j < 0) {
+                ok = false;
+                break;
+            }
+            pos = p2;
+            rem = r2;
+            ctail = t2;
+            if (!k.cons && c0 + src - g.shift >= al) {
+                factor = dequantize(conf[pos], conf_scale);
+                pend = true;
+            }
+        }
+    }
+    if (pend) cf = __fmul_rn(cf, factor);
+    const bool hit = ok && pos > 0;
+    const float own_sup = hit ? dequantize(sup[pos], inv_n) : 0.0f;
+    if (k.cons && g.lane == 0) s_csup[k.slot] = own_sup;
+    __syncthreads();
+    if (k.cons || g.lane != 0 || !k.live) return;
+    const int r = k.row;
+    const float con_sup = s_csup[k.slot];
+    const float fconf = hit ? cf : 0.0f;
+    const float nlift = hit ? dequantize(lift[pos], lift_scale) : 0.0f;
+    pos_out[r] = hit ? pos : -1;
+    found_out[r] = hit ? 1 : 0;
     conf_out[r] = fconf;
-    sup_out[r] = found ? dequantize(sup[st.pos], inv_n) : 0.0f;
-    lift_out[r] = compound_lift(found, seq_len - al == 1, nlift, fconf,
+    sup_out[r] = own_sup;
+    lift_out[r] = compound_lift(hit, seq_len - al == 1, nlift, fconf,
                                 con_sup);
     csup_out[r] = con_sup;
 }
@@ -215,18 +418,17 @@ struct SpanArgs {
     const void *sup, *conf, *lift;
     float inv_n, conf_scale, lift_scale;
     const int *queries, *ant_len;
-    int q, width;
+    int q, width, e, blocks;
     int *pos, *found;
     float *conf_out, *sup_out, *lift_out, *csup_out;
 };
 
 template <class S, class C>
 static cudaError_t launch_span_typed(const SpanArgs& a, cudaStream_t stream) {
-    int blocks = (a.q + RS_THREADS - 1) / RS_THREADS;
-    rule_search_span_kernel<S, C><<<blocks, RS_THREADS, 0, stream>>>(
+    rule_search_span_kernel<S, C><<<a.blocks, RS_THREADS, 0, stream>>>(
         a.co, a.edge_item, a.edge_pos, a.edge_span, a.edge_tail, a.node_item,
         (const S*)a.sup, (const C*)a.conf, (const C*)a.lift, a.inv_n,
-        a.conf_scale, a.lift_scale, a.queries, a.ant_len, a.q, a.width,
+        a.conf_scale, a.lift_scale, a.queries, a.ant_len, a.q, a.width, a.e,
         a.pos, a.found, a.conf_out, a.sup_out, a.lift_out, a.csup_out);
     return cudaGetLastError();
 }
@@ -236,13 +438,13 @@ extern "C" int rule_search_span_launch(
     const int* edge_span, const int* edge_tail, const int* node_item,
     const void* sup, const void* conf, const void* lift, int sup_type,
     int col_type, float inv_n, float conf_scale, float lift_scale,
-    const int* queries, const int* ant_len, int q, int width, int* pos,
-    int* found, float* conf_out, float* sup_out, float* lift_out,
-    float* con_sup, void* stream) {
+    const int* queries, const int* ant_len, int q, int width, int e,
+    int blocks, int* pos, int* found, float* conf_out, float* sup_out,
+    float* lift_out, float* con_sup, void* stream) {
     SpanArgs a{co, edge_item, edge_pos, edge_span, edge_tail, node_item,
                sup, conf, lift, inv_n, conf_scale, lift_scale, queries,
-               ant_len, q, width, pos, found, conf_out, sup_out, lift_out,
-               con_sup};
+               ant_len, q, width, e, blocks, pos, found, conf_out, sup_out,
+               lift_out, con_sup};
     cudaStream_t s = (cudaStream_t)stream;
     RT_DISPATCH_COLUMNS(sup_type, col_type, launch_span_typed, a, s)
 }

@@ -924,6 +924,260 @@ def rule_search_span_ref(
     }
 
 
+# ----------------------------------------------------------------------
+# the descent searches as csrc/rule_search.cu computes them
+# ----------------------------------------------------------------------
+SEARCH_GROUP = 8         # lanes of one walk (RS_GROUP)
+SEARCH_ROOT_CAP = 256    # root edges each block stages (RS_ROOT_CAP)
+
+
+def group_probe_ref(edge_item, lo, hi, items, group: int = SEARCH_GROUP):
+    """``rule_search.cu::group_find`` over a batch of walks: per walk the
+    first index ``j`` in ``[lo, hi)`` with ``edge_item[j] == item`` (-1
+    when none), and the rounds of loads the group spends.  While the range
+    is wider than ``4 * group - 3`` items, a pivot round reads ``4 * group``
+    pivots ``s = ceil(n / (4 * group + 1))`` apart and keeps the ``s``-wide
+    slice after the last pivot below the item; then one round reads what
+    is left (none for an empty range).  On an item-sorted range the answer
+    is the binary search's (``array_trie.bucket_edge_lookup``)."""
+    rnd = 4 * group
+    a = lo.to(torch.int64).clone()
+    b = hi.to(torch.int64).clone()
+    items = items.to(torch.int32)
+    rounds = torch.zeros_like(a)
+    if edge_item.shape[0] == 0:
+        return torch.full_like(items, -1), rounds
+    pivots = torch.arange(1, rnd + 1, device=a.device)
+    while True:
+        wide = (b - a) > rnd - 3
+        if not bool(wide.any()):
+            break
+        aw, bw = a[wide], b[wide]
+        s = (bw - aw + rnd) // (rnd + 1)
+        x = torch.minimum(aw[:, None] + pivots[None] * s[:, None] - 1,
+                          bw[:, None] - 1)
+        cnt = (edge_item[x] < items[wide][:, None]).sum(1)
+        a[wide] = torch.minimum(aw + cnt * s, bw)
+        b[wide] = torch.minimum(aw + (cnt + 1) * s, bw)
+        rounds[wide] += 1
+    idx = a[:, None] + torch.arange(rnd - 3, device=a.device)[None]
+    hit = (idx < b[:, None]) & (
+        edge_item[idx.clamp(max=edge_item.shape[0] - 1)] == items[:, None])
+    first = torch.where(hit.any(1), a + hit.to(torch.int8).argmax(1), -1)
+    return first.to(torch.int32), rounds + (b > a).to(torch.int64)
+
+
+def _root_staged(child_offsets, e: int, root_cap: int) -> bool:
+    """Whether the kernels take the root's bucket from the edges each block
+    stages: the root's edges start the table and fit the cap."""
+    return int(child_offsets[0]) == 0 and \
+        int(child_offsets[1]) <= min(e, root_cap)
+
+
+def _walk_items(queries, ant_len, consequent: bool):
+    """The items a walk takes (the valid ones; for the consequent walk
+    those at or past ant_len), as a bool ``[Q, L]``."""
+    take = queries >= 0
+    if consequent:
+        cols = torch.arange(queries.shape[1], device=queries.device)
+        take = take & (cols[None] >= ant_len[:, None])
+    return take
+
+
+def fused_walk_ref(child_offsets, edge_item, edge_child, edge_conf,
+                   edge_sup, edge_lift, queries, ant_len, *,
+                   consequent: bool, group: int = SEARCH_GROUP,
+                   root_cap: int = SEARCH_ROOT_CAP):
+    """One of the fused kernel's two walks over every row: the full path,
+    or (``consequent``) the consequent items alone from the root.  Returns
+    ``(node, ok, conf, sup, lift, rounds)``: the confidence product over
+    the consequent steps and the lift only on the full walk, and per row
+    the rounds of device loads on the walk's chain (the row's round, and
+    per step the bucket bounds, the probe's rounds and the found edge's
+    child and metrics, none at a root the block staged)."""
+    q, width = queries.shape
+    dev = queries.device
+    staged = _root_staged(child_offsets, edge_item.shape[0], root_cap)
+    take = _walk_items(queries, ant_len, consequent)
+    node = torch.zeros((q,), dtype=torch.int32, device=dev)
+    ok = torch.ones((q,), dtype=torch.bool, device=dev)
+    conf = torch.ones((q,), dtype=torch.float32, device=dev)
+    sup = torch.zeros((q,), dtype=torch.float32, device=dev)
+    lift = torch.zeros((q,), dtype=torch.float32, device=dev)
+    rounds = torch.ones((q,), dtype=torch.int64, device=dev)
+    for s in range(width):
+        item = queries[:, s]
+        active = take[:, s] & ok
+        nl = node.long()
+        j, probe = group_probe_ref(edge_item, child_offsets[nl],
+                                   child_offsets[nl + 1], item, group)
+        hit = j >= 0
+        rounds += torch.where(active & ~(staged & (node == 0)),
+                              1 + probe + hit.to(torch.int64), 0)
+        adv = active & hit
+        ok = torch.where(active, hit, ok)
+        jc = j.clamp(min=0).long()
+        node = torch.where(adv, edge_child[jc], node)
+        sup = torch.where(adv, edge_sup[jc], sup)
+        if not consequent:
+            conf = torch.where(adv & (s >= ant_len), conf * edge_conf[jc],
+                               conf)
+            lift = torch.where(adv, edge_lift[jc], lift)
+    return node, ok, conf, sup, lift, rounds
+
+
+def rule_search_fused_group_ref(
+    child_offsets, edge_item, edge_child, edge_conf, edge_sup, edge_lift,
+    queries, ant_len, *, group: int = SEARCH_GROUP,
+    root_cap: int = SEARCH_ROOT_CAP,
+):
+    """``rule_search_fused`` as ``csrc/rule_search.cu`` computes it, in
+    plain PyTorch: the two walks apart (``fused_walk_ref``), each bucket
+    by ``group_probe_ref``, met at the end for the Eq. 1-4 compound lift.
+    Returns ``(out, rounds)``: ``out`` equals ``rule_search_fused_ref``'s,
+    ``rounds`` is each row's chain, the longer walk's.  The main path does
+    not call it."""
+    queries = queries.to(torch.int32)
+    ant_len = ant_len.to(torch.int32)
+    q, width = queries.shape
+    dev = queries.device
+    if edge_item.shape[0] == 0 or width == 0:
+        return not_found(q, dev), torch.zeros((q,), dtype=torch.int64,
+                                              device=dev)
+    args = (child_offsets, edge_item, edge_child, edge_conf, edge_sup,
+            edge_lift, queries, ant_len)
+    kw = dict(group=group, root_cap=root_cap)
+    node, ok, conf, sup, lift, rounds = fused_walk_ref(
+        *args, consequent=False, **kw)
+    cnode, cok, _, csup, _, crounds = fused_walk_ref(
+        *args, consequent=True, **kw)
+    found = ok & (node > 0)
+    conf = torch.where(found, conf, 0.0)
+    con_sup = torch.where(cok & (cnode > 0), csup, 0.0)
+    single = ((queries >= 0).sum(1, dtype=torch.int32) - ant_len) == 1
+    out = {
+        "found": found,
+        "node": torch.where(found, node, -1).to(torch.int32),
+        "confidence": conf,
+        "support": torch.where(found, sup, 0.0),
+        "lift": compound_lift(found, single, torch.where(found, lift, 0.0),
+                              conf, con_sup),
+        "con_support": con_sup,
+    }
+    return out, torch.maximum(rounds, crounds)
+
+
+def span_walk_ref(child_offsets, edge_item, edge_pos, edge_span, edge_tail,
+                  node_item, conf_col, queries, ant_len, *,
+                  consequent: bool, group: int = SEARCH_GROUP,
+                  root_cap: int = SEARCH_ROOT_CAP):
+    """One of the span kernel's two walks over every row on the
+    compressed layout, ``conf_col`` the widened confidence column.
+    Returns ``(pos, ok, conf, rounds)``.  Inside a span the kernel takes
+    the walk's next ``m = min(rem, items left in the row's chunk of
+    group columns)`` items in one round (the chunk holds at most ``group``
+    of them) and advances by the matching prefix; here they are single
+    steps, and a round is counted where such a run starts.  A CSR step
+    costs the bucket bounds, the probe's rounds and the found edge's
+    columns (none at a root the block staged), and a walk that ends on a
+    node gathers its support there (one more round)."""
+    q, width = queries.shape
+    dev = queries.device
+    n = node_item.shape[0]
+    staged = _root_staged(child_offsets, edge_item.shape[0], root_cap)
+    take = _walk_items(queries, ant_len, consequent)
+    # the walk's items left in each chunk of `group` columns, from s on
+    left = torch.zeros((q, width), dtype=torch.int64, device=dev)
+    for c0 in range(0, width, group):
+        part = take[:, c0:c0 + group].to(torch.int64)
+        left[:, c0:c0 + group] = part.flip(1).cumsum(1).flip(1)
+    z = torch.zeros((q,), dtype=torch.int32, device=dev)
+    pos, rem, ctail = z, z, z
+    ok = torch.ones((q,), dtype=torch.bool, device=dev)
+    conf = torch.ones((q,), dtype=torch.float32, device=dev)
+    rounds = torch.ones((q,), dtype=torch.int64, device=dev)
+    run_left = torch.zeros((q,), dtype=torch.int64, device=dev)
+    for s in range(width):
+        item = queries[:, s]
+        active = take[:, s] & ok
+        in_span = rem > 0
+        span_hit = in_span & (node_item[(pos + 1).clamp(max=n - 1).long()]
+                              == item)
+        starts = active & in_span & (run_left == 0)
+        rounds += starts.to(torch.int64)
+        run_left = torch.where(
+            active & in_span,
+            torch.where(starts, torch.minimum(rem.long(), left[:, s]),
+                        run_left) - 1,
+            run_left)
+        tl = ctail.long()
+        j, probe = group_probe_ref(edge_item, child_offsets[tl],
+                                   child_offsets[tl + 1], item, group)
+        edge_hit = ~in_span & (j >= 0)
+        csr = active & ~in_span & ~(staged & (ctail == 0))
+        rounds += torch.where(csr, 1 + probe + (j >= 0).to(torch.int64), 0)
+        hit = span_hit | edge_hit
+        adv = active & hit
+        jc = j.clamp(min=0).long()
+        pos2 = torch.where(span_hit, pos + 1, edge_pos[jc])
+        rem2 = torch.where(span_hit, rem - 1, edge_span[jc])
+        ok = torch.where(active, hit, ok)
+        if not consequent:
+            conf = torch.where(adv & (s >= ant_len),
+                               conf * conf_col[pos2.long()], conf)
+        pos = torch.where(adv, pos2, pos)
+        rem = torch.where(adv, rem2, rem)
+        ctail = torch.where(adv & edge_hit, edge_tail[jc], ctail)
+    rounds += (ok & (pos > 0)).to(torch.int64)
+    return pos, ok, conf, rounds
+
+
+def rule_search_span_group_ref(
+    child_offsets, edge_item, edge_pos, edge_span, edge_tail, node_item,
+    support, confidence, lift, queries, ant_len, *,
+    n_transactions: int = 0, confidence_scale: float = 1.0,
+    lift_scale: float = 1.0, group: int = SEARCH_GROUP,
+    root_cap: int = SEARCH_ROOT_CAP,
+):
+    """``rule_search_span`` as ``csrc/rule_search.cu`` computes it, in
+    plain PyTorch: the two walks apart (``span_walk_ref``), met at the end.
+    Returns ``(out, rounds)``: ``out`` equals ``rule_search_span_ref``'s,
+    ``rounds`` is each row's chain, the longer walk's.  The main path does
+    not call it."""
+    queries = queries.to(torch.int32)
+    ant_len = ant_len.to(torch.int32)
+    q, width = queries.shape
+    dev = queries.device
+    if edge_item.shape[0] == 0 or width == 0:
+        out = not_found(q, dev)
+        out["pos"] = out.pop("node")
+        return out, torch.zeros((q,), dtype=torch.int64, device=dev)
+    sup_col, conf_col, lift_col = dequantize_metrics(
+        support, confidence, lift,
+        n_transactions, confidence_scale, lift_scale)
+    args = (child_offsets, edge_item, edge_pos, edge_span, edge_tail,
+            node_item, conf_col, queries, ant_len)
+    kw = dict(group=group, root_cap=root_cap)
+    pos, ok, conf, rounds = span_walk_ref(*args, consequent=False, **kw)
+    cpos, cok, _, crounds = span_walk_ref(*args, consequent=True, **kw)
+    found = ok & (pos > 0)
+    conf = torch.where(found, conf, 0.0)
+    con_sup = torch.where(cok & (cpos > 0), sup_col[cpos.long()], 0.0)
+    single = ((queries >= 0).sum(1, dtype=torch.int32) - ant_len) == 1
+    pl = pos.long()
+    out = {
+        "found": found,
+        "pos": torch.where(found, pos, -1).to(torch.int32),
+        "confidence": conf,
+        "support": torch.where(found, sup_col[pl], 0.0),
+        "lift": compound_lift(found, single,
+                              torch.where(found, lift_col[pl], 0.0), conf,
+                              con_sup),
+        "con_support": con_sup,
+    }
+    return out, torch.maximum(rounds, crounds)
+
+
 def trie_reduce_ref(support, confidence, depth, n_transactions: int = 0,
                     confidence_scale: float = 1.0):
     """``(n_rules, Σ support, max confidence, Σ confidence)`` as f32

@@ -3,8 +3,8 @@
 ``rule_search_fused`` walks each canonical query row root-down through
 the CSR child buckets (node ``p``'s edges are ``[child_offsets[p],
 child_offsets[p+1])``, item-sorted), runs the root-anchored
-consequent-only walk in the same pass, and selects the Eq. 1-4 compound
-lift.  Metrics ride on the edges (the child node's columns gathered once,
+consequent-only walk beside it, and selects the Eq. 1-4 compound lift.
+Metrics ride on the edges (the child node's columns gathered once,
 ``ops.edge_metric_arrays``).
 
 On a CUDA tensor it launches the hand-written kernel in
@@ -13,16 +13,23 @@ On a CUDA tensor it launches the hand-written kernel in
 runs the plain version ``ref.rule_search_fused_ref``.
 
 ``rule_search_span`` is the same search on the path-compressed layout:
-per walk a ``(pos, rem, ctail)`` state, one item-column gather per step
-inside a span and one compressed-bucket binary search at a CSR node, over
-position-indexed metric columns that may be quantized (int32 support
-counts, bf16 or int8 confidence and lift, widened in the kernel).  It
-launches the second kernel of ``csrc/rule_search.cu`` (replacing
+per walk a ``(pos, rem, ctail)`` state, item-column gathers inside a span
+and a compressed-bucket search at a CSR node, over position-indexed
+metric columns that may be quantized (int32 support counts, bf16 or int8
+confidence and lift, widened in the kernel).  It launches the second
+kernel of ``csrc/rule_search.cu`` (replacing
 ``repro.kernels.rule_search.rule_search_span_pallas``), or runs
-``ref.rule_search_span_ref`` on CPU tensors.  The TPU knob ``span_bf``
-sized that kernel's VMEM bucket lanes; a binary search has no lane width,
-so it has no counterpart here (as ``search_bf`` has none for the fused
-kernel).
+``ref.rule_search_span_ref`` on CPU tensors.
+
+Both kernels give each walk a group of ``ref.SEARCH_GROUP`` lanes and run
+a row's two walks at once: a bucket is read in rounds of 16-byte loads
+(pivot rounds first when it is wider than a round covers), a span run of
+up to ``SEARCH_GROUP`` items in one round, and each block stages the
+root's bucket (up to ``ref.SEARCH_ROOT_CAP`` edges) in shared memory;
+``search_launch_shape`` sizes the grid.  ``ref.rule_search_fused_group_ref``
+and ``ref.rule_search_span_group_ref`` run that design in plain PyTorch.
+The TPU knobs ``search_bf`` and ``span_bf`` sized VMEM bucket lanes and
+have no counterpart here.
 
 ``rule_search_sweep`` is the seed layout's search (a ``DeviceTrie``
 without CSR offsets): at every step each row is compared with the whole
@@ -47,7 +54,7 @@ import torch
 from . import _build
 from .rank import metric_column_args
 from .ref import (
-    SWEEP_CHUNK, SWEEP_ROWS, not_found, rule_search_fused_ref,
+    SEARCH_GROUP, SWEEP_CHUNK, SWEEP_ROWS, not_found, rule_search_fused_ref,
     rule_search_span_ref, rule_search_sweep_ref, sweep_not_found,
 )
 
@@ -55,6 +62,24 @@ from .ref import (
 # SW_BLOCKS_PER_SM; SW_R and SW_CHUNK are ref.SWEEP_ROWS and SWEEP_CHUNK)
 SWEEP_WARPS_PER_BLOCK = 8
 SWEEP_BLOCKS_PER_SM = 4
+# mirror of the descent searches' block (RS_THREADS; RS_GROUP and
+# RS_ROOT_CAP are ref.SEARCH_GROUP and SEARCH_ROOT_CAP)
+SEARCH_THREADS = 256
+
+
+def search_launch_shape(q: int) -> dict:
+    """The grid of a fused or span search over ``q`` rows: two walks a
+    row, ``SEARCH_GROUP`` lanes a walk, ``rows`` rows in a block of
+    ``SEARCH_THREADS`` threads, ``blocks`` blocks."""
+    rows = SEARCH_THREADS // (2 * SEARCH_GROUP)
+    return {"rows": rows, "blocks": -(-int(q) // rows),
+            "threads": SEARCH_THREADS}
+
+
+def _check_edge_columns(what: str, e: int, **cols) -> None:
+    for name, col in cols.items():
+        if col.shape[0] != e:
+            raise ValueError(f"{what}: {name} must have E entries")
 
 
 def rule_search_fused(
@@ -89,6 +114,10 @@ def rule_search_fused(
     )
     if ant_len.shape[0] != q:
         raise ValueError("rule_search_fused: ant_len must have Q entries")
+    e = edge_item.shape[0]
+    _check_edge_columns("rule_search_fused", e, edge_child=edge_child,
+                        edge_conf=edge_conf, edge_sup=edge_sup,
+                        edge_lift=edge_lift)
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     node, found = torch.empty((q,), **i32), torch.empty((q,), **i32)
@@ -98,9 +127,9 @@ def rule_search_fused(
         child_offsets.data_ptr(), edge_item.data_ptr(),
         edge_child.data_ptr(), edge_conf.data_ptr(), edge_sup.data_ptr(),
         edge_lift.data_ptr(), queries.data_ptr(), ant_len.data_ptr(),
-        q, width, node.data_ptr(), found.data_ptr(), conf.data_ptr(),
-        sup.data_ptr(), lift.data_ptr(), con_sup.data_ptr(),
-        _build.stream_handle(dev),
+        q, width, e, search_launch_shape(q)["blocks"], node.data_ptr(),
+        found.data_ptr(), conf.data_ptr(), sup.data_ptr(), lift.data_ptr(),
+        con_sup.data_ptr(), _build.stream_handle(dev),
     )
     _build.check(err, "rule_search_fused")
     rule_search_fused.launches += 1
@@ -157,6 +186,9 @@ def rule_search_span(
     )
     if ant_len.shape[0] != q:
         raise ValueError("rule_search_span: ant_len must have Q entries")
+    e = edge_item.shape[0]
+    _check_edge_columns("rule_search_span", e, edge_pos=edge_pos,
+                        edge_span=edge_span, edge_tail=edge_tail)
     columns = metric_column_args("rule_search_span", support, confidence,
                                  lift, **dequant)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -167,9 +199,10 @@ def rule_search_span(
     err = _build.lib("rule_search").rule_search_span_launch(
         child_offsets.data_ptr(), edge_item.data_ptr(), edge_pos.data_ptr(),
         edge_span.data_ptr(), edge_tail.data_ptr(), node_item.data_ptr(),
-        *columns, queries.data_ptr(), ant_len.data_ptr(), q, width,
-        pos.data_ptr(), found.data_ptr(), conf.data_ptr(), sup.data_ptr(),
-        lift_o.data_ptr(), con_sup.data_ptr(), _build.stream_handle(dev),
+        *columns, queries.data_ptr(), ant_len.data_ptr(), q, width, e,
+        search_launch_shape(q)["blocks"], pos.data_ptr(), found.data_ptr(),
+        conf.data_ptr(), sup.data_ptr(), lift_o.data_ptr(),
+        con_sup.data_ptr(), _build.stream_handle(dev),
     )
     _build.check(err, "rule_search_span")
     rule_search_span.launches += 1
@@ -236,12 +269,9 @@ def rule_search_sweep(
     )
     if ant_len.shape[0] != q:
         raise ValueError("rule_search_sweep: ant_len must have Q entries")
-    for name, col in (("edge_item", edge_item), ("edge_child", edge_child),
-                      ("edge_conf", edge_conf), ("edge_sup", edge_sup),
-                      ("edge_lift", edge_lift)):
-        if col.shape[0] != e:
-            raise ValueError(f"rule_search_sweep: {name} must have E "
-                             f"entries")
+    _check_edge_columns("rule_search_sweep", e, edge_item=edge_item,
+                        edge_child=edge_child, edge_conf=edge_conf,
+                        edge_sup=edge_sup, edge_lift=edge_lift)
     shape = sweep_launch_shape(q, width, e, _build.sm_count(dev))
     if shape["n_chunks"] * SWEEP_CHUNK >= 1 << 31:
         raise ValueError(f"rule_search_sweep: {e} edges, at most 2^31 - "

@@ -213,18 +213,41 @@ def test_member_kernel_every_role(member_tries, cuda, trie, layout,
                     assert not (got[1][4:6] >= 0).any()
 
 
+def _hub_edges(fan, seed):
+    """A hub trie with a ``fan``-wide root over a fanout-8 body, with its
+    edge-gathered metric columns."""
+    arrs = TS.synthetic_csr_trie(fan + 3000, root_fanout=fan, seed=seed)
+    ec = arrs["edge_child"]
+    for col, name in (("confidence", "edge_conf"), ("support", "edge_sup"),
+                      ("lift", "edge_lift")):
+        arrs[name] = arrs[col][ec]
+    return arrs
+
+
 def test_search_and_reduce_kernels(small, cuda):
     arrs, _ = small
     q, al = TS.mixed_queries(np.random.RandomState(4), arrs, 300, 6)
     names = ("child_offsets", "edge_item", "edge_child", "edge_conf",
              "edge_sup", "edge_lift")
-    args = [torch.from_numpy(arrs[n]).to(cuda) for n in names] + [
-        torch.from_numpy(q).to(cuda), torch.from_numpy(al).to(cuda)]
-    before = rule_search_fused.launches
-    got = rule_search_fused(*args, max_fanout=arrs["max_fanout"])
-    assert rule_search_fused.launches == before + 1
-    want = ref.rule_search_fused_ref(*args, max_fanout=arrs["max_fanout"])
-    _bitwise([got[k] for k in want], [want[k] for k in want])
+    # the irregular trie, then hubs whose roots take one, two and three
+    # probe rounds (and the staged root, or not), with the edge cases:
+    # absent items, interior -1, all -1 and duplicate rows, ant_len 0 and
+    # at the row's end, rows wider than a walk's group of lanes
+    cases = [(arrs, q, al)]
+    for fan in (256, 1000, 5000):
+        hub = _hub_edges(fan, fan)
+        for width in (6, 40):
+            cases.append((hub, *TS.edge_case_queries(
+                np.random.RandomState(fan + width), hub, 301, width)))
+    for tr, q, al in cases:
+        args = [torch.from_numpy(tr[n]).to(cuda) for n in names] + [
+            torch.from_numpy(q).to(cuda), torch.from_numpy(al).to(cuda)]
+        before = rule_search_fused.launches
+        got = rule_search_fused(*args, max_fanout=tr["max_fanout"])
+        assert rule_search_fused.launches == before + 1
+        want = ref.rule_search_fused_ref(*args, max_fanout=tr["max_fanout"])
+        _bitwise([got[k] for k in want], [want[k] for k in want])
+        assert bool(want["found"].any())
     cols = [torch.from_numpy(arrs[n]).to(cuda)
             for n in ("support", "confidence", "node_depth")]
     before = trie_reduce_columns.launches
@@ -495,6 +518,29 @@ def test_span_search_kernel(chain, cuda, quant):
     want = ref.rule_search_span_ref(*args, **kw)
     _bitwise([got[k] for k in want], [want[k] for k in want])
     assert bool(got["found"][0::3].all())
+    # runs longer than a walk's group of lanes, rows wider than it, a hub
+    # root too wide to stage, and the edge cases of the search rows
+    long_runs = TS.synthetic_chain_trie(6000, chain_fraction=0.8,
+                                        chain_len=80, seed=9)
+    for tr in (long_runs, _hub_edges(5000, 7)):
+        dt = TS.frozen_from_arrays(tr).device_arrays(
+            device=cuda, layout="compressed", **QUANT[quant])
+        e = TO.edge_metric_arrays(dt)
+        kw = dict(max_fanout=e["max_fanout"], **TO._dequant_statics(e))
+        for width in (9, 40):
+            q, al = TS.edge_case_queries(np.random.RandomState(width), tr,
+                                         301, width)
+            args = [e[n] for n in ("child_offsets", "edge_item", "edge_pos",
+                                   "edge_span", "edge_tail", "node_item",
+                                   "support", "confidence", "lift")]
+            args += [torch.from_numpy(q).to(cuda),
+                     torch.from_numpy(al).to(cuda)]
+            before = rule_search_span.launches
+            got = rule_search_span(*args, **kw)
+            assert rule_search_span.launches == before + 1
+            want = ref.rule_search_span_ref(*args, **kw)
+            _bitwise([got[k] for k in want], [want[k] for k in want])
+            assert bool(want["found"].any())
 
 
 @pytest.mark.parametrize("quant", sorted(QUANT))
