@@ -6,8 +6,7 @@ GPU.
     python3 chip_smoke.py [--edges N] [--seed S] [--reps R]
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, in
-   parallel, beside the latency probe ``probes/pointer_chase.cu``) and the
-   Triton reduction.
+   parallel, beside the latency probe ``probes/pointer_chase.cu``).
 2. Builds ``synthetic_csr_trie(--edges)`` (default 2^20 rules) on the host
    and uploads it.
 3. Holds every kernel against its plain PyTorch version on the card at
@@ -16,7 +15,9 @@ GPU.
    holds the root, as in the reference), whole-trie and prefix ranges,
    duplicate, nested, empty and out-of-bounds ranges (a duplicate's row
    equal to its first copy's), and a tie-heavy copy of the columns.
-   Bitwise equal, except the trie_reduce sums (1e-6 relative).
+   Bitwise equal, except the trie_reduce sums (1e-6 relative; bitwise
+   against ``ref.trie_reduce_split_ref``, the plain mirror of the
+   kernel's order, here and on every trie below).
 4. Drives the main path through ``TrieQueryEngine`` with the launch
    counters at 0, checks every kernel launched and every answer against
    the tensor oracles, and times each op (CUDA events, median of --reps
@@ -30,7 +31,9 @@ GPU.
    this data (the plain mirrors ``ref.rule_search_*_group_ref`` count it
    on the CPU) times one dependent load's latency, which a one-thread
    pointer chase measures on the card, cold (device memory) and warm
-   (L2).
+   (L2).  The reduction also gets its launch floor (the trie's first
+   4,096 nodes), a time with the L2 flushed by reading, and a row on the
+   2^23 hub trie (twice the L2), driven through ``ops.trie_reduce``.
 5. Construction: makes ``online_retail_db()`` on the host, checks that
    apriori on the card finds the itemsets host apriori and fpgrowth find,
    holds the support-count kernel against its plain version on the card
@@ -226,6 +229,46 @@ def check_same(what, got, want, errs):
         if not bitwise_equal(g, w):
             raise AssertionError(f"{what}: kernel differs from plain version"
                                  f" (max abs err {errs[-1]})")
+
+
+def check_reduce(what, support, confidence, depth, errs,
+                 n_transactions=0, confidence_scale=1.0):
+    """The reduction kernel on one trie's columns: all five outputs
+    bitwise equal to ``ref.trie_reduce_split_ref`` (the kernel's order at
+    the launch's own geometry) and to a repeated call, count and max
+    bitwise equal to ``ref.trie_reduce_ref`` and its sums within 1e-6
+    relative (each sum's error goes to ``errs``).  Returns the kernel's
+    five outputs."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.trie_reduce import (
+        launch_shape, trie_reduce_stats, vector_head,
+        vector_nodes,
+    )
+
+    cols = (support, confidence, depth)
+    rq = dict(n_transactions=n_transactions,
+              confidence_scale=confidence_scale)
+    got = trie_reduce_stats(*cols, **rq)
+    head = vector_head(*cols)[0]
+    shape = launch_shape(support.shape[0], vector_nodes(confidence.dtype),
+                         head, _build.sm_count(support.device))
+    mirror = ref.trie_reduce_split_ref(*cols, **rq, blocks=shape["blocks"],
+                                       threads=shape["threads"],
+                                       unroll=shape["unroll"],
+                                       head=head)
+    check_same(f"trie_reduce {what} (its mirror, {shape['blocks']} blocks)",
+               got, mirror, [])
+    check_same(f"trie_reduce {what} (a repeated call)",
+               trie_reduce_stats(*cols, **rq), got, [])
+    want = ref.trie_reduce_ref(*cols, **rq)
+    check_same(f"trie_reduce {what} count/max", (got[0], got[2]),
+               (want[0], want[2]), errs)
+    for g, w in ((got[1], want[1]), (got[3], want[3])):
+        errs.append(abs(float(g) - float(w)))
+        if errs[-1] > 1e-6 * abs(float(w)):
+            raise AssertionError(f"trie_reduce {what}: a sum is off by "
+                                 f"{errs[-1]} (of {float(w)})")
+    return got
 
 
 def prefixes_for(arrs, n_items, count, rng):
@@ -449,7 +492,7 @@ KERNEL_NAMES = {
     # and the match launch, and a last advance
     "rule_search_sweep": ("sweep_fingerprint_kernel", "sweep_advance_kernel",
                           "sweep_match_kernel"),
-    "trie_reduce_columns": ("partials", "fold"),
+    "trie_reduce_columns": ("trie_reduce_kernel",),
     # the pre-pass clears its scratch with a memset ("Memset (Device)")
     "support_count_bitmap": ("Memset", "support_mark_kernel",
                              "support_tile_kernel"),
@@ -863,6 +906,8 @@ def construction_phase(args, dev, l2_flush):
     node = res["search"]["node"].cpu().numpy()
     if not found.all() or not np.array_equal(node, np.arange(1, n)):
         raise AssertionError("construct serve: a mined rule was not found")
+    check_reduce("retail", engine.dt.support, engine.dt.confidence,
+                 engine.dt.node_depth, [])
     log(f"[construct serve] all {int(found.sum())} rules found at their "
         f"nodes; every answer equals the oracles")
     op_ms = time_ops(engine, queries, ant_len, prefixes, items, reps)
@@ -1261,24 +1306,22 @@ def compressed_phase(args, dev, l2_flush, retail, retail_n_tx, lat):
                     (absent[:, 0] == 0).all()):
                 raise AssertionError(f"compress {tag}: the item -1's "
                                      f"consequent row lost the root")
-        rq = dict(n_transactions=dq["n_transactions"],
-                  confidence_scale=dq["confidence_scale"])
-        got = trie_reduce_columns(dt.support, dt.confidence, dt.node_depth,
-                                  **rq)
-        want = ref.trie_reduce_ref(dt.support, dt.confidence, dt.node_depth,
-                                   **rq)
-        e = errs.setdefault(("trie_reduce_columns", tag), [])
-        check_same(f"trie_reduce {tag} count/max", (got[0], got[2]),
-                   (want[0], want[2]), e)
-        for g, w in ((got[1], want[1]), (got[3], want[3])):
-            e.append(abs(float(g) - float(w)))
-            if abs(float(g) - float(w)) > 1e-6 * abs(float(w)):
-                raise AssertionError(f"trie_reduce {tag} sum off")
-        # the op answers are the kernel answers mapped back to node ids
+        got = check_reduce(
+            f"chain {tag}", dt.support, dt.confidence, dt.node_depth,
+            errs.setdefault(("trie_reduce_columns", tag), []),
+            n_transactions=dq["n_transactions"],
+            confidence_scale=dq["confidence_scale"])
+        # the op's answers are the kernel's, the mean as the op computed
+        # it before the kernel wrote it
         red = res[tag]["reduce"]
-        if not (bitwise_equal(red["n_rules"], got[0])
-                and bitwise_equal(red["confidence_max"], got[2])):
-            raise AssertionError(f"compress {tag}: trie_reduce op != kernel")
+        for key, i in (("n_rules", 0), ("support_sum", 1),
+                       ("confidence_max", 2), ("mean_conf", 4)):
+            if not bitwise_equal(red[key], got[i]):
+                raise AssertionError(f"compress {tag}: trie_reduce op "
+                                     f"{key} != kernel")
+        if not bitwise_equal(red["mean_conf"], got[3] / got[0].clamp(min=1)):
+            raise AssertionError(f"compress {tag}: mean_conf != "
+                                 f"conf_sum / n.clamp(min=1)")
     torch.cuda.synchronize()
     log("[compress] every span, rank, membership and reduce call equals "
         "its plain version on the card, on the f32, i32+bf16 and i32+int8 "
@@ -1442,8 +1485,8 @@ def compressed_phase(args, dev, l2_flush, retail, retail_n_tx, lat):
                                             dt.node_depth, **rq),
                 lambda: ref.trie_reduce_ref(dt.support, dt.confidence,
                                             dt.node_depth, **rq),
-                ((es_s + es_c + 4) * n + 16, 4 * n),
-                "triton", "src/repro_torch/kernels/trie_reduce.py",
+                ((es_s + es_c + 4) * n + 20, 4 * n),
+                "cuda", "src/repro_torch/kernels/csrc/trie_reduce.cu",
                 "src/repro/kernels/trie_reduce.py:50"),
         }
         for name, (kern, plain, work, *where) in calls.items():
@@ -1675,6 +1718,72 @@ def latency_floor(row, chain, lat):
         f"{lat['warm_ns']:.1f} ns warm); device {row['ms']:.4f} ms")
 
 
+def reduce_rows(main_row, dt, dev, l2_flush, reps, seed):
+    """Row 4's yardsticks beside the main path's reduction row: its launch
+    floor (the kernel over the trie's first 4,096 nodes: its fixed cost)
+    and, on a row of its own, the 2^23 hub trie (twice the L2: the
+    streaming rate), driven through ``ops.trie_reduce`` with the counters
+    at 0 and held to its mirror and plain version.  Each row also gets
+    ``clean_l2_ms``: device ms with the L2 flushed by reading (full of
+    clean lines) instead of writing, where no write-back of the flush's
+    dirty lines shares device memory with the kernel's reads."""
+    import torch
+    from repro_torch.core import synthetic
+    from repro_torch.kernels import launch_counts, ops, ref
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.trie_reduce import trie_reduce_columns
+
+    name = "trie_reduce_columns"
+    sink = torch.empty((1,), dtype=torch.float32, device=dev)
+
+    def clean_flush():
+        torch.sum(l2_flush, 0, keepdim=True, out=sink)
+
+    def clean_ms(cols):
+        return device_ms(lambda: trie_reduce_columns(*cols), reps,
+                         clean_flush, kernel=KERNEL_NAMES[name])
+
+    cols = (dt.support, dt.confidence, dt.node_depth)
+    main_row["clean_l2_ms"] = clean_ms(cols)
+    head = tuple(c[:4096] for c in cols)
+    check_reduce("hub, first 4,096 nodes", *head, [])
+    main_row["launch_floor_ms"] = device_ms(
+        lambda: trie_reduce_columns(*head), reps, l2_flush.zero_,
+        kernel=KERNEL_NAMES[name])
+    log(f"[kernel] {name}: launch floor (4,096 nodes) "
+        f"{main_row['launch_floor_ms']} ms device; {main_row['ms']} ms at "
+        f"{cols[0].shape[0]} nodes, {main_row['clean_l2_ms']} ms with a "
+        f"clean L2")
+    if dt.support.shape[0] < (1 << 23):
+        dt = synthetic.frozen_from_arrays(synthetic.synthetic_csr_trie(
+            1 << 23, seed=seed)).device_arrays(device=dev)
+        cols = (dt.support, dt.confidence, dt.node_depth)
+    errs = []
+    got = check_reduce("hub 2^23", *cols, errs)
+    reset_launch_counts()
+    op = ops.trie_reduce(dt)
+    torch.cuda.synchronize()
+    launches = launch_counts()[name]
+    if launches != 1:
+        raise AssertionError(f"trie_reduce on 2^23: {launches} launches")
+    for key, i in (("n_rules", 0), ("support_sum", 1),
+                   ("confidence_max", 2), ("mean_conf", 4)):
+        if not bitwise_equal(op[key], got[i]):
+            raise AssertionError(f"trie_reduce on 2^23: op {key} != kernel")
+    n = cols[0].shape[0]
+    row = kernel_row(
+        name, lambda: trie_reduce_columns(*cols),
+        lambda: ref.trie_reduce_ref(*cols), (12 * n + 20, 4 * n),
+        ("cuda", "src/repro_torch/kernels/csrc/trie_reduce.cu",
+         "src/repro/kernels/trie_reduce.py:50"), launches, max(errs), reps,
+        l2_flush.zero_, label=f"{name} [2^23 hub]")
+    row["clean_l2_ms"] = clean_ms(cols)
+    row["op_ms"] = cuda_ms(lambda: ops.trie_reduce(dt), reps)
+    log(f"[kernel] {row['name']}: {row['clean_l2_ms']} ms device with a "
+        f"clean L2; ops.trie_reduce {row['op_ms']:.4f} ms (events)")
+    return row
+
+
 def descent_cases(dev, retail, retail_n_tx, seed):
     """Both descent kernels against their plain versions past the main
     path's tries, bitwise: the retail trie's root paths (fused on its plain
@@ -1879,6 +1988,7 @@ def seed_phase(args, dev, l2_flush, main_trie):
         g, w = float(res["reduce"][key]), float(want["reduce"][key])
         if abs(g - w) > 1e-6 * abs(w):
             raise AssertionError(f"seed: trie_reduce {key} {g} vs {w}")
+    check_reduce("seed", seed.support, seed.confidence, seed.node_depth, [])
     found = res["search"]["found"]
     log(f"[seed] every answer == the CSR layout's, bitwise "
         f"({int(found.sum())} of {rows.shape[0]} rows found)")
@@ -2128,17 +2238,9 @@ def main():
     want = ref.rule_search_fused_ref(*e_args, max_fanout=edges["max_fanout"])
     check_same("rule_search_fused", [got[k] for k in want],
                [want[k] for k in want], errs["rule_search_fused"])
-    for cols, tag in (((dt.support, dt.confidence), "plain"),
-                      (tie_heavy((dt.support, dt.confidence)), "ties")):
-        got = trie_reduce_columns(*cols, dt.node_depth)
-        want = ref.trie_reduce_ref(*cols, dt.node_depth)
-        check_same(f"trie_reduce {tag} count/max", (got[0], got[2]),
-                   (want[0], want[2]), errs["trie_reduce_columns"])
-        for g, w in ((got[1], want[1]), (got[3], want[3])):
-            rel = abs(float(g) - float(w)) / max(abs(float(w)), 1e-30)
-            errs["trie_reduce_columns"].append(abs(float(g) - float(w)))
-            if rel > 1e-6:
-                raise AssertionError(f"trie_reduce {tag} sum off by {rel}")
+    for cols, tag in (((dt.support, dt.confidence), "hub"),
+                      (tie_heavy((dt.support, dt.confidence)), "hub ties")):
+        check_reduce(tag, *cols, dt.node_depth, errs["trie_reduce_columns"])
     torch.cuda.synchronize()
     log(f"[parity] every kernel equals its plain version "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -2196,7 +2298,7 @@ def main():
             queries.size * 4 + ant_len.size * 4 + 24 * queries.shape[0]
             + 28 * main_steps + 20 * cons_steps,
             queries.shape[0] * 8),
-        "trie_reduce_columns": (12 * n + 16, 4 * n),
+        "trie_reduce_columns": (12 * n + 20, 4 * n),
     }
     sources = {
         "topk_rank_batch": ("cuda", "src/repro_torch/kernels/csrc/rank.cu",
@@ -2205,7 +2307,7 @@ def main():
             "cuda", "src/repro_torch/kernels/csrc/rule_search.cu",
             "src/repro/kernels/rule_search.py:333"),
         "trie_reduce_columns": (
-            "triton", "src/repro_torch/kernels/trie_reduce.py",
+            "cuda", "src/repro_torch/kernels/csrc/trie_reduce.cu",
             "src/repro/kernels/trie_reduce.py:50"),
     }
     # "ms" and "plain_ms" are device time from a profiler trace, the 50 MB
@@ -2228,6 +2330,8 @@ def main():
         f"{CHASE_STEPS} loads")
     latency_floor(rows[list(calls).index("rule_search_fused")],
                   chain_rounds(ref.rule_search_fused_group_ref, e_args), lat)
+    rows.append(reduce_rows(rows[list(calls).index("trie_reduce_columns")],
+                            dt, dev, l2_flush, reps, args.seed))
     rank_row = rows[list(calls).index("topk_rank_batch")]
     log(f"[kernel] topk_rank_batch: {rank_row['ms']:.4f} ms device against "
         f"its bound {rank_row['bound_ms']:.5f} ms and the earlier design's "

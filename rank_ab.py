@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the selection, support-count, full-sweep and descent-search
-kernels of two or more checkouts of the port on one NVIDIA GPU, in turns, at
-``chip_smoke.py``'s main-path shapes: the port's A/B timer.
+"""Time the selection, support-count, full-sweep, descent-search and
+reduction kernels of two or more checkouts of the port on one NVIDIA GPU,
+in turns, at ``chip_smoke.py``'s main-path shapes: the port's A/B timer.
 
     python3 rank_ab.py TREE [TREE ...] [--edges N] [--reps R]
-                       [--lanes rank,member,chain,support,sweep,search]
+                       [--lanes rank,member,chain,support,sweep,search,
+                                reduce]
 
 Each TREE is the root of a checkout (a directory holding
 ``src/repro_torch``); list them in the order to run, e.g. ``parent
@@ -38,11 +39,18 @@ its own process, which builds that tree's kernels into the tree's own
   each with CUDA events around one call beside it, and around one
   ``ops.rule_search_batch`` over the same rows (``_op_ms``, host prep
   included); and the fused kernel over as many all-padding rows (no
-  walk takes a step: its fixed cost).
+  walk takes a step: its fixed cost);
+- ``trie_reduce_columns`` on ``synthetic_csr_trie(2^20)`` and
+  ``synthetic_csr_trie(2^23)`` (twice the L2: the streaming rate), on
+  the first 4,096 nodes of the first (its fixed cost), and on the chain
+  trie compressed with f32, int32 + bf16 and int32 + int8 columns, by the
+  kernel names of either version (two Triton kernels, or one CUDA
+  kernel), each with CUDA events around one call beside it, and around
+  one ``ops.trie_reduce`` on each hub trie (``_op_ms``).
 
 ``--lanes`` picks a subset: ``rank`` and ``member`` on the 2^20 trie,
 ``chain`` on the chain trie, ``support``, ``sweep`` (always on a 2^20
-trie), ``search``.  Every tree's answers are
+trie), ``search``, ``reduce``.  Every tree's answers are
 checked against its plain versions.  Prints one JSON line per run and,
 last, the card's name and power limit.
 """
@@ -70,7 +78,10 @@ SWEEP_KERNELS = ("rule_search_sweep_kernel", "sweep_fingerprint_kernel",
 # the two descent searches' kernels, by name in either version
 SEARCH_KERNELS = ("rule_search_fused_kernel", "rule_search_span_kernel")
 SEARCH_KEYS = ("found", "confidence", "support", "lift", "con_support")
-LANES = ("rank", "member", "chain", "support", "sweep", "search")
+# the traversal reduction's kernels in either version: two Triton kernels,
+# or the one CUDA kernel
+REDUCE_KERNELS = ("partials", "fold", "trie_reduce_kernel")
+LANES = ("rank", "member", "chain", "support", "sweep", "search", "reduce")
 
 
 def one(tree, edges, reps, lanes):
@@ -109,6 +120,8 @@ def one(tree, edges, reps, lanes):
         sweep_lane(cs, dev, timed, out, reps)
     if "search" in lanes:
         search_lane(cs, dev, timed, out, edges, reps)
+    if "reduce" in lanes:
+        reduce_lane(cs, dev, flush, out, reps)
     print(json.dumps(out), flush=True)
 
 
@@ -226,6 +239,52 @@ def search_lane(cs, dev, timed, out, edges, reps):
         ce = ops.edge_metric_arrays(cdt)
         out[name + "_op_ms"] = cs.cuda_ms(
             lambda: ops.rule_search_batch(cdt, cq, cal, edges=ce), reps)
+
+
+def reduce_lane(cs, dev, flush, out, reps):
+    import torch
+
+    from repro_torch.core import synthetic
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.trie_reduce import trie_reduce_columns
+
+    def timed_reduce(name, cols, **kw):
+        # count and max bitwise, the sums to 1e-6 relative: the plain
+        # version adds in another order
+        got = trie_reduce_columns(*cols, **kw)
+        want = ref.trie_reduce_ref(*cols, **kw)
+        for i in range(4):
+            g, w = float(got[i]), float(want[i])
+            if not (cs.bitwise_equal(got[i], want[i]) if i in (0, 2)
+                    else abs(g - w) <= 1e-6 * abs(w)):
+                raise AssertionError(f"{name}: output {i} {g} vs {w}")
+        out[name] = cs.device_ms(lambda: trie_reduce_columns(*cols, **kw),
+                                 reps, flush, kernel=REDUCE_KERNELS)
+        out[name + "_call_ms"] = cs.cuda_ms(
+            lambda: trie_reduce_columns(*cols, **kw), reps)
+
+    for edges, tag in ((1 << 20, "hub20"), (1 << 23, "hub23")):
+        dt = synthetic.frozen_from_arrays(synthetic.synthetic_csr_trie(
+            edges, seed=0)).device_arrays(device=dev)
+        cols = (dt.support, dt.confidence, dt.node_depth)
+        timed_reduce(f"reduce_{tag}", cols)
+        # the op around it: the wrapper's host work and every launch
+        out[f"reduce_{tag}_op_ms"] = cs.cuda_ms(lambda: ops.trie_reduce(dt),
+                                                reps)
+        if tag == "hub20":
+            # 4,096 nodes: what a launch costs whatever its work
+            timed_reduce("reduce_floor4096", tuple(c[:4096] for c in cols))
+        del dt, cols
+        torch.cuda.empty_cache()
+    cfz = synthetic.frozen_from_arrays(synthetic.synthetic_chain_trie(
+        1 << 20, chain_fraction=0.75, seed=3))
+    for tag in cs.QUANT:
+        cdt = cfz.device_arrays(device=dev, **cs.QUANT[tag])
+        dq = ops._dequant_statics(cdt)
+        timed_reduce(f"reduce_chain_{tag.replace('+', '_')}",
+                     (cdt.support, cdt.confidence, cdt.node_depth),
+                     n_transactions=dq["n_transactions"],
+                     confidence_scale=dq["confidence_scale"])
 
 
 def query_lanes(cs, dev, timed, edges, lanes):

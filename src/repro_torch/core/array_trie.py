@@ -1162,6 +1162,15 @@ def top_n_nodes(trie: DeviceTrie, metric: torch.Tensor, n: int,
     return vals[:n], ids[:n].to(torch.int32)
 
 
+def ieee_amax(values: torch.Tensor) -> torch.Tensor:
+    """The max of a non-empty f32 tensor as ``jnp.max`` takes it (IEEE 754
+    maximum): a NaN propagates and +0.0 is above -0.0, where ``amax``
+    alone keeps whichever zero it meets first."""
+    mx = values.amax()
+    pos_zero = ((values == 0) & ~torch.signbit(values)).any()
+    return torch.where((mx == 0) & pos_zero, torch.zeros_like(mx), mx)
+
+
 def traverse_reduce(trie: DeviceTrie) -> Dict[str, torch.Tensor]:
     """Visit every rule once: count, Σ support, max confidence (0 when no
     rule is live), and mean confidence.  Layout-agnostic: quantized
@@ -1170,7 +1179,7 @@ def traverse_reduce(trie: DeviceTrie) -> Dict[str, torch.Tensor]:
     mask = trie.node_depth > 0
     n = mask.sum(dtype=torch.int32)
     masked_conf = torch.where(mask, conf_col, -torch.inf)
-    conf_max = masked_conf.amax() if mask.numel() else masked_conf.sum()
+    conf_max = ieee_amax(masked_conf) if mask.numel() else masked_conf.sum()
     return {
         "n_rules": n,
         "support_sum": torch.where(mask, sup_col, 0.0).sum(),

@@ -8,7 +8,7 @@ hand-written for Hopper, and the ops over them.
 - ``rule_search.rule_search_sweep`` the full-sweep search of the seed
   layout, without CSR offsets (CUDA)
 - ``item_index.rules_with_member``  item-membership top-k (CUDA)
-- ``trie_reduce.trie_reduce_columns`` masked traversal reduction (Triton)
+- ``trie_reduce.trie_reduce_columns`` masked traversal reduction (CUDA)
 - ``support_count.support_count_bitmap`` itemset support over the vertical
   transaction bitmaps (CUDA)
 
@@ -25,7 +25,7 @@ from .rule_search import (
 )
 from .support_count import support_count_bitmap
 from .trie_reduce import trie_reduce_columns
-from .tuning import KernelConfig, launch_pad
+from .tuning import launch_pad
 from .ops import (
     InvalidQueryError,
     TransientBackendError,
@@ -75,7 +75,6 @@ __all__ = [
     "RANK_METRICS",
     "ROLES",
     "InvalidQueryError",
-    "KernelConfig",
     "TransientBackendError",
     "TrieQueryError",
     "annotate_candidates",

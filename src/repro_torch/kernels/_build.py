@@ -67,6 +67,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             _P, _P, _P, _P, _P, _P,
         ),
     },
+    "trie_reduce": {
+        "trie_reduce_launch": (*_COLUMNS, _P, _I, _I, _I, _I, _P, _P, _P),
+    },
     "support_count": {
         "support_prepass_launch": (_P, _I, _I, _I, _P, _P, _P),
         "support_count_launch": (

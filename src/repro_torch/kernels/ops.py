@@ -8,7 +8,7 @@ kernels: query validation, canonicalization and dedup, the prefix
 descent (``child_lookup``), and the position-to-node back-maps.  Each op
 then makes one kernel call (``rank.topk_rank_batch``,
 ``rule_search.rule_search_fused``, ``item_index.rules_with_member`` or
-``trie_reduce.trie_reduce_columns``), which on CUDA tensors launches the
+``trie_reduce.trie_reduce_stats``), which on CUDA tensors launches the
 hand-written kernel and on CPU tensors runs its plain version.
 
 ``support_count`` and ``annotate_candidates`` make one
@@ -54,7 +54,7 @@ from .ref import members_from_candidates  # noqa: F401  (the reference's ops nam
 from .ref import rules_with_ref, topk_rank_batch_ref
 from .rule_search import rule_search_fused, rule_search_span, rule_search_sweep
 from .support_count import support_count_bitmap
-from .trie_reduce import trie_reduce_columns
+from .trie_reduce import trie_reduce_stats
 from .tuning import launch_pad
 
 
@@ -948,10 +948,11 @@ def rules_with(
 # ----------------------------------------------------------------------
 def trie_reduce(trie, device=None) -> Dict[str, torch.Tensor]:
     """The visit-every-rule pass: ``n_rules``, ``support_sum``,
-    ``confidence_max`` and ``mean_conf`` as f32 scalars."""
+    ``confidence_max`` and ``mean_conf`` as f32 scalars, all four from the
+    reduction's one launch (the mean ``Σ confidence / max(n, 1)`` too)."""
     dt = _device_trie(trie, device)
     dq = _dequant_statics(dt)
-    n, sup_sum, conf_max, conf_sum = trie_reduce_columns(
+    n, sup_sum, conf_max, _, mean = trie_reduce_stats(
         dt.support, dt.confidence, dt.node_depth,
         n_transactions=dq["n_transactions"],
         confidence_scale=dq["confidence_scale"],
@@ -960,5 +961,5 @@ def trie_reduce(trie, device=None) -> Dict[str, torch.Tensor]:
         "n_rules": n,
         "support_sum": sup_sum,
         "confidence_max": conf_max,
-        "mean_conf": conf_sum / n.clamp(min=1.0),
+        "mean_conf": mean,
     }

@@ -21,7 +21,9 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.core.array_trie import bucket_edge_lookup, span_step
+from repro_torch.core.array_trie import (
+    bucket_edge_lookup, ieee_amax, span_step,
+)
 
 from .metrics_inkernel import compound_lift, dequantize_metrics, rank_score
 
@@ -1181,7 +1183,8 @@ def rule_search_span_group_ref(
 def trie_reduce_ref(support, confidence, depth, n_transactions: int = 0,
                     confidence_scale: float = 1.0):
     """``(n_rules, Σ support, max confidence, Σ confidence)`` as f32
-    scalars over the nodes at ``depth > 0``; max is 0 when none is.
+    scalars over the nodes at ``depth > 0``; max is 0 when none is, and
+    IEEE 754's maximum otherwise (a NaN propagates, +0.0 above -0.0).
     Quantized columns widen first (lift plays no part)."""
     if support.shape[0] == 0:
         z = torch.zeros((), dtype=torch.float32, device=support.device)
@@ -1192,7 +1195,134 @@ def trie_reduce_ref(support, confidence, depth, n_transactions: int = 0,
     mask = depth > 0
     n = mask.sum().to(torch.float32)
     sup_sum = torch.where(mask, support, 0.0).sum()
-    conf_max = torch.where(n > 0, torch.where(mask, confidence, -torch.inf)
-                           .amax(), 0.0)
+    conf_max = torch.where(
+        n > 0, ieee_amax(torch.where(mask, confidence, -torch.inf)), 0.0)
     conf_sum = torch.where(mask, confidence, 0.0).sum()
     return n, sup_sum, conf_max, conf_sum
+
+
+_KEY_NONE = -(1 << 31)   # below every max key: no live node
+
+
+def max_key_ref(x):
+    """``csrc/trie_reduce.cu::max_key``: f32 values as int32 keys in IEEE
+    754's total order (-0.0 below +0.0), a NaN of either sign made
+    positive (above +inf), so that an integer max is the IEEE maximum."""
+    b = torch.where(torch.isnan(x), x.abs(), x).view(torch.int32)
+    return b ^ ((b >> 31) & 0x7FFFFFFF)
+
+
+def from_key_ref(k):
+    """The f32 value of a ``max_key_ref`` key."""
+    return (k ^ ((k >> 31) & 0x7FFFFFFF)).view(torch.float32)
+
+
+def _block_fold_ref(count, sup, kmax, csum, threads: int):
+    """``csrc/trie_reduce.cu::block_fold`` over ``[B, threads]`` running
+    values, one row a block: the xor butterfly in each warp (lane 0's
+    values kept), then the warps added in warp order to the identity."""
+    rows = count.shape[0]
+    vals = [v.reshape(rows, threads // 32, 32)
+            for v in (count, sup, kmax, csum)]
+    lanes = torch.arange(32, device=count.device)
+    for o in (16, 8, 4, 2, 1):
+        vals = _fold(vals, [v[..., lanes ^ o] for v in vals])
+    lane0 = [v[..., 0] for v in vals]
+    acc = _fold_identity(rows, count.device)
+    for w in range(threads // 32):
+        acc = _fold(acc, [v[:, w] for v in lane0])
+    return acc
+
+
+def _fold_identity(rows: int, device):
+    z = torch.zeros((rows,), dtype=torch.float32, device=device)
+    return [torch.zeros((rows,), dtype=torch.int64, device=device), z,
+            torch.full((rows,), _KEY_NONE, dtype=torch.int32, device=device),
+            z.clone()]
+
+
+def _fold(a, b):
+    return [a[0] + b[0], a[1] + b[1], torch.maximum(a[2], b[2]),
+            a[3] + b[3]]
+
+
+def trie_reduce_split_ref(support, confidence, depth, n_transactions: int = 0,
+                          confidence_scale: float = 1.0, *, blocks: int,
+                          threads: int, unroll: int, head: int = 0):
+    """``csrc/trie_reduce.cu``'s association order in plain PyTorch:
+    ``(n_rules, Σ support, max confidence, Σ confidence, mean)`` over
+    ``blocks`` blocks of ``threads`` threads, ``unroll`` vectors a thread
+    per tile, whole vectors from node ``head`` (a vector is 16 bytes of
+    the confidence column, ``trie_reduce.vector_nodes``).  Node ``j <
+    head`` goes to global thread ``j`` first; vector ``v`` of tile ``t =
+    v // (threads * unroll)`` to thread ``v % threads`` of block ``t %
+    blocks``; tail node ``j`` after the last whole vector to global thread
+    ``j`` last.  A thread adds its nodes in that order; the blocks fold as
+    ``_block_fold_ref`` folds them, then thread ``i`` of the last block
+    folds the partials of blocks ``i, i + threads, ...`` in turn, and
+    those fold the same way (with one block, the same bits as its own
+    fold).  The max is the integer max of ``max_key_ref``: IEEE 754's
+    maximum, a NaN max being the largest ``|NaN|`` among the live values.
+    Bitwise the kernel's at the same geometry, on the same device."""
+    dev = support.device
+    n = support.shape[0]
+    if n == 0:
+        z = torch.zeros((5,), dtype=torch.float32, device=dev)
+        return z[0], z[1], z[2], z[3], z[4]
+    sup, conf, _ = dequantize_metrics(
+        support, confidence, confidence, n_transactions, confidence_scale,
+        confidence_scale)
+    vec = 16 // confidence.element_size()
+    head = min(int(head), n)
+    nv = (n - head) // vec
+    tail0 = head + nv * vec
+    tile = threads * unroll
+    tiles = -(-nv // tile)
+    rounds = -(-tiles // blocks)
+    width = 2 + rounds * unroll * vec    # the head, the vectors, the tail
+    # slot[p, k]: the node thread p adds k-th; n (an identity node) pads
+    slot = torch.full((blocks * threads, width), n, dtype=torch.long,
+                      device=dev)
+    ar = torch.arange(nv * vec, device=dev)
+    v, e = ar // vec, ar % vec
+    t, r = v // tile, v % tile
+    thread = (t % blocks) * threads + r % threads
+    col = 1 + ((t // blocks) * unroll + r // threads) * vec + e
+    slot[thread, col] = head + ar
+    edge = torch.arange(head, device=dev)
+    slot[edge, 0] = edge
+    edge = torch.arange(n - tail0, device=dev)
+    slot[edge, width - 1] = tail0 + edge
+
+    def ext(x, pad):
+        return torch.cat([x, torch.full((1,), pad, dtype=x.dtype,
+                                        device=dev)])
+
+    live = ext(depth, 0)[slot] > 0
+    s_vals = torch.where(live, ext(sup, 0.0)[slot], 0.0)
+    c_vals = torch.where(live, ext(conf, 0.0)[slot], 0.0)
+    acc = _fold_identity(blocks * threads, dev)
+    acc[0] = live.sum(1)
+    # the max is an integer max of keys: exact in any order
+    acc[2] = torch.where(live, max_key_ref(ext(conf, 0.0)[slot]),
+                         _KEY_NONE).amax(1)
+    for k in range(width):
+        acc[1] = acc[1] + s_vals[:, k]
+        acc[3] = acc[3] + c_vals[:, k]
+    part = _block_fold_ref(*[a.reshape(blocks, threads) for a in acc],
+                           threads)
+    # the last block: thread i folds blocks i, i + threads, ... in turn
+    per = -(-blocks // threads)
+    pad = per * threads - blocks
+    ident = _fold_identity(pad, dev)
+    part = [torch.cat([p, q]).reshape(per, threads)
+            for p, q in zip(part, ident)]
+    acc = _fold_identity(threads, dev)
+    for k in range(per):
+        acc = _fold(acc, [p[k] for p in part])
+    count, sup_sum, kmax, csum = _block_fold_ref(
+        *[a.reshape(1, threads) for a in acc], threads)
+    n_rules = count[0].to(torch.float32)
+    conf_max = torch.where(count[0] > 0, from_key_ref(kmax[0]), 0.0)
+    mean = csum[0] / torch.clamp(n_rules, min=1.0)
+    return n_rules, sup_sum[0], conf_max, csum[0], mean

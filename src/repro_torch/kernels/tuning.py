@@ -1,22 +1,12 @@
-"""Launch knobs of the port's kernels, and the batched-launch row pad.
+"""The batched-launch row pad.
 
-Defaults only: no tuning table, no autotune.  The reference's TPU knobs
-``rank_bn``, ``search_bf``, ``span_bf`` and ``posting_window_edges`` size
-VMEM tiles and have no counterpart here; the CUDA kernels fix their own tile sizes at
-compile time (``csrc/topk_select.cuh``).
+No tuning table, no autotune.  The reference's TPU knobs ``rank_bn``,
+``reduce_bn``, ``search_bf``, ``span_bf`` and ``posting_window_edges`` size
+VMEM tiles and have no counterpart here; the CUDA kernels fix their own
+tile sizes at compile time and their wrappers size the grids
+(``rank.launch_shape``, ``trie_reduce.launch_shape``, ...).
 """
 from __future__ import annotations
-
-import dataclasses
-
-
-@dataclasses.dataclass(frozen=True)
-class KernelConfig:
-    # elements per Triton program in the traversal reduction's first pass
-    reduce_block: int = 4096
-
-
-DEFAULTS = KernelConfig()
 
 
 def launch_pad(n: int) -> int:

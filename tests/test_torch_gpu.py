@@ -1,6 +1,7 @@
 """The port's hand-written kernels on the card, each against its plain
-PyTorch version, bitwise (the trie_reduce sums to 1e-6 relative), with
-its launch counter.  Marked ``gpu``: they skip where no CUDA GPU is
+PyTorch version, bitwise (the trie_reduce sums to 1e-6 relative, and
+bitwise against the plain mirror of the kernel's order), with its launch
+counter.  Marked ``gpu``: they skip where no CUDA GPU is
 visible.  This module imports neither JAX nor the reference package, so
 on a GPU host without JAX it runs alone:
 
@@ -21,7 +22,10 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.item_index import rules_with_member  # noqa: E402
 from repro_torch.kernels.rank import topk_rank_batch  # noqa: E402
 from repro_torch.kernels.rule_search import rule_search_fused  # noqa: E402
-from repro_torch.kernels.trie_reduce import trie_reduce_columns  # noqa: E402
+from repro_torch.kernels.trie_reduce import (  # noqa: E402
+    launch_shape, trie_reduce_columns, trie_reduce_stats,
+    vector_head, vector_nodes,
+)
 from repro_torch.serve import TrieQueryEngine  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -30,7 +34,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA and Triton kernels have "
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have "
                     "no CPU mode")
     return torch.device("cuda")
 
@@ -251,12 +255,107 @@ def test_search_and_reduce_kernels(small, cuda):
     cols = [torch.from_numpy(arrs[n]).to(cuda)
             for n in ("support", "confidence", "node_depth")]
     before = trie_reduce_columns.launches
-    got = trie_reduce_columns(*cols)
-    assert trie_reduce_columns.launches == before + 1
-    want = ref.trie_reduce_ref(*cols)
-    _bitwise((got[0], got[2]), (want[0], want[2]))
+    _check_reduce(cols)
+    assert trie_reduce_columns.launches == before + 2
+
+
+def _check_reduce(cols, **rq):
+    """The reduction kernel on ``cols``: all five outputs bitwise its
+    mirror ``ref.trie_reduce_split_ref`` at the launch's geometry and a
+    repeated call, count and max bitwise the plain version (NaN where
+    NaN), sums within 1e-6 relative, the mean bitwise the sums' own
+    ``conf_sum / n.clamp(min=1.0)``."""
+    got = trie_reduce_stats(*cols, **rq)
+    head = vector_head(*cols)[0]
+    shape = launch_shape(cols[0].shape[0], vector_nodes(cols[1].dtype), head,
+                         _build.sm_count(cols[0].device))
+    mirror = ref.trie_reduce_split_ref(*cols, **rq, blocks=shape["blocks"],
+                                       threads=shape["threads"],
+                                       unroll=shape["unroll"],
+                                       head=head)
+    _bitwise(got, mirror)
+    _bitwise(trie_reduce_stats(*cols, **rq), got)
+    want = ref.trie_reduce_ref(*cols, **rq)
+    _bitwise((got[0],), (want[0],))
+    assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32)) \
+        or bool(got[2].isnan() & want[2].isnan())
     for i in (1, 3):
-        torch.testing.assert_close(got[i], want[i], rtol=1e-6, atol=0)
+        torch.testing.assert_close(got[i], want[i], rtol=1e-6, atol=0,
+                                   equal_nan=True)
+    _bitwise((got[4],), (got[3] / got[0].clamp(min=1.0),))
+    return got
+
+
+def test_reduce_kernel_views_sizes_and_values(cuda):
+    """Views at storage offsets (a head, and offsets with no common
+    aligned node), tries shorter than a vector, every storage pair, dead
+    tries and NaN, inf and signed-zero confidences."""
+    rng = np.random.RandomState(12)
+    pairs = ((torch.float32, torch.float32), (torch.int32, torch.bfloat16),
+             (torch.int32, torch.int8), (torch.bfloat16, torch.bfloat16),
+             (torch.bfloat16, torch.int8))
+    for st, ct in pairs:
+        rq = dict(n_transactions=1000, confidence_scale=0.0078125)
+        for n in (1, 3, 15, 16, 17, 4095, 4097, 300_001):
+            m = n + 3
+            sup = (torch.from_numpy(rng.randint(0, 1000, m).astype(np.int32))
+                   if st == torch.int32 else
+                   torch.from_numpy(rng.rand(m).astype(np.float32)).to(st))
+            conf = (torch.from_numpy(rng.randint(0, 128, m).astype(np.int8))
+                    if ct == torch.int8 else
+                    torch.from_numpy(rng.rand(m).astype(np.float32)).to(ct))
+            depth = torch.from_numpy(rng.randint(-1, 6, m).astype(np.int32))
+            sup, conf, depth = sup.to(cuda), conf.to(cuda), depth.to(cuda)
+            for off in ((0, 0, 0), (1, 1, 1), (3, 3, 3), (1, 0, 2)):
+                cols = [c[o:o + n] for c, o in zip((sup, conf, depth), off)]
+                _check_reduce(cols, **rq)
+                _check_reduce([cols[0], cols[1], torch.zeros_like(cols[2])],
+                              **rq)
+    n = 5000
+    sup = torch.rand(n, device=cuda)
+    depth = torch.randint(-1, 4, (n,), device=cuda, dtype=torch.int32)
+    for case in ("nan", "inf", "-0", "+0 among -0"):
+        conf = torch.rand(n, device=cuda)
+        if case in ("nan", "inf"):
+            conf[::97] = float(case)
+        else:
+            conf[:] = -0.0
+        if case == "+0 among -0":
+            conf[4000] = 0.0
+            depth[4000] = 1
+        got = _check_reduce([sup, conf, depth])
+        if case.startswith("+0"):
+            assert not bool(torch.signbit(got[2]))
+        elif case == "-0":
+            assert bool(torch.signbit(got[2])) and float(got[2]) == 0.0
+
+
+def test_reduce_kernel_is_one_launch(cuda):
+    """One launch of one kernel a call (its scratch zeroed once a stream);
+    the same bits on another stream."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    arrs = TS.synthetic_csr_trie(100_000, seed=2)
+    cols = [torch.from_numpy(arrs[n]).to(cuda)
+            for n in ("support", "confidence", "node_depth")]
+    first = trie_reduce_stats(*cols)
+    torch.cuda.synchronize()
+    before = trie_reduce_columns.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trie_reduce_columns(*cols)
+        torch.cuda.synchronize()
+    assert trie_reduce_columns.launches == before + 1
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "trie_reduce_kernel" in names[0], names
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = trie_reduce_stats(*cols)
+    side.synchronize()
+    _bitwise(other, first)
 
 
 def test_engine_on_gpu_equals_cpu(small, cuda):
@@ -278,6 +377,20 @@ def test_engine_on_gpu_equals_cpu(small, cuda):
     g, c = gpu.trie_reduce(), cpu.trie_reduce()
     assert float(g["n_rules"]) == float(c["n_rules"])
     assert float(g["confidence_max"]) == float(c["confidence_max"])
+    _reduce_op_as_before(gpu.dt, g)
+
+
+def _reduce_op_as_before(dt, got):
+    """``ops.trie_reduce`` on the card as it was before the kernel wrote
+    the mean: its four values from the four-output wrapper, the mean as
+    ``conf_sum / n.clamp(min=1.0)``, bitwise."""
+    n, sup_sum, conf_max, conf_sum = trie_reduce_columns(
+        dt.support, dt.confidence, dt.node_depth,
+        **{k: v for k, v in TO._dequant_statics(dt).items()
+           if k != "lift_scale"})
+    _bitwise([got[k] for k in ("n_rules", "support_sum", "confidence_max",
+                               "mean_conf")],
+             [n, sup_sum, conf_max, conf_sum / n.clamp(min=1.0)])
 
 
 @pytest.mark.parametrize("n_edges", [0, 1, 40])
@@ -300,6 +413,7 @@ def test_tiny_tries_on_gpu_equal_cpu(n_edges, cuda):
     g, c = gpu.trie_reduce(), cpu.trie_reduce()
     for key in c:
         assert float(g[key]) == pytest.approx(float(c[key]), rel=1e-6)
+    _reduce_op_as_before(gpu.dt, g)
 
 
 def _apriori_levels(db, minsup):
@@ -572,11 +686,10 @@ def test_quantized_score_and_reduce_kernels(chain, cuda, quant):
                                              role=role, **dq))
     rq = dict(n_transactions=dq["n_transactions"],
               confidence_scale=dq["confidence_scale"])
-    got = trie_reduce_columns(dt.support, dt.confidence, dt.node_depth, **rq)
-    want = ref.trie_reduce_ref(dt.support, dt.confidence, dt.node_depth, **rq)
-    _bitwise((got[0], got[2]), (want[0], want[2]))
-    for i in (1, 3):
-        torch.testing.assert_close(got[i], want[i], rtol=1e-6, atol=0)
+    got = _check_reduce([dt.support, dt.confidence, dt.node_depth], **rq)
+    op = TO.trie_reduce(dt)
+    _bitwise([op[k] for k in ("n_rules", "support_sum", "confidence_max",
+                              "mean_conf")], [got[i] for i in (0, 1, 2, 4)])
 
 
 def test_compressed_ops_on_gpu_equal_plain(chain, cuda):
@@ -600,6 +713,8 @@ def test_compressed_ops_on_gpu_equal_plain(chain, cuda):
     c, p = TO.trie_reduce(comp), TO.trie_reduce(plain)
     assert float(c["n_rules"]) == float(p["n_rules"])
     assert float(c["confidence_max"]) == float(p["confidence_max"])
+    _reduce_op_as_before(comp, c)
+    _reduce_op_as_before(plain, p)
 
 
 # ----------------------------------------------------------------------
@@ -786,3 +901,4 @@ def test_seed_ops_on_gpu_equal_cpu(small, cuda):
     g, c = TO.trie_reduce(gpu), TO.trie_reduce(cpu)
     assert float(g["n_rules"]) == float(c["n_rules"])
     assert float(g["confidence_max"]) == float(c["confidence_max"])
+    _reduce_op_as_before(gpu, g)
