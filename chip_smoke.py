@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's batched query path, its rule
-construction path and its path-compressed, quantized layout on one NVIDIA
-GPU.
+construction path, its path-compressed, quantized and seed layouts, its
+streaming tries and its launch profiler on one NVIDIA GPU.
 
     python3 chip_smoke.py [--edges N] [--seed S] [--reps R]
 
@@ -86,8 +86,27 @@ GPU.
    point): the sweep kernel, the seed two-launch op, the fused kernel and
    the seed (lex binary search) and CSR oracles, with the fused-vs-sweep
    speedup.
-8. Prints the GPU's name and power limit, one ``{"kernels": [...]}`` line,
-   and last ``{"ok": true, "device": {...}}``.
+8. Streaming: builds ``online_retail_db()``'s 100,000 sampled rule
+   sequences into a base trie (the first 99,000) and the full trie on the
+   card (one support-count launch each), and serves
+   ``StreamingTrie(base)`` through ``TrieQueryEngine``: the ~1,960 novel
+   paths of the full trie inserted shortest-first in batches of 64, then
+   256 base rules re-inserted (half with another node's metrics, exact
+   ties; half fresh).  At the final epoch, with the launch counters at 0,
+   4096 search rows (half the delta's paths) and 256 ragged pairs, 256
+   prefixes at k = 10 and 100 and 256 items per role (min_depth 1, and
+   0 once) answer == the same ops on the from-scratch rebuild with those
+   256 rules patched, served frozen on the card, bitwise; the rank,
+   membership and fused search kernels ran on the frozen side; the plain
+   versions (``use_kernel=False``) answer the same.  Times each streamed
+   op beside the frozen one, then one staggered fold and a full refreeze,
+   each followed by the same check; the refrozen trie == the rebuild
+   array for array.
+9. Observability: one pass of step 4's main path with the launch
+   profiler on: one record per op dispatch under the reference's op names
+   and the answers of the pass without it, bitwise.
+10. Prints the GPU's name and power limit, one ``{"kernels": [...]}``
+   line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result when CUDA is unavailable or any phase fails.
 """
@@ -2076,6 +2095,303 @@ def seed_phase(args, dev, l2_flush, main_trie):
     return row
 
 
+# ----------------------------------------------------------------------
+# streaming: a StreamingTrie over a retail base, served on the card
+# ----------------------------------------------------------------------
+STREAM_SEQS = 100_000        # the reference build bench's largest lane
+STREAM_HOLDOUT = 1_000       # sequences held out of the base
+STREAM_CHUNK = 64            # novel paths per insert batch
+STREAM_UPDATES = 256         # base rules re-inserted with new metrics
+STREAM_WIDTH = 10            # search row width (sample_rule_sequences' max)
+
+
+def root_paths(frozen, dev):
+    """Every node's root path as a tuple (index = node id), from one
+    parent-pointer walk (``reconstruct_paths``) on the card."""
+    import torch
+    from repro_torch.core import reconstruct_paths
+
+    dt = frozen.device_arrays(device=dev)
+    mat = reconstruct_paths(
+        dt, torch.arange(frozen.n_nodes, dtype=torch.int32, device=dev),
+        max(frozen.max_depth, 1)).cpu().numpy()
+    return [tuple(int(x) for x in row[row >= 0]) for row in mat]
+
+
+def stream_split(rng, path):
+    """``path`` as an (antecedent, consequent) pair at a random antecedent
+    length (0 for a one-item path)."""
+    a = rng.randint(1, len(path)) if len(path) > 1 else 0
+    return list(path[:a]), list(path[a:])
+
+
+def stream_traffic(base, delta_paths, base_paths, novel, n_items, seed):
+    """The streaming phase's queries: 4096 search rows of width 10 (half
+    the delta's paths, a quarter base paths, a quarter junk) and 256
+    ragged pairs; 256 prefixes (a quarter parents of novel paths, 1/8
+    whole-trie, 1/8 absent, the rest base paths); 256 items (half the last
+    items of novel paths)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed + 23)
+
+    def pick(paths, n):
+        return [paths[i] for i in rng.randint(0, len(paths), size=n)]
+
+    def junk():
+        return tuple(int(x) for x in
+                     rng.randint(0, n_items, size=rng.randint(1, 11)))
+
+    rows = pick(delta_paths, 2048) + pick(base_paths, 1024) + \
+        [junk() for _ in range(1024)]
+    split = [stream_split(rng, p) for p in rows]
+    queries, ant_len = base.canonicalize_queries(
+        [s[0] for s in split], [s[1] for s in split], max_len=STREAM_WIDTH)
+    # ragged pairs in raw (reversed) item order: canonicalized by the op
+    pairs = [tuple(s[::-1] for s in stream_split(rng, p))
+             for p in pick(delta_paths, 128) + pick(base_paths, 64)] + \
+        [stream_split(rng, junk()) for _ in range(64)]
+    parents = [list(p[:-1]) for p in pick(novel, 64)]
+    prefixes = parents + [[]] * 32 + \
+        [[n_items + 7 + i] for i in range(32)] + \
+        [list(p) for p in pick(base_paths, 128)]
+    items = [p[-1] for p in pick(novel, 128)] + \
+        [int(x) for x in rng.randint(0, n_items, size=128)]
+    return {"queries": queries, "ant_len": ant_len, "pairs": pairs,
+            "prefixes": prefixes, "items": items}
+
+
+def stream_calls(t):
+    """The streaming traffic's calls, ``key -> (op, args, kwargs)``:
+    min_depth 1, and 0 once for each ranking."""
+    calls = {
+        "search": ("rule_search_batch", (t["queries"], t["ant_len"]), {}),
+        "search_pairs": ("rule_search_batch", (t["pairs"],), {}),
+        "topk10": ("top_k_rules_batch", (t["prefixes"], 10), {}),
+        "topk100": ("top_k_rules_batch", (t["prefixes"], 100), {}),
+        "topk10_depth0": ("top_k_rules_batch", (t["prefixes"], 10),
+                          {"min_depth": 0}),
+        "any_depth0": ("rules_with", (t["items"],),
+                       {"role": "any", "k": 10, "min_depth": 0}),
+    }
+    for role in ROLES:
+        calls[role] = ("rules_with", (t["items"],), {"role": role, "k": 10})
+    return calls
+
+
+def stream_pass(run, t):
+    """One pass of the streaming traffic; ``run(op, *args, **kw)`` makes
+    each call (on an engine, or on the stream with the plain versions)."""
+    return {key: run(op, *a, **kw)
+            for key, (op, a, kw) in stream_calls(t).items()}
+
+
+def check_pass(what, got, want):
+    """Bitwise equality of two ``stream_pass`` results: every value, node
+    id and position, tie order and dtype."""
+    for key in want:
+        if set(got[key]) != set(want[key]):
+            raise AssertionError(f"{what}: {key} keys differ")
+        for field, w in want[key].items():
+            if not bitwise_equal(got[key][field], w):
+                raise AssertionError(f"{what}: {key} {field} differs")
+
+
+def frozen_arrays_equal(what, got, want):
+    """``got`` equals ``want`` field for field: the node, edge and metric
+    columns and the derived CSR, DFS and posting arrays."""
+    import dataclasses
+
+    import numpy as np
+
+    for f in dataclasses.fields(want):
+        g, w = np.asarray(getattr(got, f.name)), \
+            np.asarray(getattr(want, f.name))
+        if g.dtype != w.dtype or g.shape != w.shape or \
+                g.tobytes() != w.tobytes():
+            raise AssertionError(f"{what}: {f.name} differs")
+
+
+def streaming_phase(args, dev, smi):
+    """A ``StreamingTrie`` over the retail base, served through
+    ``TrieQueryEngine``: insert the held-out rules and 256 updates, and
+    hold every streamed answer to the same op on the from-scratch rebuild
+    served frozen on the card, bitwise, at the final epoch, after one
+    staggered fold and after a full refreeze; time the streamed ops beside
+    the frozen ones."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.arm.datasets import online_retail_db
+    from repro_torch.arm.rulegen import sample_rule_sequences
+    from repro_torch.core import FrozenTrie, StreamingTrie
+    from repro_torch.core.build_arrays import build_frozen_trie
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.serve import TrieQueryEngine
+
+    # -- the base, the full trie and the split -------------------------
+    t0 = time.perf_counter()
+    db = online_retail_db()
+    seqs = sample_rule_sequences(db, STREAM_SEQS, max_len=STREAM_WIDTH,
+                                 seed=args.seed)
+    t1 = time.perf_counter()
+    reset_launch_counts()
+    full, _, _ = build_frozen_trie(db, seqs, device=dev)
+    base, _, _ = build_frozen_trie(db, seqs[:STREAM_SEQS - STREAM_HOLDOUT],
+                                   device=dev)
+    builds = launch_counts()["support_count_bitmap"]
+    if builds != 2:
+        raise AssertionError(f"stream: {builds} support_count launches for "
+                             f"two builds (one each)")
+    t2 = time.perf_counter()
+    full_paths, base_paths = root_paths(full, dev), root_paths(base, dev)
+    have = set(base_paths)
+    novel = sorted((p for p in full_paths[1:] if p not in have), key=len)
+    node_of = {p: v for v, p in enumerate(full_paths)}
+    rng = np.random.RandomState(args.seed + 29)
+    picked = [base_paths[v]
+              for v in rng.choice(np.arange(1, base.n_nodes),
+                                  STREAM_UPDATES, replace=False)]
+    cols = {f: np.asarray(getattr(full, f)).copy()
+            for f in ("support", "confidence", "lift")}
+    upd = np.zeros((3, STREAM_UPDATES), np.float32)
+    for i, p in enumerate(picked):
+        if i % 2 == 0:
+            # another node's metric triple: exact ties with frozen values
+            other = int(rng.randint(1, full.n_nodes))
+            upd[:, i] = [cols[f][other] for f in cols]
+        else:
+            upd[:, i] = rng.rand(3).astype(np.float32)
+    nov = np.asarray([[cols[f][node_of[p]] for f in cols] for p in novel],
+                     np.float32).T
+    for i, p in enumerate(picked):
+        for j, f in enumerate(cols):
+            cols[f][node_of[p]] = upd[j, i]
+    oracle = FrozenTrie.from_arrays({
+        **{f.name: getattr(full, f.name) for f in dataclasses.fields(full)},
+        **cols})
+    log(f"[stream] retail base {base.n_nodes} nodes from "
+        f"{STREAM_SEQS - STREAM_HOLDOUT} sequences, full {full.n_nodes} "
+        f"from {STREAM_SEQS}: {len(novel)} novel paths (depth up to "
+        f"{max(len(p) for p in novel)}), {STREAM_UPDATES} updates; db and "
+        f"sequences {t1 - t0:.1f} s, two builds on the card {t2 - t1:.1f} s "
+        f"({builds} support_count launches)")
+
+    # -- the stream: novel rules shortest-first, then the updates --------
+    stream = StreamingTrie(base, refreeze_max_delta=1024, device=dev)
+    engine = TrieQueryEngine(stream)
+    t0 = time.perf_counter()
+    for i in range(0, len(novel), STREAM_CHUNK):
+        engine.insert(novel[i:i + STREAM_CHUNK],
+                      *nov[:, i:i + STREAM_CHUNK])
+    t1 = time.perf_counter()
+    engine.insert(picked, *upd)
+    t2 = time.perf_counter()
+    ov = stream.overlay()
+    t3 = time.perf_counter()
+    log(f"[stream] inserts: {len(novel)} novel in "
+        f"{-(-len(novel) // STREAM_CHUNK)} batches of {STREAM_CHUNK}, "
+        f"{len(novel) / (t1 - t0):.0f} inserts/s; {STREAM_UPDATES} updates "
+        f"in one batch, {STREAM_UPDATES / (t2 - t1):.0f} inserts/s; overlay "
+        f"of {ov.d} entries ({int(ov.is_novel.sum())} novel, "
+        f"{ov.masked_nodes.size} masked) built in {(t3 - t2) * 1e3:.1f} ms; "
+        f"epoch {engine.epoch}")
+
+    # -- the final epoch against the rebuild, with the counters at 0 -----
+    t = stream_traffic(base, [tuple(p) for p in ov.modified], base_paths[1:],
+                       novel, int(base.item_rank.shape[0]), args.seed)
+    frozen_eng = TrieQueryEngine(oracle, device=dev)
+
+    def on(eng):
+        return lambda op, *a, **kw: getattr(eng, op)(*a, **kw)
+
+    def plain(op, *a, **kw):
+        return getattr(ops, op)(stream, *a, use_kernel=False, **kw)
+
+    want = stream_pass(on(frozen_eng), t)
+    reset_launch_counts()
+    got = stream_pass(on(engine), t)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    require_launched("stream frozen side", launches,
+                     ("topk_rank_batch", "rules_with_member",
+                      "rule_search_fused"))
+    check_pass("stream final epoch vs rebuild", got, want)
+    check_pass("stream kernels vs plain versions", got,
+               stream_pass(plain, t))
+    found = got["search"]["found"][:2048].cpu().numpy()
+    if not found.all():
+        raise AssertionError("stream: a delta rule was not found")
+    log(f"[stream] final epoch: every answer == the rebuild served frozen "
+        f"(bitwise) and == the plain versions on the card; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+
+    # -- timing: each streamed op beside the same op on the rebuild ------
+    reps = max(3, args.reps // 4)
+
+    def timed(run):
+        return {key: cuda_ms(lambda: run(op, *a, **kw), reps, warmup=1)
+                for key, (op, a, kw) in stream_calls(t).items()}
+
+    stream_ms, frozen_ms = timed(on(engine)), timed(on(frozen_eng))
+    log(f"[stream ms] {smi}, median of {reps}: " + json.dumps({
+        k: {"stream": stream_ms[k], "frozen": frozen_ms[k],
+            "overhead": stream_ms[k] / frozen_ms[k]} for k in stream_ms}))
+
+    # -- one staggered fold, then the full refreeze ----------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    item = engine.maybe_refreeze()
+    fold_s = time.perf_counter() - t0
+    if item is None:
+        raise AssertionError("stream: a delta over refreeze_max_delta did "
+                             "not fold")
+    left = stream.n_delta
+    check_pass("stream after one staggered fold vs rebuild",
+               stream_pass(on(engine), t), want)
+    t0 = time.perf_counter()
+    folded = stream.refreeze()
+    full_s = time.perf_counter() - t0
+    check_pass("stream after refreeze vs rebuild",
+               stream_pass(on(engine), t), want)
+    frozen_arrays_equal("stream refreeze vs rebuild", stream.frozen, oracle)
+    log(f"[stream fold] {smi}: one staggered fold (first item {item}) "
+        f"{fold_s * 1e3:.1f} ms, {left} entries left; full refreeze of "
+        f"{folded} entries {full_s * 1e3:.1f} ms; the refrozen trie == the "
+        f"rebuild array for array; answers == the rebuild after each; "
+        f"epoch {engine.epoch}")
+
+
+def profiler_pass(engine, queries, ant_len, pairs, prefixes, items, res):
+    """One pass of the main path with the launch profiler on: one record
+    per op dispatch under the reference's op names, and the same answers
+    as the pass without it, bitwise."""
+    from repro_torch.obs import kernel_profiler
+
+    kernel_profiler.clear()
+    with kernel_profiler.enabled_scope():
+        got = drive_engine(engine, queries, ant_len, pairs, prefixes, items)
+    counts = {op: len(kernel_profiler.ring(op))
+              for op in kernel_profiler.ops()}
+    expect = {"rule_search": 2, "rules_with": 3, "top_k": 2,
+              "trie_reduce": 1}
+    if counts != expect:
+        raise AssertionError(f"obs: profiler records {counts}, one per op "
+                             f"dispatch is {expect}")
+    for key in res:
+        for field, w in res[key].items():
+            if not bitwise_equal(got[key][field], w):
+                raise AssertionError(f"obs: {key} {field} differs with the "
+                                     f"profiler on")
+    ms = {op: sum(r.seconds for r in kernel_profiler.ring(op)) * 1e3
+          / counts[op] for op in counts}
+    log(f"[obs] profiler ring counts {counts}; answers == the pass without "
+        f"it (bitwise); host ms per dispatch, device synchronized: "
+        f"{json.dumps(ms)}")
+    kernel_profiler.clear()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--edges", type=int, default=1 << 20)
@@ -2357,6 +2673,14 @@ def main():
 
     # -- 8. the seed layout: the full sweep on the query-path trie -------
     rows.append(seed_phase(args, dev, l2_flush, (arrs, frozen)))
+    log(f"[seed] phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 9. streaming: inserts and refreezes over a retail base ---------
+    streaming_phase(args, dev, smi)
+    log(f"[stream] phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 10. observability: the launch profiler on the main path --------
+    profiler_pass(engine, queries, ant_len, pairs, prefixes, items, res)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

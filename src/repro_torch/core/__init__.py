@@ -4,6 +4,8 @@
 - ``FlatRuleTable`` dataframe stand-in comparator (the paper's baseline),
 - ``FrozenTrie``    the flat SoA/CSR/DFS encoding: host layout (numpy),
   device view (torch) and the tensor oracles,
+- ``StreamingTrie`` a frozen base plus a log-structured delta overlay
+  (inserts, updates and the refreeze back into a ``FrozenTrie``),
 
 the array-native builder and the three-step pipeline over them, plus the
 synthetic tries the benches and tests use.
@@ -29,6 +31,7 @@ from .array_trie import (
     item_index_arrays,
     item_tables,
     quantize_metric_columns,
+    reconstruct_paths,
     resolve_device,
     sanitize_query_items,
     top_n_nodes,
@@ -41,6 +44,7 @@ from .build_arrays import (
     trie_arrays,
 )
 from .builder import BuildResult, build_flat_table, build_trie_of_rules
+from .delta_trie import DeltaOverlay, StreamingTrie
 from .synthetic import (
     frozen_from_arrays,
     mixed_queries,
@@ -54,11 +58,13 @@ __all__ = [
     "AUTO_COMPRESS_SPAN_FRACTION",
     "BuildResult",
     "CompressedTrie",
+    "DeltaOverlay",
     "DeviceTrie",
     "FlatRuleTable",
     "FrozenTrie",
     "Rule",
     "RuleMetrics",
+    "StreamingTrie",
     "TrieNode",
     "TrieOfRules",
     "batched_rule_search",
@@ -83,6 +89,7 @@ __all__ = [
     "pack_sequences",
     "quantize_metric_columns",
     "random_csr_trie",
+    "reconstruct_paths",
     "resolve_device",
     "sanitize_query_items",
     "synthetic_chain_trie",

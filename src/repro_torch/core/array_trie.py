@@ -1187,3 +1187,32 @@ def traverse_reduce(trie: DeviceTrie) -> Dict[str, torch.Tensor]:
         "mean_conf": torch.where(mask, conf_col, 0.0).sum()
         / n.clamp(min=1),
     }
+
+
+def reconstruct_paths(
+    trie: DeviceTrie, node_ids, max_depth: int
+) -> torch.Tensor:
+    """Vectorized parent-pointer walk: int32[Q, max_depth] item matrix
+    (left-padded with -1) for each node id, on the trie's device.
+
+    Plain layout only: the compressed encoding drops ``node_parent``
+    (query results already carry original node ids via ``dfs_to_node``;
+    reconstruct paths host-side from the FrozenTrie, or keep a plain
+    DeviceTrie for this op).
+    """
+    if trie.layout == "compressed":
+        raise ValueError(
+            "reconstruct_paths needs the plain layout's parent pointers; "
+            "compressed tries drop node_parent — reconstruct from the "
+            "host FrozenTrie (path_items) instead"
+        )
+    nid = torch.as_tensor(node_ids, device=trie.device).to(torch.int32)
+    cols = []
+    for _ in range(int(max_depth)):
+        safe = nid.clamp(min=0).long()
+        cols.append(torch.where(nid > 0, trie.node_item[safe], -1))
+        nid = torch.where(nid > 0, trie.node_parent[safe], nid)
+    if not cols:
+        return torch.full((nid.shape[0], 0), -1, dtype=torch.int32,
+                          device=trie.device)
+    return torch.stack(cols[::-1], dim=1).to(torch.int32)

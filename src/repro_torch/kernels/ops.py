@@ -28,11 +28,22 @@ kernel (``_dequant_statics``).  A seed-layout ``DeviceTrie``
 consequent columns alone for compound lift), the prefix descent by a
 lower bound over the lex-sorted edge table, and the rankings and the
 reduction over its DFS and posting columns as on the CSR layout.
-Sharded plans and streaming tries are later slices of the port and raise
+
+A ``core.delta_trie.StreamingTrie`` (a frozen base plus a delta overlay)
+answers the search and ranking ops through ``kernels.streaming``: the
+frozen side runs the kernels above on the stream's device, and the
+delta side and the k-best merge are tensor ops, bit-identical to the op
+on a from-scratch rebuild.  It has no ``trie_reduce`` or column-dict
+path, as in the reference.  Sharded plans are ROADMAP slice 6 and raise
 ``NotImplementedError``.
+
+Every kernel dispatch runs under ``_profiled``, the launch profiler's
+hook (``obs.profile.kernel_profiler``): disabled, it costs one attribute
+read.
 """
 from __future__ import annotations
 
+from time import perf_counter
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -46,16 +57,49 @@ from repro_torch.core.array_trie import (
     resolve_device,
     sanitize_query_items,
 )
+from repro_torch.core.delta_trie import StreamingTrie
+from repro_torch.obs.profile import kernel_profiler
 
 from .item_index import ROLES, rules_with_member
 from .metrics_inkernel import RANK_METRICS, compound_lift, rank_score
 from .rank import topk_rank_batch
 from .ref import members_from_candidates  # noqa: F401  (the reference's ops name)
 from .ref import rules_with_ref, topk_rank_batch_ref
+from .ref import (
+    rule_search_fused_ref, rule_search_span_ref, rule_search_sweep_ref,
+)
 from .rule_search import rule_search_fused, rule_search_span, rule_search_sweep
 from .support_count import support_count_bitmap
 from .trie_reduce import trie_reduce_stats
 from .tuning import launch_pad
+
+
+# ----------------------------------------------------------------------
+# kernel-launch profiling (obs: one timing ring per op)
+# ----------------------------------------------------------------------
+def _profiled(op, fn, *, rows, shape, device, live=None, n_shards=1):
+    """Run one kernel dispatch under the launch profiler.
+
+    Disabled (the default): one attribute read, then ``fn()`` untouched.
+    Enabled: ``device`` is synchronized before the clock stops (honest
+    wall time under CUDA's asynchronous launches) and the record lands
+    in the per-op ring, fanning out to the bound registry and any
+    observers."""
+    if not kernel_profiler.enabled:
+        return fn()
+    t0 = perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    rows = max(int(rows), 1)
+    live_rows = rows if live is None else min(max(int(live), 1), rows)
+    kernel_profiler.record(
+        op, rows=rows, shape=tuple(int(x) for x in shape),
+        seconds=perf_counter() - t0,
+        pad_factor=rows / live_rows,
+        n_shards=int(n_shards),
+    )
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -258,15 +302,32 @@ def dedup_query_rows(queries, ant_len):
 # residency
 # ----------------------------------------------------------------------
 def _require_supported(trie, op: str) -> None:
-    kind = type(trie).__name__
-    if kind == "ShardPlan":
+    """Refuse a sharded plan, and a stream where ``op`` has no streaming
+    path (the five search and ranking ops dispatch a stream before
+    reaching here)."""
+    if type(trie).__name__ == "ShardPlan":
         raise NotImplementedError(
             f"{op}: sharded plans are ROADMAP slice 6 (multi-GPU)"
         )
-    if kind == "StreamingTrie":
+    if isinstance(trie, StreamingTrie):
         raise NotImplementedError(
-            f"{op}: streaming tries are ROADMAP slice 4 (streaming)"
+            f"{op}: a StreamingTrie answers rule_search, top_k_rules, "
+            f"rules_with and their batched forms only; ROADMAP slice 4 "
+            f"(streaming) ports no streaming {op}, as the reference has "
+            f"none: run it on stream.frozen after stream.refreeze()"
         )
+
+
+def _as_streaming(trie):
+    """The StreamingTrie when ``trie`` is one, else None."""
+    return trie if isinstance(trie, StreamingTrie) else None
+
+
+def _refuse_with_stream(op: str, what: str) -> None:
+    raise ValueError(
+        f"streaming {op} takes no {what}: the stream owns its "
+        f"(epoch-versioned) residency; drop the argument"
+    )
 
 
 def _device_trie(trie, device=None) -> DeviceTrie:
@@ -472,6 +533,7 @@ def edge_metric_arrays(trie, device=None) -> Dict:
     ``"layout": "compressed"``: the compressed CSR, the span edge columns
     and the position-indexed (possibly quantized) metric columns, the
     trie's own tensors with no gathers."""
+    _require_supported(trie, "edge_metric_arrays")
     dt = _device_trie(trie, device)
     if _is_compressed(dt):
         return {
@@ -504,11 +566,24 @@ def edge_metric_arrays(trie, device=None) -> Dict:
 
 def rule_search(
     trie, queries, ant_len, edges: Optional[Dict] = None, device=None,
+    use_kernel: bool = True,
 ) -> Dict[str, torch.Tensor]:
     """Rule search with full paper metrics (compound lift included) for
     canonical int32 rows ``[Q, L]`` (-1 padded): one fused kernel call,
     or on the seed layout two full-sweep calls.  Returns
-    found/node/support/confidence/lift, each ``[Q]``."""
+    found/node/support/confidence/lift, each ``[Q]``.  ``use_kernel=False``
+    runs the plain versions on any device.
+
+    ``trie`` may also be a ``StreamingTrie`` (answered on its own device
+    through ``kernels.streaming``)."""
+    stream = _as_streaming(trie)
+    if stream is not None:
+        if edges is not None:
+            _refuse_with_stream("rule_search", "edges=")
+        from .streaming import streaming_rule_search_batch
+
+        return streaming_rule_search_batch(stream, queries, ant_len,
+                                           use_kernel=use_kernel)
     _require_supported(trie, "rule_search")
     if edges is None:
         edges = edge_metric_arrays(trie, device)
@@ -522,14 +597,19 @@ def rule_search(
             "node": torch.zeros((0,), dtype=torch.int32, device=dev),
             "support": z, "confidence": z, "lift": z,
         }
+    # live rows (any real item) are the pad factor's denominator
+    rows = dict(rows=queries.shape[0], shape=queries.shape, device=dev,
+                live=(int((queries >= 0).any(dim=1).sum())
+                      if kernel_profiler.enabled else None))
     if edges.get("layout") == "compressed":
-        out = rule_search_span(
+        span_fn = rule_search_span if use_kernel else rule_search_span_ref
+        out = _profiled("rule_search", lambda: span_fn(
             edges["child_offsets"], edges["edge_item"], edges["edge_pos"],
             edges["edge_span"], edges["edge_tail"], edges["node_item"],
             edges["support"], edges["confidence"], edges["lift"],
             queries, ant_len, max_fanout=edges["max_fanout"],
             **_dequant_statics(edges),
-        )
+        ), **rows)
         # the span kernel answers DFS positions (-1 when absent); the op
         # answers node ids
         return {
@@ -540,27 +620,34 @@ def rule_search(
             "lift": out["lift"],
         }
     if edges["child_offsets"] is None:
-        return _seed_rule_search(edges, queries, ant_len)
-    out = rule_search_fused(
+        sweep_fn = rule_search_sweep if use_kernel else rule_search_sweep_ref
+        return _seed_rule_search(
+            edges, queries, ant_len,
+            lambda *a: _profiled("rule_search", lambda: sweep_fn(*a),
+                                 **rows),
+        )
+    fused_fn = rule_search_fused if use_kernel else rule_search_fused_ref
+    out = _profiled("rule_search", lambda: fused_fn(
         edges["child_offsets"], edges["edge_item"], edges["edge_child"],
         edges["edge_conf"], edges["edge_sup"], edges["edge_lift"],
         queries, ant_len, max_fanout=edges["max_fanout"],
-    )
+    ), **rows)
     # con_support feeds the sharded merge, not the op-level contract
     return {k: v for k, v in out.items() if k != "con_support"}
 
 
-def _seed_rule_search(edges, queries, ant_len) -> Dict[str, torch.Tensor]:
+def _seed_rule_search(edges, queries, ant_len,
+                      sweep) -> Dict[str, torch.Tensor]:
     """The seed layout's search: one full sweep over the rows, and one over
     their consequent columns alone (the antecedent blanked, ``ant_len``
     0) for the consequent-path Support that compound lift divides by."""
     cols = (edges["edge_parent"], edges["edge_item"], edges["edge_child"],
             edges["edge_conf"], edges["edge_sup"], edges["edge_lift"])
-    full = rule_search_sweep(*cols, queries, ant_len)
+    full = sweep(*cols, queries, ant_len)
     width = queries.shape[1]
     pos = torch.arange(width, dtype=torch.int32, device=queries.device)
     cons_q = torch.where(pos[None, :] >= ant_len[:, None], queries, -1)
-    cons = rule_search_sweep(*cols, cons_q, torch.zeros_like(ant_len))
+    cons = sweep(*cols, cons_q, torch.zeros_like(ant_len))
     seq_len = (queries >= 0).sum(dim=1, dtype=torch.int32)
     single = (seq_len - ant_len) == 1
     return {
@@ -575,13 +662,26 @@ def _seed_rule_search(edges, queries, ant_len) -> Dict[str, torch.Tensor]:
 
 def rule_search_batch(
     trie, queries, ant_len=None, edges: Optional[Dict] = None,
-    strict: bool = False, device=None,
+    strict: bool = False, device=None, use_kernel: bool = True,
 ) -> Dict[str, torch.Tensor]:
     """Search Q rules in one kernel call: ``queries`` is a sequence of
     ``(antecedent, consequent)`` pairs (canonicalized host-side through
     ``FrozenTrie.canonicalize_queries``) or a canonical ``[Q, L]`` matrix
     with ``ant_len``.  The batch dedups to its unique rows and scatters
-    results back."""
+    results back.
+
+    Or a ``StreamingTrie``: the frozen kernel plus a host recompute of the
+    rows touching modified rules (``kernels.streaming``), bit-identical to
+    a from-scratch rebuild of frozen+delta."""
+    stream = _as_streaming(trie)
+    if stream is not None:
+        if edges is not None:
+            _refuse_with_stream("rule_search_batch", "edges=")
+        from .streaming import streaming_rule_search_batch
+
+        return streaming_rule_search_batch(stream, queries, ant_len,
+                                           strict=strict,
+                                           use_kernel=use_kernel)
     _require_supported(trie, "rule_search_batch")
     if ant_len is None and not isinstance(queries, np.ndarray):
         queries = list(queries)
@@ -601,13 +701,14 @@ def rule_search_batch(
         if not pairs:
             return rule_search(
                 trie, np.zeros((0, 1), np.int32), np.zeros((0,), np.int32),
-                edges=edges, device=device,
+                edges=edges, device=device, use_kernel=use_kernel,
             )
         queries, ant_len = canonicalize(
             [p[0] for p in pairs], [p[1] for p in pairs]
         )
     uq, ual, inv = dedup_query_rows(queries, ant_len)
-    out = rule_search(trie, uq, ual, edges=edges, device=device)
+    out = rule_search(trie, uq, ual, edges=edges, device=device,
+                      use_kernel=use_kernel)
     if inv is None:
         return out
     inv_t = torch.as_tensor(inv, device=out["found"].device).long()
@@ -623,6 +724,7 @@ def dfs_rank_arrays(trie, device=None) -> Dict[str, torch.Tensor]:
     the trie's own (possibly quantized) tensors, so no f32 copy of a
     quantized column is made, and the dict carries the dequantization
     scalars."""
+    _require_supported(trie, "dfs_rank_arrays")
     dt = _device_trie(trie, device)
     if dt.dfs_to_node is None:
         raise ValueError(
@@ -663,6 +765,7 @@ def prefix_ranges(trie, prefixes, dt: Optional[DeviceTrie] = None,
     batched CSR descent: ``(los, his, nodes)``, int32 ``[Q]``.  Absent
     prefixes give ``[0, 0)``, empty ones ``[0, N)``; in a padded ``[Q, P]``
     matrix ``-1`` is padding, in ragged rows every entry is an item."""
+    _require_supported(trie, "prefix_ranges")
     rows = canonical_prefix_rows(prefixes, getattr(trie, "item_rank", None))
     q = len(rows)
     width = max((len(r) for r in rows), default=0)
@@ -716,6 +819,16 @@ def top_k_rules(
         validate_prefixes(
             [prefix], "top_k_rules", item_rank=getattr(trie, "item_rank", None)
         )
+    stream = _as_streaming(trie)
+    if stream is not None:
+        if arrays is not None:
+            _refuse_with_stream("top_k_rules", "arrays=")
+        from .streaming import streaming_top_k_rules
+
+        return streaming_top_k_rules(
+            stream, k, metric=metric, prefix=prefix, min_depth=min_depth,
+            use_kernel=use_kernel,
+        )
     out = top_k_rules_batch(
         trie, [[] if prefix is None else prefix], k, metric=metric,
         min_depth=min_depth, arrays=arrays, use_kernel=use_kernel,
@@ -737,13 +850,23 @@ def top_k_rules_batch(
     if metric not in RANK_METRICS:
         raise InvalidQueryError(f"metric {metric!r} not in {RANK_METRICS}")
     _validate_k(k, "top_k_rules_batch")
-    _require_supported(trie, "top_k_rules_batch")
     if not isinstance(prefixes, np.ndarray):
         prefixes = list(prefixes)
     validate_prefixes(
         prefixes, "top_k_rules_batch",
         item_rank=getattr(trie, "item_rank", None), strict=strict,
     )
+    stream = _as_streaming(trie)
+    if stream is not None:
+        if arrays is not None:
+            _refuse_with_stream("top_k_rules_batch", "arrays=")
+        from .streaming import streaming_top_k_rules_batch
+
+        return streaming_top_k_rules_batch(
+            stream, prefixes, k, metric=metric, min_depth=min_depth,
+            use_kernel=use_kernel,
+        )
+    _require_supported(trie, "top_k_rules_batch")
     if arrays is None:
         arrays = dfs_rank_arrays(trie, device)
     dev = arrays["support"].device
@@ -759,12 +882,12 @@ def top_k_rules_batch(
         trie, prefixes, dt=_cached_device_trie(trie, arrays, dev)
     )
     rank_fn = topk_rank_batch if use_kernel else topk_rank_batch_ref
-    vals, pos = rank_fn(
+    vals, pos = _profiled("top_k", lambda: rank_fn(
         arrays["support"], arrays["confidence"], arrays["lift"],
         arrays["depth"], los, his,
         k=int(k), metric=metric, min_depth=int(min_depth),
         **_dequant_statics(arrays),
-    )
+    ), rows=len(prefixes), shape=(len(prefixes), int(k)), device=dev)
     return {
         "values": vals,
         "node": _back_map(pos, arrays["dfs_to_node"]),
@@ -898,12 +1021,23 @@ def rules_with(
     ``{"values" f32[Q, k], "node" int32[Q, k], "pos" int32[Q, k]}``
     (``pos``: posting index for the consequent role on the plain layout,
     DFS position otherwise).  Duplicate items dedup before the launch and
-    expand back after it."""
+    expand back after it.  ``trie`` may also be a ``StreamingTrie``
+    (``kernels.streaming``; ``pos`` in rebuilt coordinates)."""
     if role not in ROLES:
         raise InvalidQueryError(f"role {role!r} not in {ROLES}")
     if metric not in RANK_METRICS:
         raise InvalidQueryError(f"metric {metric!r} not in {RANK_METRICS}")
     _validate_k(k, "rules_with")
+    stream = _as_streaming(trie)
+    if stream is not None:
+        if arrays is not None:
+            _refuse_with_stream("rules_with", "arrays=")
+        from .streaming import streaming_rules_with
+
+        return streaming_rules_with(
+            stream, items, role=role, k=k, metric=metric,
+            min_depth=min_depth, strict=strict, use_kernel=use_kernel,
+        )
     _require_supported(trie, "rules_with")
     if arrays is None:
         arrays = item_rank_arrays(trie, device)
@@ -918,24 +1052,29 @@ def rules_with(
     )
     dev = arrays["support"].device
     plos_t, phis_t = _int32(plos, dev), _int32(phis, dev)
+    rows = dict(
+        rows=plos.shape[0], shape=(int(plos.shape[0]), int(k)), device=dev,
+        live=(int(np.count_nonzero(np.asarray(qitems) >= 0))
+              if kernel_profiler.enabled else None),
+    )
     if role == "consequent" and "p_support" in arrays:
         rank_fn = topk_rank_batch if use_kernel else topk_rank_batch_ref
-        vals, pos = rank_fn(
+        vals, pos = _profiled("rules_with", lambda: rank_fn(
             arrays["p_support"], arrays["p_confidence"], arrays["p_lift"],
             arrays["p_depth"], plos_t, phis_t,
             k=int(k), metric=metric, min_depth=int(min_depth),
-        )
+        ), **rows)
         back = arrays["item_nodes"]
     else:
         member_fn = rules_with_member if use_kernel else rules_with_ref
-        vals, pos = member_fn(
+        vals, pos = _profiled("rules_with", lambda: member_fn(
             arrays["support"], arrays["confidence"], arrays["lift"],
             arrays["depth"], arrays["node_item"],
             arrays["post_lo"], arrays["post_hi"],
             plos_t, phis_t, _int32(qitems, dev),
             k=int(k), metric=metric, min_depth=int(min_depth), role=role,
             **_dequant_statics(arrays),
-        )
+        ), **rows)
         back = arrays["dfs_to_node"]
     inv_t = torch.as_tensor(np.asarray(inv).reshape(-1), device=dev).long()
     vals = vals[inv_t]
@@ -950,12 +1089,18 @@ def trie_reduce(trie, device=None) -> Dict[str, torch.Tensor]:
     """The visit-every-rule pass: ``n_rules``, ``support_sum``,
     ``confidence_max`` and ``mean_conf`` as f32 scalars, all four from the
     reduction's one launch (the mean ``Σ confidence / max(n, 1)`` too)."""
+    _require_supported(trie, "trie_reduce")
     dt = _device_trie(trie, device)
     dq = _dequant_statics(dt)
-    n, sup_sum, conf_max, _, mean = trie_reduce_stats(
-        dt.support, dt.confidence, dt.node_depth,
-        n_transactions=dq["n_transactions"],
-        confidence_scale=dq["confidence_scale"],
+    n_nodes = int(dt.support.shape[0])
+    n, sup_sum, conf_max, _, mean = _profiled(
+        "trie_reduce",
+        lambda: trie_reduce_stats(
+            dt.support, dt.confidence, dt.node_depth,
+            n_transactions=dq["n_transactions"],
+            confidence_scale=dq["confidence_scale"],
+        ),
+        rows=n_nodes, shape=(n_nodes,), device=dt.device,
     )
     return {
         "n_rules": n,

@@ -162,10 +162,37 @@ def topk_rank_batch(
 topk_rank_batch.launches = 0
 
 
+def ieee_amax_last(x: torch.Tensor) -> torch.Tensor:
+    """The max over the last axis as ``jnp.max`` takes it: a NaN
+    propagates with its own bits (the first one, where there are more),
+    and +0.0 is above -0.0.  ``amax`` alone canonicalizes a NaN, or on
+    some paths sets every bit, and keeps whichever zero it meets."""
+    isnan = torch.isnan(x)
+    first = isnan.to(torch.uint8).argmax(-1, keepdim=True)
+    nan_bits = torch.gather(x, -1, first).squeeze(-1)
+    mx = x.amax(-1)
+    pos_zero = ((x == 0) & ~torch.signbit(x)).any(-1)
+    mx = torch.where((mx == 0) & pos_zero, torch.zeros_like(mx), mx)
+    return torch.where(isnan.any(-1), nan_bits, mx)
+
+
+def ieee_maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise max as ``jnp.maximum`` takes it: a NaN operand
+    propagates with its own bits, and +0.0 is above -0.0."""
+    m = torch.maximum(a, b)
+    zeros = (a == 0) & (b == 0)
+    m = torch.where(zeros & ~(torch.signbit(a) & torch.signbit(b)),
+                    torch.zeros_like(m), m)
+    return torch.where(torch.isnan(a), a, torch.where(torch.isnan(b), b, m))
+
+
 def rank_merge(av, ap, tv, tp, kpad: int):
     """Merge two (value desc, pos asc)-sorted kpad-lists into the top
     kpad of their union by rank scatter; live positions must be distinct
-    between the lists, ``-inf`` entries are empty."""
+    between the lists, ``-inf`` entries are empty.  The lists are
+    ``[kpad]``, or ``[Q, kpad]`` for Q independent merges.  NaN and
+    signed-zero values merge as the reference's do (``ieee_amax_last``,
+    ``ieee_maximum``)."""
     lane = torch.arange(kpad, dtype=torch.int32, device=av.device)
     apk = torch.where(av > -torch.inf, ap, _BIG + lane)
     tpk = torch.where(tv > -torch.inf, tp, _BIG + kpad + lane)
@@ -173,20 +200,23 @@ def rank_merge(av, ap, tv, tp, kpad: int):
     def precedes(v1, p1, v2, p2):
         return (v1 > v2) | ((v1 == v2) & (p1 < p2))
 
+    # [..., other list's entry, own entry]
     rank_a = lane + precedes(
-        tv[:, None], tpk[:, None], av[None, :], apk[None, :]
-    ).sum(0, dtype=torch.int32)
+        tv[..., :, None], tpk[..., :, None], av[..., None, :],
+        apk[..., None, :],
+    ).sum(-2, dtype=torch.int32)
     rank_t = lane + precedes(
-        av[:, None], apk[:, None], tv[None, :], tpk[None, :]
-    ).sum(0, dtype=torch.int32)
-    hit_a = lane[:, None] == rank_a[None, :]
-    hit_t = lane[:, None] == rank_t[None, :]
-    nv = torch.maximum(
-        torch.where(hit_a, av[None, :], -torch.inf).amax(1),
-        torch.where(hit_t, tv[None, :], -torch.inf).amax(1),
+        av[..., :, None], apk[..., :, None], tv[..., None, :],
+        tpk[..., None, :],
+    ).sum(-2, dtype=torch.int32)
+    hit_a = lane[:, None] == rank_a[..., None, :]
+    hit_t = lane[:, None] == rank_t[..., None, :]
+    nv = ieee_maximum(
+        ieee_amax_last(torch.where(hit_a, av[..., None, :], -torch.inf)),
+        ieee_amax_last(torch.where(hit_t, tv[..., None, :], -torch.inf)),
     )
     np_ = torch.maximum(
-        torch.where(hit_a, ap[None, :], -1).amax(1),
-        torch.where(hit_t, tp[None, :], -1).amax(1),
+        torch.where(hit_a, ap[..., None, :], -1).amax(-1),
+        torch.where(hit_t, tp[..., None, :], -1).amax(-1),
     )
     return nv, torch.where(nv > -torch.inf, np_, -1).to(torch.int32)

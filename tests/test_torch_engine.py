@@ -68,5 +68,10 @@ def test_engine_matches_reference(source, frozen):
 
 
 def test_engine_rejects_later_slices():
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    # streaming tries (slice 4) are served now
+    # (tests/test_torch_streaming.py); a sharded plan is slice 6, and
+    # anything else is no trie at all
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        TrieQueryEngine(type("ShardPlan", (), {})(), device="cpu")
+    with pytest.raises(TypeError, match="FrozenTrie or a StreamingTrie"):
         TrieQueryEngine(object(), device="cpu")

@@ -902,3 +902,64 @@ def test_seed_ops_on_gpu_equal_cpu(small, cuda):
     assert float(g["n_rules"]) == float(c["n_rules"])
     assert float(g["confidence_max"]) == float(c["confidence_max"])
     _reduce_op_as_before(gpu, g)
+
+
+# ----------------------------------------------------------------------
+# streaming tries: the frozen side on the card's kernels
+# ----------------------------------------------------------------------
+def test_stream_on_gpu_equals_cpu(cuda):
+    """A stream with novel and updated rules answers on the card as on the
+    CPU, bitwise, with the rank, membership and fused search kernels
+    launched on its frozen side, and equals the kernels' plain versions
+    (``use_kernel=False``) on the card; after a refreeze too."""
+    from repro_torch.arm.datasets import grocery_db
+    from repro_torch.arm.rulegen import sample_rule_sequences
+    from repro_torch.core import StreamingTrie
+    from repro_torch.core.build_arrays import build_frozen_trie
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    db = grocery_db()
+    seqs = sample_rule_sequences(db, 3000, max_len=6, seed=4)
+    base, _, _ = build_frozen_trie(db, seqs[:2800], use_kernel=False)
+    full, _, _ = build_frozen_trie(db, seqs, use_kernel=False)
+    have = {base.path_items(v) for v in range(1, base.n_nodes)}
+    novel = sorted((full.path_items(v) for v in range(1, full.n_nodes)
+                    if full.path_items(v) not in have), key=len)
+    nodes = {full.path_items(v): v for v in range(1, full.n_nodes)}
+    upd = sorted(have)[::17]
+    paths = novel + upd
+    rng = np.random.RandomState(2)
+    cols = [np.r_[getattr(full, f)[[nodes[p] for p in novel]],
+                  rng.rand(len(upd)).astype(np.float32)]
+            for f in ("support", "confidence", "lift")]
+    streams = [StreamingTrie(base, device=dev)
+               for dev in (cuda, "cpu")]
+    for st in streams:
+        st.insert(paths, *cols)
+    pairs = [(p[: len(p) // 2], p[len(p) // 2:]) for p in paths[::3]
+             if len(p) > 1]
+    prefixes = [[]] + [list(p[:-1]) for p in novel[::5]] + [[999]]
+    items = [p[-1] for p in novel[::4]] + [-1, 5]
+
+    def ops(st, **kw):
+        out = [TO.rule_search_batch(st, pairs, **kw)]
+        for metric in ("confidence", "conviction"):
+            out.append(TO.top_k_rules_batch(st, prefixes, 25, metric=metric,
+                                            **kw))
+        for role in TO.ROLES:
+            out.append(TO.rules_with(st, items, role=role, k=15, **kw))
+        return out
+
+    for step in ("delta", "refrozen"):
+        reset_launch_counts()
+        gpu = ops(streams[0])
+        counts = launch_counts()
+        for name in ("topk_rank_batch", "rules_with_member",
+                     "rule_search_fused"):
+            assert counts[name] >= 1, (step, name, counts)
+        plain = ops(streams[0], use_kernel=False)
+        for g, c, p in zip(gpu, ops(streams[1]), plain):
+            _bitwise([g[k].cpu() for k in c], [c[k] for k in c])
+            _bitwise([g[k] for k in p], [p[k] for k in p])
+        for st in streams:
+            st.refreeze()

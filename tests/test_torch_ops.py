@@ -18,6 +18,7 @@ from repro.kernels import rank as JR  # noqa: E402
 from repro.kernels import ref as JREF  # noqa: E402
 from repro_torch.core import array_trie as TA  # noqa: E402
 from repro_torch.core import synthetic as TS  # noqa: E402
+from repro_torch.core.delta_trie import StreamingTrie  # noqa: E402
 from repro_torch.kernels import KERNELS, launch_counts  # noqa: E402
 from repro_torch.kernels import ops as TO  # noqa: E402
 from repro_torch.kernels import rank as TR  # noqa: E402
@@ -238,7 +239,7 @@ def test_validation_errors(pair):
     assert not TO.is_retryable(RuntimeError("bug"))
 
 
-def test_later_slices_raise_not_implemented(pair):
+def test_later_slices_raise_not_implemented(pair, frozen):
     _, tf, _ = pair["plain"]
     dt = tf.device_arrays(device="cpu")
     seed_layout = dataclasses.replace(dt, child_offsets=None)
@@ -252,15 +253,46 @@ def test_later_slices_raise_not_implemented(pair):
             == (1,)
         assert TO.top_k_rules_batch(trie, [[]], 3)["node"].shape == (1, 3)
         assert TO.rules_with(trie, [1])["node"].shape == (1, 10)
-    for trie, slice_name in ((type("ShardPlan", (), {})(), "slice 6"),
-                             (type("StreamingTrie", (), {})(), "slice 4")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            TO.rule_search_batch(trie, np.zeros((1, 1), np.int32),
-                                 np.zeros(1, np.int32))
-        with pytest.raises(NotImplementedError, match=slice_name):
-            TO.top_k_rules_batch(trie, [[]], 3)
-        with pytest.raises(NotImplementedError, match=slice_name):
-            TO.rules_with(trie, [1])
+    # streaming tries (slice 4) are ported too: a real StreamingTrie with
+    # one rule updated answers as the frozen trie with that rule's metrics
+    # patched (tests/test_torch_streaming.py holds the rest), and has no
+    # trie_reduce, as the reference has none
+    tf = _port(frozen(0.25))     # a stream's base is a canonical trie
+    stream = StreamingTrie(tf, device="cpu")
+    node = int(np.nonzero(tf.node_depth == 1)[0][0])
+    stream.insert([[int(tf.node_item[node])]], [0.75], [0.5], [2.0])
+    cols = {f: np.asarray(getattr(tf, f)).copy()
+            for f in ("support", "confidence", "lift")}
+    for f, v in zip(cols, (0.75, 0.5, 2.0)):
+        cols[f][node] = v
+    patched = TA.FrozenTrie.from_arrays({
+        **{f.name: getattr(tf, f.name) for f in dataclasses.fields(tf)},
+        **cols})
+    rows = np.asarray([[int(tf.node_item[node]), -1], [0, 1]], np.int32)
+    for got, want in (
+        (TO.rule_search_batch(stream, rows, np.ones(2, np.int32)),
+         TO.rule_search_batch(patched, rows, np.ones(2, np.int32),
+                              device="cpu")),
+        (TO.top_k_rules_batch(stream, [[]], 3),
+         TO.top_k_rules_batch(patched, [[]], 3, device="cpu")),
+        (TO.rules_with(stream, [1]),
+         TO.rules_with(patched, [1], device="cpu")),
+    ):
+        for key in want:
+            np.testing.assert_array_equal(got[key].numpy(),
+                                          want[key].numpy())
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        TO.trie_reduce(stream)
+    plan = type("ShardPlan", (), {})()
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        TO.rule_search_batch(plan, np.zeros((1, 1), np.int32),
+                             np.zeros(1, np.int32))
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        TO.top_k_rules_batch(plan, [[]], 3)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        TO.rules_with(plan, [1])
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        StreamingTrie(tf, mesh=object(), device="cpu")
 
 
 def test_rank_merge_equal():
