@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's batched query path, its rule
 construction path, its path-compressed, quantized and seed layouts, its
-streaming tries and its launch profiler on one NVIDIA GPU.
+streaming tries, its serve loop and its launch profiler on one NVIDIA GPU.
 
     python3 chip_smoke.py [--edges N] [--seed S] [--reps R]
 
@@ -102,10 +102,34 @@ streaming tries and its launch profiler on one NVIDIA GPU.
    op beside the frozen one, then one staggered fold and a full refreeze,
    each followed by the same check; the refrozen trie == the rebuild
    array for array.
-9. Observability: one pass of step 4's main path with the launch
+9. Serve loop: the 2^20 trie of step 2 through
+   ``TrieScheduler(ResilientTrieEngine(FaultyEngine(TrieQueryEngine)))``
+   at the reference bench's ``max_batch`` 32, with ``time.perf_counter``
+   charging each launch (its host copy, so the device's work, included)
+   to a virtual clock.  A drain of 4096 ``zipfian_workload`` requests
+   with the launch counters at 0: every response ok, every row (cache
+   hits included) == the same single query on the bare engine, bitwise,
+   and the rank, fused-search and membership kernels launched.  The
+   reference bench's load sweep at 0.5x, 0.9x and 2x the drain's
+   capacity (deadlines 4x, 16x and 64x its launch ms, ``max_pending``
+   32): latency percentiles, QPS and rates, one response per admitted
+   request, statuses == the stats.  Faults on fresh schedulers: a
+   transient (retried, bitwise), a poison item (only its rows invalid),
+   a shard failure at the sixth launch (one failover, the in-flight batch
+   bitwise on the primary, older cache entries orphaned), and the
+   ladder's rungs over a plan-carrying primary (the replicated rung on
+   the card, bitwise; the masked rung raises, slice 6).  Then step 8's
+   retail base as a fresh ``StreamingTrie`` through the loop: 31 rounds
+   of 64 inserts (its novel paths shortest-first with the full trie's
+   metrics) and 128 queries (the base's zipfian traffic and the inserted
+   paths): every answer == the engine at its round's epoch, bitwise, no
+   cache hit across an epoch, 1,960 inserted, the last round == the full
+   trie served frozen, bitwise, and the stream refrozen == the full trie
+   array for array.
+10. Observability: one pass of step 4's main path with the launch
    profiler on: one record per op dispatch under the reference's op names
    and the answers of the pass without it, bitwise.
-10. Prints the GPU's name and power limit, one ``{"kernels": [...]}``
+11. Prints the GPU's name and power limit, one ``{"kernels": [...]}``
    line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result when CUDA is unavailable or any phase fails.
@@ -2197,19 +2221,28 @@ def check_pass(what, got, want):
                 raise AssertionError(f"{what}: {key} {field} differs")
 
 
+def host_fields_equal(what, got, want):
+    """``got`` equals ``want`` (each ``name -> array``) field for field
+    on the host, bitwise, dtypes and shapes included."""
+    import numpy as np
+
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: fields differ")
+    for k, w in want.items():
+        g, w = np.asarray(got[k]), np.asarray(w)
+        if g.dtype != w.dtype or g.shape != w.shape or \
+                g.tobytes() != w.tobytes():
+            raise AssertionError(f"{what}: {k} differs")
+
+
 def frozen_arrays_equal(what, got, want):
     """``got`` equals ``want`` field for field: the node, edge and metric
     columns and the derived CSR, DFS and posting arrays."""
     import dataclasses
 
-    import numpy as np
-
-    for f in dataclasses.fields(want):
-        g, w = np.asarray(getattr(got, f.name)), \
-            np.asarray(getattr(want, f.name))
-        if g.dtype != w.dtype or g.shape != w.shape or \
-                g.tobytes() != w.tobytes():
-            raise AssertionError(f"{what}: {f.name} differs")
+    names = [f.name for f in dataclasses.fields(want)]
+    host_fields_equal(what, {n: getattr(got, n) for n in names},
+                      {n: getattr(want, n) for n in names})
 
 
 def streaming_phase(args, dev, smi):
@@ -2361,6 +2394,549 @@ def streaming_phase(args, dev, smi):
         f"{folded} entries {full_s * 1e3:.1f} ms; the refrozen trie == the "
         f"rebuild array for array; answers == the rebuild after each; "
         f"epoch {engine.epoch}")
+    return base, full, novel, nov
+
+
+# ----------------------------------------------------------------------
+# the serve loop: scheduler, ladder and faults over the port's engines
+# ----------------------------------------------------------------------
+SERVE_REQUESTS = 4096        # requests per replay on the 2^20 trie
+SERVE_MAX_BATCH = 32         # the reference bench's (paper_figs.bench_serve)
+SERVE_LOADS = (("low", 0.5), ("med", 0.9), ("overload", 2.0))
+SERVE_SWEEP_PENDING = 32      # the reference bench's admission limit
+SERVE_DEADLINE_X = (4.0, 16.0, 64.0)    # deadlines in launch ms
+SERVE_ROUND_INSERTS = 64     # the stream's inserts per round
+SERVE_ROUND_QUERIES = 128    # the stream's queries per round
+
+
+def serve_replay(sched, workload, clock):
+    """Discrete-event replay (``paper_figs._serve_replay``): admit each
+    request at its arrival time, step between arrivals.  Returns the
+    responses and the count refused at admission."""
+    from collections import deque
+
+    from repro_torch.serve import QueueFull
+
+    arrivals = deque(sorted(workload, key=lambda w: w["arrival_s"]))
+    responses, refused = [], 0
+    while arrivals or sched.pending:
+        while arrivals and arrivals[0]["arrival_s"] <= clock.now() + 1e-12:
+            w = arrivals.popleft()
+            try:
+                sched.submit(w["op"], w["payload"], w["kwargs"],
+                             deadline_ms=w["deadline_ms"],
+                             tenant=w["tenant"])
+            except QueueFull:
+                refused += 1
+        if sched.pending:
+            responses.extend(sched.step())
+        elif arrivals:
+            clock.sleep(arrivals[0]["arrival_s"] - clock.now())
+    return responses, refused
+
+
+def serve_closed_loop(sched, workload, depth):
+    """Serve ``workload`` with ``depth`` requests pending: the queue is
+    refilled before each step, so the loop runs as fast as it can under
+    that admission limit.  Returns ``(request, workload dict)`` pairs."""
+    from collections import deque
+
+    waiting, reqs = deque(workload), []
+    while waiting or sched.pending:
+        while waiting and sched.pending < depth:
+            w = waiting.popleft()
+            reqs.append((sched.submit(w["op"], w["payload"], w["kwargs"],
+                                      tenant=w["tenant"]), w))
+        sched.step()
+    return reqs
+
+
+def serve_key(op, payload, kwargs):
+    return (op, json.dumps(payload), json.dumps(kwargs, sort_keys=True))
+
+
+def single_query(engine, op, payload, kwargs):
+    """One request's op, run alone on ``engine``: its row on the host."""
+    if op == "rule_search":
+        out = engine.rule_search_batch([tuple(payload)])
+    elif op == "top_k":
+        out = engine.top_k_rules_batch([payload], kwargs["k"],
+                                       metric=kwargs["metric"])
+    else:
+        out = engine.rules_with([payload], **kwargs)
+    return {k: v.cpu().numpy()[0] for k, v in out.items()}
+
+
+def check_rows(what, engine, sched, reqs, memo):
+    """Every ok response of ``reqs`` (``(request, workload dict)``), cache
+    hits included, == the same single query on ``engine``, bitwise."""
+    for req, w in reqs:
+        r = sched.responses[req.id]
+        if r.status != "ok":
+            continue
+        key = serve_key(w["op"], w["payload"], w["kwargs"])
+        if key not in memo:
+            memo[key] = single_query(engine, w["op"], w["payload"],
+                                     w["kwargs"])
+        host_fields_equal(f"{what} request {req.id}", r.result, memo[key])
+
+
+def serve_warm(engine, frozen, max_batch):
+    """One call of every launch shape the scheduler makes (pow2 rows up
+    to ``max_batch`` at its fixed width), as the reference bench warms."""
+    import numpy as np
+
+    depth = np.asarray(frozen.node_depth)
+    width = 1 << max(int(depth.max()) - 1, 0).bit_length()
+    b = 1
+    while b <= max_batch:
+        q = np.full((b, width), -1, np.int32)
+        q[:, 0] = np.arange(b, dtype=np.int32)
+        engine.rule_search_batch(q, np.ones((b,), np.int32))
+        engine.top_k_rules_batch(q, 8, metric="confidence")
+        engine.rules_with(list(range(b)), role="any", k=8, metric="lift")
+        b *= 2
+
+
+def latency_stats(responses):
+    import numpy as np
+
+    ok = [r for r in responses if r.status == "ok"]
+    lat = np.array([r.latency_ms for r in ok])
+    served = np.array([r.latency_ms for r in ok if not r.cache_hit])
+
+    def pct(a, q):
+        return float(np.percentile(a, q)) if len(a) else 0.0
+
+    return {"p50_ms": pct(lat, 50), "p99_ms": pct(lat, 99),
+            "p50_served_ms": pct(served, 50),
+            "p99_served_ms": pct(served, 99)}
+
+
+class PlanPrimary:
+    """A one-device engine that reports a plan: the stand-in for a
+    sharded primary until the sharded backend (ROADMAP slice 6).  Every
+    other attribute is the wrapped engine's."""
+
+    plan = "plan"
+    backend = "sharded"
+
+    def __init__(self, engine):
+        self._engine = engine
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+
+def serve_faults(args, dev, frozen, engine, memo):
+    """The fault scenarios on fresh schedulers over the 2^20 trie."""
+    from repro_torch.serve import (
+        FaultInjector, FaultyEngine, ResilientTrieEngine, TrieScheduler,
+        VirtualClock, zipfian_workload,
+    )
+
+    def fresh(inj, primary=engine, **kw):
+        clock = VirtualClock()
+        res = ResilientTrieEngine(FaultyEngine(primary, inj, clock=clock),
+                                  **kw)
+        return TrieScheduler(res, clock=clock, max_batch=SERVE_MAX_BATCH,
+                             max_pending=SERVE_REQUESTS,
+                             timer=time.perf_counter), res
+
+    wl = zipfian_workload(frozen, 512, seed=args.seed + 2,
+                          deadline_ms=(math.inf,))
+
+    # a transient failure at the third launch: retried, answered bitwise
+    inj = FaultInjector().fail_transient(3)
+    sched, _ = fresh(inj)
+    reqs = [(sched.submit(w["op"], w["payload"], w["kwargs"]), w)
+            for w in wl[:256]]
+    out = sched.drain()
+    if len(out) != 256 or any(r.status != "ok" for r in out) or \
+            sched.stats["retries"] != 1 or \
+            not any(r.retries == 1 for r in out):
+        raise AssertionError(f"serve transient: {sched.stats}")
+    check_rows("serve transient", engine, sched, reqs, memo)
+
+    # a poison query: only its rows are invalid, its batchmates answer
+    items = []
+    for w in wl:
+        if w["op"] == "rules_with" and w["payload"] not in items:
+            items.append(w["payload"])
+    hot, kw = items[0], {"role": "any", "k": 8, "metric": "lift"}
+    inj = FaultInjector().poison_payload(
+        lambda p: isinstance(p, list) and hot in p, times=2)
+    sched, _ = fresh(inj)
+    batch = [hot] + items[1:12] + [hot, hot]
+    reqs = [(sched.submit("rules_with", it, kw),
+             {"op": "rules_with", "payload": it, "kwargs": kw})
+            for it in batch]
+    sched.drain()
+    for req, w in reqs:
+        status = sched.responses[req.id].status
+        if status != ("invalid" if w["payload"] == hot else "ok"):
+            raise AssertionError(f"serve poison: item {w['payload']} "
+                                 f"{status}")
+    check_rows("serve poison", engine, sched, reqs, memo)
+
+    # a shard failure at the sixth launch: one failover, the in-flight
+    # batch answered on the primary, older cache entries orphaned
+    inj = FaultInjector().fail_nth_launch(6, shard=0)
+    sched, res = fresh(inj)
+    groups = {}
+    for w in wl:
+        g = groups.setdefault((w["op"], json.dumps(w["kwargs"])), [])
+        if w["payload"] not in [x["payload"] for x in g]:
+            g.append(w)
+    rs = groups[("rule_search", "{}")]
+    tk = next(g for (op, _), g in groups.items() if op == "top_k")
+    rw = next(g for (op, _), g in groups.items() if op == "rules_with")
+    if len(rs) < 16:
+        raise AssertionError(f"serve failover: {len(rs)} distinct rule "
+                             f"searches in the traffic")
+    k4 = [dict(w, kwargs=dict(w["kwargs"], k=4)) for w in tk[:8]]
+    r4 = [dict(w, kwargs=dict(w["kwargs"], k=4)) for w in rw[:8]]
+    first = [rs[:8], tk[:8], rw[:8], k4, r4]
+    done = []
+    for g in first:
+        done.append([(sched.submit(w["op"], w["payload"], w["kwargs"]), w)
+                     for w in g])
+        sched.drain()
+    if inj.launches != 5 or sched.stats["cache_hits"]:
+        raise AssertionError(f"serve failover: {inj.launches} launches "
+                             f"before the failure")
+    hits = [(sched.submit(w["op"], w["payload"], w["kwargs"]), w)
+            for w in rs[:8]]
+    sched.drain()
+    if not all(sched.responses[q.id].cache_hit for q, _ in hits):
+        raise AssertionError("serve failover: a cached entry missed "
+                             "before the failure")
+    cached = sched.cache_len
+    inflight = [(sched.submit(w["op"], w["payload"], w["kwargs"]), w)
+                for w in rs[8:16]]
+    sched.drain()
+    if res.failovers != 1 or res.health.dead != {0} or any(
+            sched.responses[q.id].status != "ok"
+            or sched.responses[q.id].backend != "replicated"
+            for q, _ in inflight):
+        raise AssertionError(f"serve failover: failovers {res.failovers}, "
+                             f"dead {res.health.dead}")
+    check_rows("serve failover in flight", engine, sched, inflight, memo)
+    hits0 = sched.stats["cache_hits"]
+    again = [[(sched.submit(w["op"], w["payload"], w["kwargs"]), w)
+              for w in g] for g in first]
+    sched.drain()
+    if sched.stats["cache_hits"] != hits0 or any(
+            sched.responses[q.id].cache_hit for g in again for q, _ in g):
+        raise AssertionError("serve failover: an entry cached before the "
+                             "failover was served after it")
+    for g in done + again:
+        check_rows("serve failover", engine, sched, g, memo)
+
+    # the ladder's rungs over a plan-carrying primary: the replicated
+    # rung on the primary's device, bitwise; the masked rung is slice 6
+    primary = PlanPrimary(engine)
+    inj = FaultInjector().fail_nth_launch(1, shard=0)
+    sched, res = fresh(inj, primary)
+    reqs = [(sched.submit(w["op"], w["payload"], w["kwargs"]), w)
+            for w in wl[:64]]
+    sched.drain()
+    if res.backend != "replicated" or res._replicated.device != dev or \
+            any(sched.responses[q.id].status != "ok" for q, _ in reqs):
+        raise AssertionError("serve ladder: the replicated rung")
+    check_rows("serve ladder replicated rung", engine, sched, reqs, memo)
+    inj = FaultInjector().fail_nth_launch(1, shard=0)
+    res = ResilientTrieEngine(FaultyEngine(primary, inj),
+                              allow_replicated_fallback=False)
+    try:
+        res.query("rules_with", [hot], **kw)
+    except NotImplementedError as exc:
+        if "slice 6" not in str(exc):
+            raise
+    else:
+        raise AssertionError("serve ladder: the masked rung answered")
+    log(f"[serve faults] transient at launch 3: retried once, answered "
+        f"bitwise; poison item: only its 3 rows invalid, "
+        f"{len(batch) - 3} batchmates bitwise; shard failure at launch 6: "
+        f"1 failover, the in-flight batch bitwise on the primary, "
+        f"{cached} entries cached before it missed after it; a "
+        f"plan-carrying primary: replicated rung on {dev}, bitwise; "
+        f"masked rung raises NotImplementedError (slice 6)")
+
+
+def serve_frozen(args, dev, smi, frozen):
+    """The 2^20 trie through the whole serve stack: a drain, the capacity
+    at the sweep's admission limit, the reference bench's load sweep, and
+    the faults."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import (
+        FaultInjector, FaultyEngine, ResilientTrieEngine, TrieQueryEngine,
+        TrieScheduler, VirtualClock, zipfian_workload,
+    )
+
+    engine = TrieQueryEngine(frozen, device=dev)
+    serve_warm(engine, frozen, SERVE_MAX_BATCH)
+    torch.cuda.synchronize()
+
+    def fresh(clock, **kw):
+        res = ResilientTrieEngine(FaultyEngine(engine, FaultInjector(),
+                                               clock=clock))
+        return TrieScheduler(res, clock=clock, max_batch=SERVE_MAX_BATCH,
+                             timer=time.perf_counter, **kw)
+
+    # -- the drain: everything at once, no deadlines ---------------------
+    wl = zipfian_workload(frozen, SERVE_REQUESTS, seed=args.seed,
+                          deadline_ms=(math.inf,))
+    clock = VirtualClock()
+    sched = fresh(clock, max_pending=SERVE_REQUESTS)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [(sched.submit(w["op"], w["payload"], w["kwargs"],
+                          tenant=w["tenant"]), w) for w in wl]
+    out = sched.drain()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    require_launched("serve drain", launches,
+                     ("topk_rank_batch", "rule_search_fused",
+                      "rules_with_member"))
+    if len(out) != SERVE_REQUESTS or any(r.status != "ok" for r in out):
+        raise AssertionError(f"serve drain: {sched.stats}")
+    memo = {}
+    check_rows("serve drain", engine, sched, reqs, memo)
+    st = sched.stats
+    burst = st["ok"] / max(clock.now(), 1e-9)
+    log(f"[serve drain] {smi}: {SERVE_REQUESTS} zipfian requests on the "
+        f"{frozen.n_nodes}-node trie, max_batch {SERVE_MAX_BATCH}: "
+        f"{st['launches']} launches, {st['cache_hits']} cache hits, "
+        f"{st['dedup_collapsed']} dedup collapsed; every row (cache hits "
+        f"included) == the single query on the card, bitwise "
+        f"({len(memo)} distinct); service {clock.now() * 1e3:.3f} ms on "
+        f"the virtual clock "
+        f"({clock.now() * 1e3 / max(st['launches'], 1):.4f} ms a launch, "
+        f"a burst's rate {burst:.1f} requests/s), host wall "
+        f"{wall * 1e3:.1f} ms; kernel launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+
+    # -- capacity at the sweep's admission limit: the same requests with
+    # the queue held at max_pending, the loop's sustained rate ----------
+    clock = VirtualClock()
+    sched = fresh(clock, max_pending=SERVE_SWEEP_PENDING)
+    reqs = serve_closed_loop(sched, wl, SERVE_SWEEP_PENDING)
+    st = sched.stats
+    if st["ok"] != SERVE_REQUESTS or len(sched.responses) != SERVE_REQUESTS:
+        raise AssertionError(f"serve capacity: {st}")
+    check_rows("serve capacity", engine, sched, reqs, memo)
+    capacity = st["ok"] / max(clock.now(), 1e-9)
+    launch_ms = clock.now() * 1e3 / max(st["launches"], 1)
+    log(f"[serve capacity] {smi}: the drain's {SERVE_REQUESTS} requests "
+        f"with {SERVE_SWEEP_PENDING} pending: {st['launches']} launches, "
+        f"{st['cache_hits']} cache hits, {st['dedup_collapsed']} dedup "
+        f"collapsed, every row bitwise; {launch_ms:.4f} ms a launch, "
+        f"capacity {capacity:.1f} requests/s (the sweep's 1x)")
+
+    # -- the load sweep at 0.5x, 0.9x and 2x that capacity ---------------
+    deadlines = tuple(m * launch_ms for m in SERVE_DEADLINE_X)
+    for name, mult in SERVE_LOADS:
+        wl = zipfian_workload(frozen, SERVE_REQUESTS, seed=args.seed + 1,
+                              arrival_rate=mult * capacity,
+                              deadline_ms=deadlines)
+        clock = VirtualClock()
+        sched = fresh(clock, max_pending=SERVE_SWEEP_PENDING)
+        out, refused = serve_replay(sched, wl, clock)
+        st = sched.stats
+        ids = [r.id for r in out]
+        counts = {s: sum(r.status == s for r in out)
+                  for s in ("ok", "timeout", "shed", "failed", "invalid")}
+        if len(set(ids)) != len(ids) or \
+                sorted(ids) != sorted(sched.responses) or \
+                len(ids) != st["submitted"] or \
+                len(ids) + refused != SERVE_REQUESTS or \
+                any(counts[s] != st[s]
+                    for s in ("ok", "timeout", "failed", "invalid")) or \
+                counts["shed"] + refused != st["shed"]:
+            raise AssertionError(f"serve load {name}: responses {counts}, "
+                                 f"refused {refused}, stats {st}")
+        n = SERVE_REQUESTS
+        log(f"[serve load] {smi}: {name}, offered "
+            f"{mult * capacity:.1f} requests/s ({mult}x the capacity at "
+            f"max_pending {SERVE_SWEEP_PENDING}), deadlines "
+            f"{', '.join(f'{d:.3f}' for d in deadlines)} ms: " + json.dumps({
+                **latency_stats(out),
+                "qps_sustained": counts["ok"] / max(clock.now(), 1e-9),
+                "ok_rate": counts["ok"] / n,
+                "timeout_rate": st["timeout"] / n,
+                "shed_rate": st["shed"] / n,
+                "cache_hit_rate": st["cache_hits"] / n,
+                "launches": st["launches"]}))
+
+    serve_faults(args, dev, frozen, engine, memo)
+
+
+def stream_round_queries(rng, base_wl, inserted, n):
+    """``n`` requests: ``base_wl`` (the base's zipfian traffic), the rest over
+    the paths inserted so far (the newest the most popular, Zipf s=1.2):
+    a rule split of the path, its parent prefix, its last item."""
+    import numpy as np
+
+    out = list(base_wl)
+    ranks = np.arange(1, len(inserted) + 1, dtype=np.float64) ** -1.2
+    picks = rng.choice(len(inserted), size=n - len(out),
+                       p=ranks / ranks.sum())
+    for i, j in enumerate(picks):
+        p = list(inserted[len(inserted) - 1 - int(j)])
+        if i % 3 == 0:
+            cut = int(rng.randint(1, len(p))) if len(p) > 1 else 1
+            out.append({"op": "rule_search", "kwargs": {},
+                        "payload": (p[:cut], p[cut:] or p[:cut])})
+        elif i % 3 == 1:
+            out.append({"op": "top_k", "payload": p[:-1],
+                        "kwargs": {"k": 8, "metric": "confidence"}})
+        else:
+            out.append({"op": "rules_with", "payload": p[-1],
+                        "kwargs": {"role": "any", "k": 8,
+                                   "metric": "lift"}})
+    return out
+
+
+def batched_rows(engine, ws):
+    """The requests ``ws`` as one batched call per op on ``engine``:
+    ``serve_key -> host row``."""
+    rows = {}
+    for op in ("rule_search", "top_k", "rules_with"):
+        sel = [w for w in ws if w["op"] == op]
+        for kw in {json.dumps(w["kwargs"], sort_keys=True) for w in sel}:
+            part = [w for w in sel
+                    if json.dumps(w["kwargs"], sort_keys=True) == kw]
+            kwargs = json.loads(kw)
+            if op == "rule_search":
+                out = engine.rule_search_batch(
+                    [tuple(w["payload"]) for w in part])
+            elif op == "top_k":
+                out = engine.top_k_rules_batch(
+                    [w["payload"] for w in part], kwargs["k"],
+                    metric=kwargs["metric"])
+            else:
+                out = engine.rules_with([w["payload"] for w in part],
+                                        **kwargs)
+            host = {k: v.cpu().numpy() for k, v in out.items()}
+            for i, w in enumerate(part):
+                rows[serve_key(op, w["payload"], w["kwargs"])] = {
+                    k: v[i] for k, v in host.items()}
+    return rows
+
+
+def serve_stream(args, dev, smi, parts):
+    """The retail stream through the scheduler, inserts and
+    queries together, round by round."""
+    import numpy as np
+    from repro_torch.core import StreamingTrie
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import Observability
+    from repro_torch.serve import (
+        TrieQueryEngine, TrieScheduler, zipfian_workload,
+    )
+
+    base, full, novel, nov = parts
+    stream = StreamingTrie(base, device=dev)
+    engine = TrieQueryEngine(stream)
+    obs = Observability(tracing=True)
+    sched = TrieScheduler(engine, max_batch=SERVE_MAX_BATCH,
+                          max_pending=1 << 16, obs=obs)
+    rng = np.random.RandomState(args.seed + 31)
+    n_rounds = -(-len(novel) // SERVE_ROUND_INSERTS)
+    half = SERVE_ROUND_QUERIES // 2
+    base_wl = zipfian_workload(base, n_rounds * half, seed=args.seed + 100)
+    launches = {}
+    t0 = time.perf_counter()
+    last = None
+    for r in range(n_rounds):
+        lo, hi = r * SERVE_ROUND_INSERTS, (r + 1) * SERVE_ROUND_INSERTS
+        for i in range(lo, min(hi, len(novel))):
+            sched.submit("insert", (novel[i], *(float(x) for x in nov[:, i])))
+        ws = stream_round_queries(
+            rng, base_wl[r * half:(r + 1) * half],
+            novel[:min(hi, len(novel))], SERVE_ROUND_QUERIES)
+        reqs = [(sched.submit(w["op"], w["payload"], w["kwargs"]), w)
+                for w in ws]
+        # the scheduler's own launches: counted over the drain alone,
+        # before the check's direct calls below
+        reset_launch_counts()
+        out = sched.drain()
+        for k, v in launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        if any(x.status != "ok" for x in out):
+            raise AssertionError(f"serve stream round {r}: "
+                                 f"{sched.stats}")
+        # the round's inserts land before any of its queries: a cache
+        # hit can only come from a miss of the same round
+        key_of = {q.id: q.key for q, _ in reqs}
+        missed = set()
+        for x in out:
+            if x.op == "insert":
+                continue
+            key = key_of[x.id]
+            if x.cache_hit and key not in missed:
+                raise AssertionError(f"serve stream round {r}: a response "
+                                     f"from a cache entry of an older "
+                                     f"epoch")
+            missed.add(key)
+        want = batched_rows(engine, ws)
+        for q, w in reqs:
+            host_fields_equal(f"serve stream round {r} request {q.id}",
+                       sched.responses[q.id].result,
+                       want[serve_key(w["op"], w["payload"], w["kwargs"])])
+        last = (reqs, ws)
+    wall = time.perf_counter() - t0
+    require_launched("serve stream", launches,
+                     ("topk_rank_batch", "rule_search_fused",
+                      "rules_with_member"))
+    st = sched.stats
+    if st["inserted"] != len(novel):
+        raise AssertionError(f"serve stream: {st['inserted']} inserted of "
+                             f"{len(novel)}")
+    reqs, ws = last
+    full_eng = TrieQueryEngine(full, device=dev)
+    want = batched_rows(full_eng, ws)
+    for q, w in reqs:
+        host_fields_equal(f"serve stream vs full request {q.id}",
+                   sched.responses[q.id].result,
+                   want[serve_key(w["op"], w["payload"], w["kwargs"])])
+    stream.refreeze()
+    frozen_arrays_equal("serve stream refreeze vs full", stream.frozen, full)
+    spans = obs.tracer.finished()
+    drain_s = sum(s.duration_s for s in spans if s.name == "insert_drain")
+    fold_s = [s.duration_s for s in spans if s.name == "refreeze"
+              and s.attrs.get("folded")]
+    lat = {}
+    for op in ("rule_search", "top_k", "rules_with"):
+        ms = np.array([x.latency_ms for x in sched.responses.values()
+                       if x.op == op])
+        svc = np.array([s.duration_s * 1e3 for s in spans
+                        if s.name == "launch" and s.attrs.get("op") == op])
+        lat[op] = {"p50_ms": float(np.percentile(ms, 50)),
+                   "p99_ms": float(np.percentile(ms, 99)),
+                   "launch_ms_mean": float(svc.mean()), "launches": len(svc)}
+    log(f"[serve stream] {smi}: {len(novel)} inserts in {n_rounds} rounds "
+        f"of {SERVE_ROUND_INSERTS} with {SERVE_ROUND_QUERIES} queries each "
+        f"on the {base.n_nodes}-node retail base; every query == the "
+        f"engine at its round's epoch, bitwise; no cache hit across an "
+        f"epoch; last round == the full trie served frozen, bitwise; the "
+        f"stream refrozen == the full trie array for array; "
+        f"{st['inserted']} inserted, {st['refreezes']} refreezes "
+        f"({sum(fold_s) * 1e3:.1f} ms folding), "
+        f"{len(novel) / max(drain_s - sum(fold_s), 1e-9):.0f} inserts/s "
+        f"through the loop, {st['cache_hits']} cache hits, "
+        f"{st['launches']} launches (kernel launches in the drains "
+        f"{ {k: v for k, v in launches.items() if v} }), wall "
+        f"{wall:.1f} s; per op: " + json.dumps(lat))
+
+
+def serve_phase(args, dev, smi, frozen, stream_parts):
+    """The serve loop on the card: over the main path's trie, then over
+    the streaming phase's retail base."""
+    serve_frozen(args, dev, smi, frozen)
+    serve_stream(args, dev, smi, stream_parts)
 
 
 def profiler_pass(engine, queries, ant_len, pairs, prefixes, items, res):
@@ -2676,10 +3252,14 @@ def main():
     log(f"[seed] phase done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 9. streaming: inserts and refreezes over a retail base ---------
-    streaming_phase(args, dev, smi)
+    stream_parts = streaming_phase(args, dev, smi)
     log(f"[stream] phase done at {time.perf_counter() - t_start:.1f} s")
 
-    # -- 10. observability: the launch profiler on the main path --------
+    # -- 10. the serve loop: the 2^20 trie, then the retail stream -------
+    serve_phase(args, dev, smi, frozen, stream_parts)
+    log(f"[serve] phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 11. observability: the launch profiler on the main path --------
     profiler_pass(engine, queries, ant_len, pairs, prefixes, items, res)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,4 +1,40 @@
-"""Serving: the trie query engine (replicated backend, one device)."""
+"""Serving: the trie query engine (replicated backend, one device) and the
+resilient continuous-batching serve loop (scheduler / resilience /
+faults)."""
+from .faults import FaultInjector, FaultyEngine, zipfian_workload
+from .resilience import (
+    MonotonicClock,
+    ResilientTrieEngine,
+    RetryPolicy,
+    ShardHealth,
+    VirtualClock,
+    retry_call,
+)
+from .scheduler import (
+    STAT_KEYS,
+    LaunchPredictor,
+    QueueFull,
+    Request,
+    Response,
+    TrieScheduler,
+)
 from .trie_engine import TrieQueryEngine
 
-__all__ = ["TrieQueryEngine"]
+__all__ = [
+    "TrieQueryEngine",
+    "TrieScheduler",
+    "QueueFull",
+    "Request",
+    "Response",
+    "LaunchPredictor",
+    "STAT_KEYS",
+    "ResilientTrieEngine",
+    "RetryPolicy",
+    "ShardHealth",
+    "VirtualClock",
+    "MonotonicClock",
+    "retry_call",
+    "FaultInjector",
+    "FaultyEngine",
+    "zipfian_workload",
+]

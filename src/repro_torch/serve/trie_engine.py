@@ -3,7 +3,12 @@
 PyTorch port of ``repro.serve.trie_engine.TrieQueryEngine``, replicated
 backend only: the whole trie lives on one device, uploaded once, with the
 gathered column dicts memoized, and the batched ops route to
-``kernels.ops``.  The sharded backend is ROADMAP slice 6.
+``kernels.ops``.  ``mode="auto"`` and ``mode="replicated"`` both serve
+on that one device; the sharded backend (``mode="sharded"``, a ``mesh``
+or an injected ``plan``) is ROADMAP slice 6 and raises
+``NotImplementedError``, and ``plan`` reads ``None`` until then.  The
+reference's ``shard_threshold_nodes`` only steers ``"auto"`` towards the
+sharded backend, so it is left out with it.
 
 The engine also fronts a ``core.delta_trie.StreamingTrie``: a frozen
 base plus a mutable delta overlay.  Queries then run through
@@ -33,7 +38,17 @@ class TrieQueryEngine:
     """Serving front door for one Trie of Rules: a ``FrozenTrie`` on
     ``device`` (CUDA unless named), or a ``StreamingTrie`` on its own."""
 
-    def __init__(self, frozen, device=None):
+    def __init__(self, frozen, device=None, *, mesh=None,
+                 mode: str = "auto", plan=None):
+        if mode not in ("auto", "replicated", "sharded"):
+            raise ValueError(
+                f"mode {mode!r} not in ('auto', 'replicated', 'sharded')"
+            )
+        if mode == "sharded" or mesh is not None or plan is not None:
+            raise NotImplementedError(
+                "TrieQueryEngine with mode='sharded', a mesh or a plan: "
+                "the sharded backend is ROADMAP slice 6 (multi-GPU)"
+            )
         # set by a serve component; when present, each op runs under an
         # ``engine.<op>`` span on the shared tracer
         self.obs = None
@@ -82,6 +97,12 @@ class TrieQueryEngine:
         every insert and refreeze, so any result cache keyed on it can
         never return a pre-insert row for a post-insert trie."""
         return self.stream.epoch if self.stream is not None else 0
+
+    @property
+    def plan(self):
+        """The engine's ``ShardPlan``: ``None`` until the sharded backend
+        (ROADMAP slice 6)."""
+        return None
 
     @property
     def backend(self) -> str:

@@ -67,7 +67,7 @@ def test_engine_matches_reference(source, frozen):
                                float(want["mean_conf"]), rtol=1e-6)
 
 
-def test_engine_rejects_later_slices():
+def test_engine_rejects_later_slices(frozen):
     # streaming tries (slice 4) are served now
     # (tests/test_torch_streaming.py); a sharded plan is slice 6, and
     # anything else is no trie at all
@@ -75,3 +75,20 @@ def test_engine_rejects_later_slices():
         TrieQueryEngine(type("ShardPlan", (), {})(), device="cpu")
     with pytest.raises(TypeError, match="FrozenTrie or a StreamingTrie"):
         TrieQueryEngine(object(), device="cpu")
+    # the sharded backend's arguments are slice 6 too; an unknown mode is
+    # the reference's ValueError
+    fz = _port(frozen(0.25))
+    for kw in (dict(mode="sharded"), dict(mesh=object()),
+               dict(plan=object()), dict(mode="auto", mesh=object())):
+        with pytest.raises(NotImplementedError, match="slice 6"):
+            TrieQueryEngine(fz, device="cpu", **kw)
+    with pytest.raises(ValueError, match="'nope'"):
+        TrieQueryEngine(fz, device="cpu", mode="nope")
+    # "auto" and "replicated" serve on the one device, and no engine has
+    # a plan until slice 6
+    for mode in ("auto", "replicated"):
+        eng = TrieQueryEngine(fz, device="cpu", mode=mode)
+        assert eng.plan is None and eng.backend == "replicated"
+        assert eng.n_shards == 1 and eng.device == torch.device("cpu")
+        _eq(eng.rules_with([0, 1], k=3), JaxEngine(
+            frozen(0.25), mode="replicated").rules_with([0, 1], k=3))

@@ -380,6 +380,47 @@ def test_engine_on_gpu_equals_cpu(small, cuda):
     _reduce_op_as_before(gpu.dt, g)
 
 
+def _serve(fz, device, wl):
+    """Drain ``wl`` through the scheduler over an engine on ``device``,
+    with one injected transient failure, on a virtual clock."""
+    from repro_torch.serve import (FaultInjector, FaultyEngine,
+                                   ResilientTrieEngine, TrieScheduler,
+                                   VirtualClock)
+
+    clock = VirtualClock()
+    inj = FaultInjector().fail_transient(2)
+    sched = TrieScheduler(ResilientTrieEngine(FaultyEngine(
+        TrieQueryEngine(fz, device=device), inj, clock=clock)),
+        clock=clock, max_batch=16)
+    for w in wl:
+        sched.submit(w["op"], w["payload"], w["kwargs"], tenant=w["tenant"])
+    return sched.drain(), sched
+
+
+def test_scheduler_on_gpu_equals_cpu(small, cuda):
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import zipfian_workload
+
+    _, fz = small
+    wl = zipfian_workload(fz, 200, seed=4)
+    reset_launch_counts()
+    gpu, gs = _serve(fz, cuda, wl)
+    launched = launch_counts()
+    cpu, cs = _serve(fz, "cpu", wl)
+    assert gs.stats == cs.stats and gs.stats["ok"] == len(wl)
+    assert gs.stats["retries"] == 1
+    for name in ("topk_rank_batch", "rule_search_fused",
+                 "rules_with_member"):
+        assert launched[name] > 0, name
+    for g, c in zip(gpu, cpu):
+        assert (g.id, g.status, g.backend, g.cache_hit, g.retries) == \
+            (c.id, c.status, c.backend, c.cache_hit, c.retries)
+        assert set(g.result) == set(c.result)
+        for key in c.result:
+            gv, cv = np.asarray(g.result[key]), np.asarray(c.result[key])
+            assert gv.dtype == cv.dtype and gv.tobytes() == cv.tobytes()
+
+
 def _reduce_op_as_before(dt, got):
     """``ops.trie_reduce`` on the card as it was before the kernel wrote
     the mean: its four values from the four-output wrapper, the mean as
