@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's batched query path, its rule
 construction path, its path-compressed, quantized and seed layouts, its
-streaming tries, its serve loop and its launch profiler on one NVIDIA GPU.
+streaming tries, its serve loop, its sharded trie and its launch profiler
+on one NVIDIA GPU.
 
     python3 chip_smoke.py [--edges N] [--seed S] [--reps R]
 
@@ -117,8 +118,8 @@ streaming tries, its serve loop and its launch profiler on one NVIDIA GPU.
    transient (retried, bitwise), a poison item (only its rows invalid),
    a shard failure at the sixth launch (one failover, the in-flight batch
    bitwise on the primary, older cache entries orphaned), and the
-   ladder's rungs over a plan-carrying primary (the replicated rung on
-   the card, bitwise; the masked rung raises, slice 6).  Then step 8's
+   ladder's replicated rung over a one-shard sharded primary (on the
+   card, bitwise).  Then step 8's
    retail base as a fresh ``StreamingTrie`` through the loop: 31 rounds
    of 64 inserts (its novel paths shortest-first with the full trie's
    metrics) and 128 queries (the base's zipfian traffic and the inserted
@@ -126,10 +127,29 @@ streaming tries, its serve loop and its launch profiler on one NVIDIA GPU.
    cache hit across an epoch, 1,960 inserted, the last round == the full
    trie served frozen, bitwise, and the stream refrozen == the full trie
    array for array.
-10. Observability: one pass of step 4's main path with the launch
+10. Sharded trie: the 2^20 trie of step 2 cut into P = 1, 2 and 4
+   contiguous DFS subtree ranges (``shard_device_trie``) over the first P
+   visible GPUs, or P shards on one card where fewer are visible (the ms
+   are then the cost of the split on one card, not scaling): the 4096
+   search rows and 256 pairs, the 256 prefixes at k = 10 and 100 for
+   every metric and the 256 items for every role == the replicated
+   engine bitwise (tie order, int32), with the rank, membership and
+   fused search kernels launched once a live shard an op; per-shard
+   resident bytes and each op's ms (CUDA events, median of --reps) beside
+   the replicated op's.  The chain trie of step 6, compressed f32 and
+   int32 + bf16, at P = 4 through the span kernel == the single-device
+   compressed ops.  ``mask_dead_shards(plan, [1, 3])`` on the card == the
+   same masked plan on the CPU (plain versions), and masking every shard
+   raises.  The ladder over a P = 4 primary with a shard failure on
+   shard 1: the replicated rung == the replicated engine, the masked rung
+   ``degraded=True`` == the masked plan.  Step 8's retail stream over a
+   P = 4 mesh beside the unsharded stream: two rounds of 64 inserts and
+   128 queries, then a fold, every answer bitwise, ``owner_shard`` ==
+   the plan's ranges, the fold's cuts the drift gate's.
+11. Observability: one pass of step 4's main path with the launch
    profiler on: one record per op dispatch under the reference's op names
    and the answers of the pass without it, bitwise.
-11. Prints the GPU's name and power limit, one ``{"kernels": [...]}``
+12. Prints the GPU's name and power limit, one ``{"kernels": [...]}``
    line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result when CUDA is unavailable or any phase fails.
@@ -142,6 +162,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -1212,7 +1233,8 @@ def compressed_phase(args, dev, l2_flush, retail, retail_n_tx, lat):
     """The path-compressed, quantized layout at 2^20 rules and on the
     retail trie: drive, check and time it; returns the span kernel's and
     the quantized variants' rows of the ``kernels`` line, the span row
-    with its latency floor at the load latencies ``lat``."""
+    with its latency floor at the load latencies ``lat``, and the chain
+    trie ``(arrays, FrozenTrie)``."""
     import numpy as np
     import torch
     from repro_torch.core import synthetic
@@ -1570,7 +1592,7 @@ def compressed_phase(args, dev, l2_flush, retail, retail_n_tx, lat):
         **{k: v for k, v in skw.items() if k != "max_fanout"}), lat)
     log(f"[kernel] rule_search_span on the quantized tries (device ms): "
         f"{span_row['quantized_ms']}")
-    return dq_rows
+    return dq_rows, (arrs, fz)
 
 
 def sweep_row_steps(dt, queries):
@@ -2513,26 +2535,12 @@ def latency_stats(responses):
             "p99_served_ms": pct(served, 99)}
 
 
-class PlanPrimary:
-    """A one-device engine that reports a plan: the stand-in for a
-    sharded primary until the sharded backend (ROADMAP slice 6).  Every
-    other attribute is the wrapped engine's."""
-
-    plan = "plan"
-    backend = "sharded"
-
-    def __init__(self, engine):
-        self._engine = engine
-
-    def __getattr__(self, name):
-        return getattr(self._engine, name)
-
-
 def serve_faults(args, dev, frozen, engine, memo):
     """The fault scenarios on fresh schedulers over the 2^20 trie."""
+    from repro_torch.launch.mesh import TrieMesh
     from repro_torch.serve import (
-        FaultInjector, FaultyEngine, ResilientTrieEngine, TrieScheduler,
-        VirtualClock, zipfian_workload,
+        FaultInjector, FaultyEngine, ResilientTrieEngine, TrieQueryEngine,
+        TrieScheduler, VirtualClock, zipfian_workload,
     )
 
     def fresh(inj, primary=engine, **kw):
@@ -2633,35 +2641,26 @@ def serve_faults(args, dev, frozen, engine, memo):
     for g in done + again:
         check_rows("serve failover", engine, sched, g, memo)
 
-    # the ladder's rungs over a plan-carrying primary: the replicated
-    # rung on the primary's device, bitwise; the masked rung is slice 6
-    primary = PlanPrimary(engine)
+    # the ladder's replicated rung over a one-shard sharded primary: a
+    # one-device engine on the primary's device, bitwise (the [shard]
+    # phase drives both rungs over four shards)
+    primary = TrieQueryEngine(frozen, mesh=TrieMesh([dev]), mode="sharded")
     inj = FaultInjector().fail_nth_launch(1, shard=0)
     sched, res = fresh(inj, primary)
     reqs = [(sched.submit(w["op"], w["payload"], w["kwargs"]), w)
             for w in wl[:64]]
     sched.drain()
     if res.backend != "replicated" or res._replicated.device != dev or \
+            res._replicated.plan is not None or \
             any(sched.responses[q.id].status != "ok" for q, _ in reqs):
         raise AssertionError("serve ladder: the replicated rung")
     check_rows("serve ladder replicated rung", engine, sched, reqs, memo)
-    inj = FaultInjector().fail_nth_launch(1, shard=0)
-    res = ResilientTrieEngine(FaultyEngine(primary, inj),
-                              allow_replicated_fallback=False)
-    try:
-        res.query("rules_with", [hot], **kw)
-    except NotImplementedError as exc:
-        if "slice 6" not in str(exc):
-            raise
-    else:
-        raise AssertionError("serve ladder: the masked rung answered")
     log(f"[serve faults] transient at launch 3: retried once, answered "
         f"bitwise; poison item: only its 3 rows invalid, "
         f"{len(batch) - 3} batchmates bitwise; shard failure at launch 6: "
         f"1 failover, the in-flight batch bitwise on the primary, "
-        f"{cached} entries cached before it missed after it; a "
-        f"plan-carrying primary: replicated rung on {dev}, bitwise; "
-        f"masked rung raises NotImplementedError (slice 6)")
+        f"{cached} entries cached before it missed after it; a one-shard "
+        f"sharded primary: replicated rung on {dev}, bitwise")
 
 
 def serve_frozen(args, dev, smi, frozen):
@@ -2799,30 +2798,37 @@ def stream_round_queries(rng, base_wl, inserted, n):
     return out
 
 
+def batched_calls(ws):
+    """The requests ``ws`` grouped as ``batched_rows`` calls them: one
+    ``(op, kwargs, requests)`` per op and distinct kwargs."""
+    for op in ("rule_search", "top_k", "rules_with"):
+        sel = [w for w in ws if w["op"] == op]
+        for kw in sorted({json.dumps(w["kwargs"], sort_keys=True)
+                          for w in sel}):
+            yield op, json.loads(kw), [
+                w for w in sel
+                if json.dumps(w["kwargs"], sort_keys=True) == kw]
+
+
 def batched_rows(engine, ws):
     """The requests ``ws`` as one batched call per op on ``engine``:
     ``serve_key -> host row``."""
     rows = {}
-    for op in ("rule_search", "top_k", "rules_with"):
-        sel = [w for w in ws if w["op"] == op]
-        for kw in {json.dumps(w["kwargs"], sort_keys=True) for w in sel}:
-            part = [w for w in sel
-                    if json.dumps(w["kwargs"], sort_keys=True) == kw]
-            kwargs = json.loads(kw)
-            if op == "rule_search":
-                out = engine.rule_search_batch(
-                    [tuple(w["payload"]) for w in part])
-            elif op == "top_k":
-                out = engine.top_k_rules_batch(
-                    [w["payload"] for w in part], kwargs["k"],
-                    metric=kwargs["metric"])
-            else:
-                out = engine.rules_with([w["payload"] for w in part],
-                                        **kwargs)
-            host = {k: v.cpu().numpy() for k, v in out.items()}
-            for i, w in enumerate(part):
-                rows[serve_key(op, w["payload"], w["kwargs"])] = {
-                    k: v[i] for k, v in host.items()}
+    for op, kwargs, part in batched_calls(ws):
+        if op == "rule_search":
+            out = engine.rule_search_batch(
+                [tuple(w["payload"]) for w in part])
+        elif op == "top_k":
+            out = engine.top_k_rules_batch(
+                [w["payload"] for w in part], kwargs["k"],
+                metric=kwargs["metric"])
+        else:
+            out = engine.rules_with([w["payload"] for w in part],
+                                    **kwargs)
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        for i, w in enumerate(part):
+            rows[serve_key(op, w["payload"], w["kwargs"])] = {
+                k: v[i] for k, v in host.items()}
     return rows
 
 
@@ -2937,6 +2943,362 @@ def serve_phase(args, dev, smi, frozen, stream_parts):
     the streaming phase's retail base."""
     serve_frozen(args, dev, smi, frozen)
     serve_stream(args, dev, smi, stream_parts)
+
+
+SHARD_COUNTS = (1, 2, 4)      # the [shard] phase's shard counts
+SHARD_DEAD = (1, 3)           # the shards it masks dead at P = 4
+SHARD_MASK_PREFIXES = 32      # rows of the masked plan's CPU twin (its
+SHARD_MASK_ITEMS = 16         # plain versions run on the host cores)
+
+
+def shard_meshes(dev):
+    """A ``TrieMesh`` per P of ``SHARD_COUNTS``: the first P visible GPUs,
+    or P shards on ``dev`` where fewer are visible."""
+    import torch
+    from repro_torch.launch.mesh import TrieMesh
+
+    n = torch.cuda.device_count()
+    return {p: TrieMesh([torch.device("cuda", i) for i in range(p)]
+                        if n >= p else [dev] * p) for p in SHARD_COUNTS}
+
+
+def live_shards(plan):
+    """Shards with a DFS range: each launches every kernel of an op once."""
+    return sum(sh.dfs_len > 0 for sh in plan.trie.shards)
+
+
+def shard_drive(engine, traffic, metrics=METRICS, chain=False):
+    """The [shard] phase's ops on ``engine``: the search rows (and the
+    ragged pairs), top-k at k = 10 and 100 for each metric, rules_with
+    for each role."""
+    queries, ant_len, pairs, prefixes, items = traffic
+    out = {"search": engine.rule_search_batch(queries, ant_len)}
+    if not chain:
+        out["pairs"] = engine.rule_search_batch(pairs)
+    for metric in metrics:
+        for k in (10, 100):
+            out[f"topk {metric} k={k}"] = engine.top_k_rules_batch(
+                prefixes, k, metric=metric)
+    for role in ROLES:
+        out[role] = engine.rules_with(items, role=role, k=10)
+    return out
+
+
+def shard_same(what, got, want):
+    """Every field of every answer bitwise, on the host."""
+    for key, w in want.items():
+        host_fields_equal(f"{what} {key}",
+                          {f: v.cpu().numpy() for f, v in got[key].items()},
+                          {f: v.cpu().numpy() for f, v in w.items()})
+
+
+def shard_launches(what, launches, want):
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{what}: {name} launched {launches[name]}"
+                                 f" times, expected {n} (once a live shard"
+                                 f" an op)")
+
+
+def shard_op_ms(engine, traffic, reps):
+    queries, ant_len, _, prefixes, items = traffic
+    return {
+        "rule_search_batch": cuda_ms(
+            lambda: engine.rule_search_batch(queries, ant_len), reps),
+        "top_k_rules_batch_k10": cuda_ms(
+            lambda: engine.top_k_rules_batch(prefixes, 10), reps),
+        "top_k_rules_batch_k100": cuda_ms(
+            lambda: engine.top_k_rules_batch(prefixes, 100), reps),
+        "rules_with_any": cuda_ms(
+            lambda: engine.rules_with(items, role="any", k=10), reps),
+    }
+
+
+def shard_query_path(args, dev, smi, engine, traffic, meshes):
+    """The query-path trie at each P against the replicated engine; the
+    plans, for the mask and the ladder."""
+    import torch
+    from repro_torch.distributed.trie_sharding import shard_device_trie
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import TrieQueryEngine
+
+    frozen = engine.frozen
+    want = shard_drive(engine, traffic)
+    plans, op_ms = {}, {"replicated": shard_op_ms(engine, traffic,
+                                                  args.reps)}
+    for p, mesh in meshes.items():
+        t0 = time.perf_counter()
+        plan = shard_device_trie(frozen, mesh)
+        build_s = time.perf_counter() - t0
+        sharded = TrieQueryEngine(frozen, plan=plan)
+        reset_launch_counts()
+        got = shard_drive(sharded, traffic)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        live = live_shards(plan)
+        shard_launches(f"shard P={p}", launches, {
+            "rule_search_fused": 2 * live,
+            "topk_rank_batch": (2 * len(METRICS) + 1) * live,
+            "rules_with_member": 2 * live})
+        shard_same(f"shard P={p}", got, want)
+        plans[p] = plan
+        op_ms[f"P={p}"] = shard_op_ms(sharded, traffic, args.reps)
+        log(f"[shard] P={p} over {[str(d) for d in mesh.devices]}: ranges "
+            f"{list(plan.ranges)}, resident bytes per shard "
+            f"{[sh.nbytes() for sh in plan.trie.shards]} (replicated "
+            f"{engine.dt.nbytes()}), plan built in {build_s:.2f} s; every "
+            f"answer == the replicated engine's bitwise (4096 rows, 256 "
+            f"pairs, 256 prefixes at k = 10 and 100 for each metric, 256 "
+            f"items each role); launches a live shard an op: "
+            f"{ {k: v for k, v in launches.items() if v} }")
+    log(f"[shard ms] {smi}; P shards on ONE card (the cost of the split, "
+        f"not scaling across GPUs), CUDA events, median of {args.reps}: "
+        + json.dumps(op_ms))
+    return plans
+
+
+def trie_ops(trie):
+    """``kernels.ops`` on one trie (a compressed ``DeviceTrie`` or a plan)
+    under the engine's method names, for ``shard_drive``."""
+    from functools import partial
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import ops
+
+    return SimpleNamespace(
+        rule_search_batch=partial(ops.rule_search_batch, trie),
+        top_k_rules_batch=partial(ops.top_k_rules_batch, trie),
+        rules_with=partial(ops.rules_with, trie))
+
+
+def shard_chain(args, dev, chain, mesh):
+    """The chain trie compressed (f32, int32 + bf16) at P = 4 through the
+    span kernel against the single-device compressed tries."""
+    import torch
+    from repro_torch.core.array_trie import canonical_prefix_rows
+    from repro_torch.distributed.trie_sharding import shard_device_trie
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    arrs, fz = chain
+    queries, ant_len, prefixes, items = chain_traffic(arrs, args.seed)
+    # a compressed DeviceTrie keeps no item ranks: prefixes go in already
+    # in frequency order, so both sides descend the same rows
+    prefixes = canonical_prefix_rows(prefixes, fz.item_rank)
+    traffic = (queries, ant_len, None, prefixes, items)
+    for tag in ("compressed", "i32+bf16"):
+        kw = dict(QUANT[tag], layout="compressed")
+        dt = fz.device_arrays(device=dev, **kw)
+        t0 = time.perf_counter()
+        plan = shard_device_trie(fz, mesh, **kw)
+        build_s = time.perf_counter() - t0
+
+        want = shard_drive(trie_ops(dt), traffic, ("confidence",),
+                           chain=True)
+        reset_launch_counts()
+        got = shard_drive(trie_ops(plan), traffic, ("confidence",),
+                          chain=True)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        live = live_shards(plan)
+        shard_launches(f"shard chain {tag}", launches, {
+            "rule_search_span": live, "topk_rank_batch": 2 * live,
+            "rules_with_member": 3 * live, "rule_search_fused": 0})
+        shard_same(f"shard chain {tag}", got, want)
+        log(f"[shard chain] {tag}, P={plan.n_shards}: ranges "
+            f"{list(plan.ranges)}, resident bytes per shard "
+            f"{[sh.nbytes() for sh in plan.trie.shards]} (one device "
+            f"{dt.nbytes()}), plan built in {build_s:.2f} s; every answer "
+            f"== the single-device compressed ops bitwise; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+
+
+def shard_mask(args, dev, frozen, plan, traffic):
+    """``mask_dead_shards`` on the card against the same masked plan on
+    the CPU (plain versions), bitwise; masking every shard raises."""
+    import torch
+    from repro_torch.distributed.trie_sharding import (
+        mask_dead_shards, shard_device_trie,
+    )
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.launch.mesh import TrieMesh
+
+    queries, ant_len, _, prefixes, items = traffic
+    p = plan.n_shards
+    masked = mask_dead_shards(plan, SHARD_DEAD)
+    t0 = time.perf_counter()
+    twin = mask_dead_shards(
+        shard_device_trie(frozen, TrieMesh(["cpu"] * p)), SHARD_DEAD)
+    prefixes, items = prefixes[:SHARD_MASK_PREFIXES], items[
+        :SHARD_MASK_ITEMS]
+
+    def run(trie):
+        return {
+            "search": ops.rule_search_batch(trie, queries, ant_len),
+            "topk": ops.top_k_rules_batch(trie, prefixes, 10),
+            "antecedent": ops.rules_with(trie, items, role="antecedent",
+                                         k=10),
+        }
+
+    reset_launch_counts()
+    got = run(masked)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    live = live_shards(masked)
+    shard_launches("shard mask", launches, {
+        "rule_search_fused": live, "topk_rank_batch": live,
+        "rules_with_member": live})
+    shard_same("shard mask vs CPU twin", got, run(twin))
+    try:
+        mask_dead_shards(plan, range(p))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("shard mask: masking every shard answered")
+    found = int(got["search"]["found"].sum())
+    log(f"[shard mask] shards {list(SHARD_DEAD)} of {p} dead: {live} live "
+        f"shards launch; 4096 rows ({found} found), {len(prefixes)} "
+        f"prefixes, {len(items)} items == the masked plan on the CPU "
+        f"(plain versions) bitwise ({time.perf_counter() - t0:.1f} s); "
+        f"masking all {p} raises ValueError")
+
+
+def shard_ladder(args, dev, engine, plan):
+    """Both ladder rungs over a sharded P = 4 primary with a ShardFailure
+    on shard 1."""
+    from repro_torch.distributed.trie_sharding import mask_dead_shards
+    from repro_torch.serve import (
+        FaultInjector, FaultyEngine, ResilientTrieEngine, TrieQueryEngine,
+        TrieScheduler, VirtualClock, zipfian_workload,
+    )
+
+    frozen = engine.frozen
+    primary = TrieQueryEngine(frozen, plan=plan)
+    masked = TrieQueryEngine(frozen, plan=mask_dead_shards(plan, [1]))
+    wl = zipfian_workload(frozen, 128, seed=args.seed + 5,
+                          deadline_ms=(math.inf,))
+    for allow, oracle in ((True, engine), (False, masked)):
+        clock = VirtualClock()
+        inj = FaultInjector().fail_nth_launch(1, shard=1)
+        res = ResilientTrieEngine(FaultyEngine(primary, inj, clock=clock),
+                                  allow_replicated_fallback=allow)
+        sched = TrieScheduler(res, clock=clock, max_batch=SERVE_MAX_BATCH,
+                              max_pending=SERVE_REQUESTS,
+                              timer=time.perf_counter)
+        reqs = [(sched.submit(w["op"], w["payload"], w["kwargs"]), w)
+                for w in wl]
+        sched.drain()
+        rung = "replicated" if allow else "degraded"
+        if res.failovers != 1 or res.health.dead != {1} or \
+                res.backend != rung or any(
+                    sched.responses[q.id].status != "ok"
+                    or sched.responses[q.id].degraded is allow
+                    for q, _ in reqs):
+            raise AssertionError(f"shard ladder {rung}: failovers "
+                                 f"{res.failovers}, {sched.stats}")
+        check_rows(f"shard ladder {rung}", oracle, sched, reqs, {})
+    log(f"[shard ladder] a P={plan.n_shards} primary, ShardFailure on "
+        f"shard 1 at the first launch: the replicated rung answers "
+        f"{len(wl)} requests == the replicated engine bitwise; the masked "
+        f"rung answers them degraded=True == mask_dead_shards(plan, [1]) "
+        f"bitwise")
+
+
+def batched_launches(ws, live):
+    """The kernel launches of ``batched_rows(engine, ws)`` on a sharded
+    plain-layout engine with ``live`` live shards: each batched call
+    launches its op's kernel once a live shard (the consequent role ranks
+    the posting-ordered columns, the other roles run membership)."""
+    want = Counter({"rule_search_fused": 0, "topk_rank_batch": 0,
+                    "rules_with_member": 0, "rule_search_span": 0})
+    for op, kwargs, _ in batched_calls(ws):
+        if op == "rule_search":
+            want["rule_search_fused"] += live
+        elif op == "top_k" or kwargs.get("role") == "consequent":
+            want["topk_rank_batch"] += live
+        else:
+            want["rules_with_member"] += live
+    return want
+
+
+def shard_stream(args, dev, mesh, parts):
+    """The retail stream over a P = 4 mesh beside the unsharded stream:
+    two rounds of inserts and queries, then a fold.  The launch counts are
+    the sharded engine's alone: reset after the unsharded stream's call,
+    read after the sharded one's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import StreamingTrie
+    from repro_torch.distributed.trie_sharding import shard_dfs_ranges
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import TrieQueryEngine, zipfian_workload
+
+    base, full, novel, nov = parts
+    plain = TrieQueryEngine(StreamingTrie(base, device=dev))
+    st = StreamingTrie(base, mesh=mesh, device=dev)
+    sharded = TrieQueryEngine(st, mode="sharded")
+    rng = np.random.RandomState(args.seed + 37)
+    base_wl = zipfian_workload(base, 128, seed=args.seed + 38)
+    sample = [base.path_items(int(v))
+              for v in rng.randint(1, base.n_nodes, size=32)]
+    t0 = time.perf_counter()
+    launches = Counter()
+    for step in ("round 1", "round 2", "fold"):
+        if step == "fold":
+            prev = st._last_ranges
+            plain.stream.refreeze()
+            st.refreeze()
+            inserted = novel[:2 * SERVE_ROUND_INSERTS]
+        else:
+            r = int(step[-1]) - 1
+            lo, hi = r * SERVE_ROUND_INSERTS, (r + 1) * SERVE_ROUND_INSERTS
+            for eng in (plain, sharded):
+                eng.insert([list(p) for p in novel[lo:hi]],
+                           *(nov[j, lo:hi] for j in range(3)))
+            inserted = novel[:hi]
+        ws = stream_round_queries(rng, base_wl[:64], inserted, 128)
+        want = batched_rows(plain, ws)
+        reset_launch_counts()
+        got = batched_rows(sharded, ws)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        launches.update(counts)
+        for key, row in want.items():
+            host_fields_equal(f"shard stream {step} {key}", got[key], row)
+        plan = st.shard_plan()
+        shard_launches(f"shard stream {step}", counts,
+                       batched_launches(ws, live_shards(plan)))
+        for p in list(inserted) + sample:
+            owner = st.owner_shard(p)
+            node = st._frozen_node((p[0],))
+            if node is not None:
+                lo, hi = plan.ranges[owner]
+                if not lo <= int(st.frozen.dfs_order[node]) < hi:
+                    raise AssertionError(f"shard stream {step}: owner of "
+                                         f"{p} is {owner}")
+        if step == "fold" and plan.ranges != tuple(shard_dfs_ranges(
+                st.frozen, plan.n_shards, prev, st.rebalance_drift)):
+            raise AssertionError("shard stream: the fold's cuts")
+    log(f"[shard stream] the retail base ({base.n_nodes} nodes) over "
+        f"P={mesh.shape['data']}: two rounds of {SERVE_ROUND_INSERTS} "
+        f"inserts and 128 queries, then a fold: every answer == the "
+        f"unsharded stream's bitwise; owner_shard agrees with the plan's "
+        f"ranges ({len(sample)} base paths and every inserted one); the "
+        f"fold's cuts {list(plan.ranges)} are the drift gate's; "
+        f"{time.perf_counter() - t0:.1f} s; the sharded stream's own "
+        f"launches (each kernel once a live shard a batched call): "
+        f"{ {k: v for k, v in sorted(launches.items()) if v} }")
+
+
+def shard_phase(args, dev, smi, engine, traffic, chain, stream_parts):
+    """The sharded trie on the card: P = 1, 2 and 4 shards (on as many
+    GPUs as are visible, else on one), every answer bitwise against one
+    device; the mask, the ladder and the stream over four shards."""
+    meshes = shard_meshes(dev)
+    plans = shard_query_path(args, dev, smi, engine, traffic, meshes)
+    shard_chain(args, dev, chain, meshes[4])
+    shard_mask(args, dev, engine.frozen, plans[4], traffic)
+    shard_ladder(args, dev, engine, plans[4])
+    shard_stream(args, dev, meshes[4], stream_parts)
 
 
 def profiler_pass(engine, queries, ant_len, pairs, prefixes, items, res):
@@ -3242,8 +3604,9 @@ def main():
     log(f"[construct] phase done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 7. the compressed layout: the chain trie, then the retail trie --
-    rows.extend(compressed_phase(args, dev, l2_flush, retail, retail_n_tx,
-                                 lat))
+    comp_rows, chain = compressed_phase(args, dev, l2_flush, retail,
+                                        retail_n_tx, lat)
+    rows.extend(comp_rows)
     descent_cases(dev, retail, retail_n_tx, args.seed)
     log(f"[compress] phase done at {time.perf_counter() - t_start:.1f} s")
 
@@ -3259,7 +3622,13 @@ def main():
     serve_phase(args, dev, smi, frozen, stream_parts)
     log(f"[serve] phase done at {time.perf_counter() - t_start:.1f} s")
 
-    # -- 11. observability: the launch profiler on the main path --------
+    # -- 11. the sharded trie: P = 1, 2, 4 against one device -----------
+    shard_phase(args, dev, smi, engine,
+                (queries, ant_len, pairs, prefixes, items), chain,
+                stream_parts)
+    log(f"[shard] phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 12. observability: the launch profiler on the main path --------
     profiler_pass(engine, queries, ant_len, pairs, prefixes, items, res)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -753,6 +753,23 @@ class FrozenTrie:
             lift_scale=lift_scale,
         )
 
+    def depth1_subtrees(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Shard metadata: ``(child_ids, dfs_los, sizes)``, int32, for
+        the root's children in DFS order: each depth-1 node's id, its
+        subtree's DFS start and its subtree size.  The layout is
+        DFS-contiguous, so these subtrees tile ``[1, N)`` in consecutive
+        ranges: the cuts ``distributed.trie_sharding`` packs into shards.
+        The pointer oracle is ``TrieOfRules.depth1_subtree_sizes``."""
+        lo, hi = int(self.child_offsets[0]), int(self.child_offsets[1])
+        kids = np.asarray(self.edge_child[lo:hi], np.int64)
+        order = np.argsort(self.dfs_order[kids], kind="stable")
+        kids = kids[order]
+        return (
+            kids.astype(np.int32),
+            self.dfs_order[kids].astype(np.int32),
+            self.subtree_size[kids].astype(np.int32),
+        )
+
     def path_items(self, node_id: int) -> Tuple[int, ...]:
         items: List[int] = []
         nid = int(node_id)

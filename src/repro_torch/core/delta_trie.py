@@ -4,7 +4,9 @@ PyTorch port of ``repro.core.delta_trie``.  The overlay bookkeeping is
 numpy on the host, as in the reference; the stream names the device its
 queries run on (``device``, CUDA unless named), and ``kernels.streaming``
 keeps the frozen base's upload and each epoch's overlay columns there.
-A ``mesh`` (the sharded frozen side) is ROADMAP slice 6.
+With a ``mesh`` (a ``launch.mesh.TrieMesh``) the frozen side of every
+merge is a ``ShardPlan`` over it (``shard_plan``), and its answers come
+to the stream's device for the merge.
 
 The frozen layout (``array_trie.FrozenTrie``) is immutable by design —
 every query kernel leans on its DFS-contiguous relabeling and its
@@ -52,6 +54,7 @@ from-scratch build of the same ruleset.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -111,8 +114,11 @@ class StreamingTrie:
 
     ``device`` (CUDA unless named) is where the batched ops answer: the
     frozen side runs the port's kernels there, and the delta side and the
-    merge are tensor ops on the same device.  ``mesh`` (the sharded
-    frozen side) is ROADMAP slice 6 and raises ``NotImplementedError``.
+    merge are tensor ops on the same device.  ``mesh`` (optional) shards
+    the frozen side: ``shard_plan()`` builds (and caches per frozen base
+    and masked-node set) a ``ShardPlan`` over it, with the depth of
+    updated nodes set to -1 so the sharded rank kernels skip their stale
+    copies.
     """
 
     def __init__(
@@ -132,11 +138,6 @@ class StreamingTrie:
                 "(compressed spans would need delta-aware span splits; "
                 "recorded as a ROADMAP follow-on)"
             )
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamingTrie(mesh=...): the sharded frozen side is "
-                "ROADMAP slice 6 (multi-GPU)"
-            )
         self.device = resolve_device(device)
         self.frozen = frozen
         self.mesh = mesh
@@ -149,6 +150,7 @@ class StreamingTrie:
         self._age = 0            # insert batches since the last refreeze
         self._overlay: Optional[DeltaOverlay] = None
         self._plan_cache: Optional[tuple] = None
+        self._last_ranges: Optional[tuple] = None
         self._host: Optional[dict] = None
         # the frozen base's device residency (kernels.streaming), per base
         self._resident: Optional[dict] = None
@@ -610,11 +612,52 @@ class StreamingTrie:
     # ------------------------------------------------------------------
     def shard_plan(self):
         """The ShardPlan answering the frozen side of every merge when a
-        ``mesh`` is attached: ROADMAP slice 6 (the constructor refuses a
-        mesh), so always None here."""
-        return None
+        ``mesh`` is attached (None otherwise).  Cached per (frozen base,
+        masked-node set): novel-only epochs reuse the resident plan; only
+        a metric update (whose stale frozen copy must stop ranking)
+        re-uploads.  The cuts move only on load drift (``prev_ranges``
+        with ``rebalance_drift``)."""
+        if self.mesh is None:
+            return None
+        masked = (
+            tuple(self.overlay().masked_nodes.tolist())
+            if self._entries else ()
+        )
+        key = (id(self.frozen), masked)
+        if self._plan_cache is not None and self._plan_cache[0] == key:
+            return self._plan_cache[1]
+        from repro_torch.distributed.trie_sharding import shard_device_trie
+
+        fz = self.frozen
+        if masked:
+            nd = np.asarray(fz.node_depth, np.int32).copy()
+            nd[list(masked)] = -1
+            fz = dataclasses.replace(fz, node_depth=nd)
+        plan = shard_device_trie(
+            fz, self.mesh, layout=self.layout,
+            prev_ranges=self._last_ranges, drift=self.rebalance_drift,
+        )
+        self._last_ranges = tuple(plan.ranges)
+        self._plan_cache = (key, plan)
+        return plan
 
     def owner_shard(self, sequence: Sequence[int]) -> Optional[int]:
-        """The shard owning a rule's depth-1 subtree: None without a mesh
-        (the only case until ROADMAP slice 6)."""
-        return None
+        """The shard owning a rule's depth-1 subtree (None without a
+        mesh): the insert-routing map; every path of the canonical first
+        item lands in one owner's DFS range, frozen or novel."""
+        plan = self.shard_plan()
+        if plan is None:
+            return None
+        row = canonical_prefix_rows([list(sequence)], self.frozen.item_rank)[0]
+        if not row:
+            raise ValueError("owner_shard: empty sequence")
+        head = (row[0],)
+        node = self._frozen_node(head)
+        pos = (
+            int(np.asarray(self.frozen.dfs_order)[node])
+            if node is not None else self._insertion_point(head)
+        )
+        for s, (lo, hi) in enumerate(plan.ranges):
+            if lo <= pos < hi or (s == len(plan.ranges) - 1 and pos >= hi):
+                return s
+        return len(plan.ranges) - 1

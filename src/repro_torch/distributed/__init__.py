@@ -1,5 +1,31 @@
-"""Distributed helpers of the port: the int8 column encoding of
-``compression`` (the compressed layout quantizes its confidence and lift
-columns with it), the serve loop's ``health`` signals, and
-``trie_sharding``'s ``ShardFailure``; the sharded engine is ROADMAP
-slice 6."""
+"""Distributed pieces of the port: the sharded trie of ``trie_sharding``
+(``shard_device_trie`` cuts a frozen trie into contiguous DFS subtree
+ranges over a ``launch.mesh.TrieMesh``; the batched ops answer a
+``ShardPlan`` bitwise like one device; ``mask_dead_shards`` answers
+around dead shards), the int8 column encoding of ``compression`` (the
+compressed layout quantizes its confidence and lift columns with it) and
+the serve loop's ``health`` signals.  The LM-side sharding helpers wait
+for ROADMAP slice 8."""
+from .trie_sharding import (
+    ShardedDeviceTrie,
+    ShardFailure,
+    ShardPlan,
+    TrieShard,
+    hub_child_buckets,
+    mask_dead_shards,
+    plan_shard_bounds,
+    shard_device_trie,
+    shard_dfs_ranges,
+)
+
+__all__ = [
+    "ShardFailure",
+    "ShardPlan",
+    "ShardedDeviceTrie",
+    "TrieShard",
+    "hub_child_buckets",
+    "mask_dead_shards",
+    "plan_shard_bounds",
+    "shard_device_trie",
+    "shard_dfs_ranges",
+]

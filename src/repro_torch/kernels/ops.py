@@ -34,8 +34,15 @@ answers the search and ranking ops through ``kernels.streaming``: the
 frozen side runs the kernels above on the stream's device, and the
 delta side and the k-best merge are tensor ops, bit-identical to the op
 on a from-scratch rebuild.  It has no ``trie_reduce`` or column-dict
-path, as in the reference.  Sharded plans are ROADMAP slice 6 and raise
-``NotImplementedError``.
+path, as in the reference.
+
+A ``distributed.trie_sharding.ShardPlan`` (a trie cut into contiguous
+DFS subtree ranges over a ``launch.mesh.TrieMesh``) answers
+``rule_search_batch``, ``top_k_rules_batch`` / ``top_k_rules`` and
+``rules_with``: each shard runs the kernels above on its own device over
+its own range, and the answers merge on the mesh's lead device, bitwise
+the single-device op's.  Every other op refuses a plan, as the reference
+has no sharded form of it.
 
 Every kernel dispatch runs under ``_profiled``, the launch profiler's
 hook (``obs.profile.kernel_profiler``): disabled, it costs one attribute
@@ -302,12 +309,14 @@ def dedup_query_rows(queries, ant_len):
 # residency
 # ----------------------------------------------------------------------
 def _require_supported(trie, op: str) -> None:
-    """Refuse a sharded plan, and a stream where ``op`` has no streaming
-    path (the five search and ranking ops dispatch a stream before
-    reaching here)."""
-    if type(trie).__name__ == "ShardPlan":
+    """Refuse a sharded plan or a stream where ``op`` has no sharded or
+    streaming path (the batched search and ranking ops dispatch both
+    before reaching here)."""
+    if _as_shard_plan(trie) is not None:
         raise NotImplementedError(
-            f"{op}: sharded plans are ROADMAP slice 6 (multi-GPU)"
+            f"{op}: a ShardPlan answers rule_search_batch, "
+            f"top_k_rules_batch, top_k_rules and rules_with only; the "
+            f"reference has no sharded {op}: run it on plan.frozen"
         )
     if isinstance(trie, StreamingTrie):
         raise NotImplementedError(
@@ -318,9 +327,24 @@ def _require_supported(trie, op: str) -> None:
         )
 
 
+def _as_shard_plan(trie):
+    """The ShardPlan when ``trie`` is one, else None (imported here:
+    ``distributed.trie_sharding`` imports this module)."""
+    from repro_torch.distributed.trie_sharding import ShardPlan
+
+    return trie if isinstance(trie, ShardPlan) else None
+
+
 def _as_streaming(trie):
     """The StreamingTrie when ``trie`` is one, else None."""
     return trie if isinstance(trie, StreamingTrie) else None
+
+
+def _refuse_with_plan(op: str, what: str) -> None:
+    raise ValueError(
+        f"sharded {op} takes no {what}: the plan already owns its "
+        f"(sharded) device residency; drop the argument"
+    )
 
 
 def _refuse_with_stream(op: str, what: str) -> None:
@@ -682,13 +706,32 @@ def rule_search_batch(
         return streaming_rule_search_batch(stream, queries, ant_len,
                                            strict=strict,
                                            use_kernel=use_kernel)
-    _require_supported(trie, "rule_search_batch")
+    plan = _as_shard_plan(trie)
     if ant_len is None and not isinstance(queries, np.ndarray):
         queries = list(queries)
         validate_rule_pairs(
             queries, "rule_search_batch",
-            item_rank=getattr(trie, "item_rank", None), strict=strict,
+            item_rank=getattr(plan.frozen if plan is not None else trie,
+                              "item_rank", None),
+            strict=strict,
         )
+    if plan is not None:
+        if edges is not None:
+            _refuse_with_plan("rule_search_batch", "edges=")
+        from repro_torch.distributed.trie_sharding import (
+            sharded_rule_search_batch,
+        )
+
+        n_q = (queries.shape[0] if isinstance(queries, np.ndarray)
+               else len(queries))
+        return _profiled(
+            "rule_search",
+            lambda: sharded_rule_search_batch(plan, queries, ant_len,
+                                              use_kernel=use_kernel),
+            rows=n_q, shape=(n_q,), device=plan.device,
+            n_shards=plan.n_shards,
+        )
+    _require_supported(trie, "rule_search_batch")
     if ant_len is None:
         canonicalize = getattr(trie, "canonicalize_queries", None)
         if canonicalize is None:
@@ -816,8 +859,11 @@ def top_k_rules(
     int32[k]}``.  The Q=1 slice of ``top_k_rules_batch``."""
     _validate_k(k, "top_k_rules")
     if prefix is not None:
+        plan = _as_shard_plan(trie)
         validate_prefixes(
-            [prefix], "top_k_rules", item_rank=getattr(trie, "item_rank", None)
+            [prefix], "top_k_rules",
+            item_rank=getattr(plan.frozen if plan is not None else trie,
+                              "item_rank", None),
         )
     stream = _as_streaming(trie)
     if stream is not None:
@@ -850,11 +896,14 @@ def top_k_rules_batch(
     if metric not in RANK_METRICS:
         raise InvalidQueryError(f"metric {metric!r} not in {RANK_METRICS}")
     _validate_k(k, "top_k_rules_batch")
+    plan = _as_shard_plan(trie)
     if not isinstance(prefixes, np.ndarray):
         prefixes = list(prefixes)
     validate_prefixes(
         prefixes, "top_k_rules_batch",
-        item_rank=getattr(trie, "item_rank", None), strict=strict,
+        item_rank=getattr(plan.frozen if plan is not None else trie,
+                          "item_rank", None),
+        strict=strict,
     )
     stream = _as_streaming(trie)
     if stream is not None:
@@ -865,6 +914,22 @@ def top_k_rules_batch(
         return streaming_top_k_rules_batch(
             stream, prefixes, k, metric=metric, min_depth=min_depth,
             use_kernel=use_kernel,
+        )
+    if plan is not None:
+        if arrays is not None:
+            _refuse_with_plan("top_k_rules_batch", "arrays=")
+        from repro_torch.distributed.trie_sharding import (
+            sharded_top_k_rules_batch,
+        )
+
+        return _profiled(
+            "top_k",
+            lambda: sharded_top_k_rules_batch(
+                plan, prefixes, k, metric=metric, min_depth=min_depth,
+                use_kernel=use_kernel,
+            ),
+            rows=len(prefixes), shape=(len(prefixes), int(k)),
+            device=plan.device, n_shards=plan.n_shards,
         )
     _require_supported(trie, "top_k_rules_batch")
     if arrays is None:
@@ -1037,6 +1102,25 @@ def rules_with(
         return streaming_rules_with(
             stream, items, role=role, k=k, metric=metric,
             min_depth=min_depth, strict=strict, use_kernel=use_kernel,
+        )
+    plan = _as_shard_plan(trie)
+    if plan is not None:
+        if arrays is not None:
+            _refuse_with_plan("rules_with", "arrays=")
+        items = validate_items(
+            items, "rules_with",
+            n_items=plan.local_item_offsets.shape[1] - 1, strict=strict,
+        )
+        from repro_torch.distributed.trie_sharding import sharded_rules_with
+
+        return _profiled(
+            "rules_with",
+            lambda: sharded_rules_with(
+                plan, items, role=role, k=k, metric=metric,
+                min_depth=min_depth, use_kernel=use_kernel,
+            ),
+            rows=len(items), shape=(len(items), int(k)),
+            device=plan.device, n_shards=plan.n_shards,
         )
     _require_supported(trie, "rules_with")
     if arrays is None:

@@ -36,8 +36,12 @@ descending sort.
 
 The frozen base is uploaded once per base (it changes only at a
 refreeze) and cached on the stream; each epoch's overlay columns and
-masked column copies are cached on its overlay.  The reference's sharded
-frozen side (``base=``, ``StreamingTrie.shard_plan``) is ROADMAP slice 6.
+masked column copies are cached on its overlay.  With a mesh on the
+stream the frozen side is its ``ShardPlan`` (``StreamingTrie.shard_plan``,
+updated nodes' depth already -1 there), and ``base=`` overrides the
+frozen side (the resilience ladder's dead-shard-masked plan): the
+sharded ops answer on the plan's lead device, and their answers move to
+the stream's device for the merge.
 """
 from __future__ import annotations
 
@@ -94,6 +98,21 @@ def resident(stream, what: str):
         else:
             raise KeyError(what)
     return res[what]
+
+
+def _base(stream, base=None):
+    """The frozen side of the merge: an explicit override (the resilient
+    engine's dead-masked plan), else the stream's plan, else the frozen
+    trie itself."""
+    if base is not None:
+        return base
+    plan = stream.shard_plan()
+    return plan if plan is not None else stream.frozen
+
+
+def _on_stream(stream, out: Dict[str, torch.Tensor]):
+    """A sharded op's answers moved to the stream's device."""
+    return {key: v.to(stream.device) for key, v in out.items()}
 
 
 def _ov_device(stream) -> Dict[str, torch.Tensor]:
@@ -264,20 +283,26 @@ def _delta_side(stream, match: np.ndarray, metric: str, dmerge, k: int):
 # ----------------------------------------------------------------------
 def streaming_top_k_rules_batch(
     stream, prefixes, k: int, metric: str = "confidence",
-    min_depth: int = 1, use_kernel: bool = True,
+    min_depth: int = 1, use_kernel: bool = True, base=None,
 ) -> Dict[str, torch.Tensor]:
     """top_k_rules_batch over frozen+delta (inputs pre-validated by the
     ops dispatch).  ``use_kernel=False`` runs the frozen side's plain
     version."""
-    fb = stream.frozen
+    fb = _base(stream, base)
     kw = dict(metric=metric, min_depth=min_depth, use_kernel=use_kernel)
-    if stream.is_identity:
+    if ops._as_shard_plan(fb) is not None:
+        fout = _on_stream(stream, ops.top_k_rules_batch(fb, prefixes, k,
+                                                        **kw))
+        if stream.is_identity:
+            return fout
+    elif stream.is_identity:
         return ops.top_k_rules_batch(
             fb, prefixes, k, arrays=resident(stream, "rank"), **kw
         )
-    fout = ops.top_k_rules_batch(
-        fb, prefixes, k, arrays=_rank_arrays(stream), **kw
-    )
+    else:
+        fout = ops.top_k_rules_batch(
+            fb, prefixes, k, arrays=_rank_arrays(stream), **kw
+        )
     if len(prefixes) == 0:
         return fout
     ov = stream.overlay()
@@ -296,12 +321,13 @@ def streaming_top_k_rules_batch(
 
 def streaming_top_k_rules(
     stream, k: int, metric: str = "confidence", prefix=None,
-    min_depth: int = 1, use_kernel: bool = True,
+    min_depth: int = 1, use_kernel: bool = True, base=None,
 ) -> Dict[str, torch.Tensor]:
     """Q=1 slice of the batched form (identical merge path)."""
     out = streaming_top_k_rules_batch(
         stream, [prefix if prefix is not None else []], k,
         metric=metric, min_depth=min_depth, use_kernel=use_kernel,
+        base=base,
     )
     return {key: v[0] for key, v in out.items()}
 
@@ -309,20 +335,26 @@ def streaming_top_k_rules(
 def streaming_rules_with(
     stream, items, role: str = "any", k: int = 10,
     metric: str = "confidence", min_depth: int = 1,
-    strict: bool = False, use_kernel: bool = True,
+    strict: bool = False, use_kernel: bool = True, base=None,
 ) -> Dict[str, torch.Tensor]:
     """rules_with over frozen+delta.  ``pos`` keeps the op contract in
     REBUILT coordinates: the rebuilt posting index for the (plain
     layout) consequent role, the rebuilt DFS position otherwise."""
-    fb = stream.frozen
+    fb = _base(stream, base)
+    plan = ops._as_shard_plan(fb)
     if not isinstance(items, np.ndarray):
         items = list(items)
     kw = dict(role=role, k=k, metric=metric, min_depth=min_depth,
               strict=strict, use_kernel=use_kernel)
-    if stream.is_identity:
+    if plan is not None:
+        fout = _on_stream(stream, ops.rules_with(plan, items, **kw))
+        if stream.is_identity:
+            return fout
+    elif stream.is_identity:
         return ops.rules_with(fb, items, arrays=resident(stream, "item"),
                               **kw)
-    fout = ops.rules_with(fb, items, arrays=_item_arrays(stream), **kw)
+    else:
+        fout = ops.rules_with(fb, items, arrays=_item_arrays(stream), **kw)
     qitems = np.asarray(items, np.int64).reshape(-1)
     if qitems.shape[0] == 0:
         return fout
@@ -355,7 +387,9 @@ def streaming_rules_with(
         # key on this path); entry posting indices are ascending in entry
         # order per item, and cross-item entries are masked out per query
         dmerge = dev["post_index"][dev["r2n"][dev["pos"].long()].long()]
-        old_post = resident(stream, "dt").item_nodes
+        old_post = (plan.trie.g_item_nodes.to(stream.device)
+                    if plan is not None
+                    else resident(stream, "dt").item_nodes)
         if old_post.shape[0] == 0:
             # delta-only stream: the frozen base has no postings, so
             # every frozen lane is already dead (nothing to gather)
@@ -408,7 +442,7 @@ def _host(a) -> np.ndarray:
 
 def streaming_rule_search_batch(
     stream, queries, ant_len=None, strict: bool = False,
-    use_kernel: bool = True,
+    use_kernel: bool = True, base=None,
 ) -> Dict[str, torch.Tensor]:
     """rule_search_batch over frozen+delta.
 
@@ -418,11 +452,17 @@ def streaming_rule_search_batch(
     f32 arithmetic, with the Eq. 1-4 lift select through the shared
     ``compound_lift``.  Node ids remap old -> rebuilt everywhere.
     """
-    fb = stream.frozen
-    kw = dict(edges=resident(stream, "edges"), use_kernel=use_kernel)
+    fb = _base(stream, base)
+    if ops._as_shard_plan(fb) is not None:
+        kw = dict(use_kernel=use_kernel)
+
+        def search(*a, **k):
+            return _on_stream(stream, ops.rule_search_batch(*a, **k))
+    else:
+        kw = dict(edges=resident(stream, "edges"), use_kernel=use_kernel)
+        search = ops.rule_search_batch
     if stream.is_identity:
-        return ops.rule_search_batch(fb, queries, ant_len, strict=strict,
-                                     **kw)
+        return search(fb, queries, ant_len, strict=strict, **kw)
     fz = stream.frozen
     if ant_len is None and not isinstance(queries, np.ndarray):
         pairs = list(queries)
@@ -431,14 +471,14 @@ def streaming_rule_search_batch(
             strict=strict,
         )
         if not pairs:
-            return ops.rule_search_batch(fb, np.zeros((0, 1), np.int32),
-                                         np.zeros((0,), np.int32), **kw)
+            return search(fb, np.zeros((0, 1), np.int32),
+                          np.zeros((0,), np.int32), **kw)
         queries, ant_len = fz.canonicalize_queries(
             [p[0] for p in pairs], [p[1] for p in pairs]
         )
     qmat = _host(queries)
     al = _host(ant_len)
-    out = ops.rule_search_batch(fb, qmat, al, **kw)
+    out = search(fb, qmat, al, **kw)
     dev = _ov_device(stream)
     node = out["node"]
     node = torch.where(

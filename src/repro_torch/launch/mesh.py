@@ -1,0 +1,68 @@
+"""The trie mesh: the devices a sharded trie spreads over, in one process.
+
+PyTorch counterpart of ``make_trie_mesh`` in ``repro.launch.mesh``.  The
+reference's mesh is one controller over one host's local devices, with
+``shard_map`` under a single ``jit``; here a ``TrieMesh`` is a tuple of
+``torch.device``s along one ``"data"`` axis, and the sharded ops
+(``distributed.trie_sharding``) loop over it in one process, launching
+each shard's kernels on its own device and merging on the first.  There
+is no process group: the reference has no multi-process path either.
+
+A ``TrieMesh`` built directly may name a device more than once:
+``TrieMesh(["cpu"] * 8)`` is eight shards on the CPU (each running the
+kernels' plain versions), ``TrieMesh(["cuda:0"] * 4)`` four shards on one
+card.  ``make_trie_mesh`` takes distinct visible CUDA devices.
+"""
+from __future__ import annotations
+
+from typing import Iterable, Optional, Tuple
+
+import torch
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its index filled in for CUDA (the current device
+    when unset), so the shards' tensors compare equal to it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class TrieMesh:
+    """A 1-D ``("data",)`` mesh: shard ``d`` lives on ``devices[d]``, and
+    ``devices[0]`` is the lead device the shards' answers merge on."""
+
+    axis_names = ("data",)
+
+    def __init__(self, devices: Iterable):
+        self.devices: Tuple[torch.device, ...] = tuple(
+            _indexed(d) for d in devices
+        )
+        if not self.devices:
+            raise ValueError("a TrieMesh needs at least one device")
+
+    @property
+    def shape(self) -> dict:
+        return {"data": len(self.devices)}
+
+    @property
+    def lead(self) -> torch.device:
+        """The device the shards' answers merge on."""
+        return self.devices[0]
+
+    def __repr__(self) -> str:
+        return f"TrieMesh({[str(d) for d in self.devices]})"
+
+
+def make_trie_mesh(n_shards: Optional[int] = None) -> TrieMesh:
+    """A mesh over the first ``n_shards`` visible CUDA devices (every one
+    by default): the trie partitions into contiguous DFS subtree ranges,
+    one per device; queries replicate, the structure shards."""
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    n = count if n_shards is None else int(n_shards)
+    if not 1 <= n <= count:
+        raise ValueError(
+            f"n_shards={n} outside [1, {count}] visible devices"
+        )
+    return TrieMesh([torch.device("cuda", i) for i in range(n)])

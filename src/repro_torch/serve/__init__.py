@@ -1,6 +1,6 @@
-"""Serving: the trie query engine (replicated backend, one device) and the
-resilient continuous-batching serve loop (scheduler / resilience /
-faults)."""
+"""Serving: the trie query engine (replicated on one device, or sharded
+over a ``launch.mesh.TrieMesh``) and the resilient continuous-batching
+serve loop (scheduler / resilience / faults)."""
 from .faults import FaultInjector, FaultyEngine, zipfian_workload
 from .resilience import (
     MonotonicClock,
@@ -18,10 +18,11 @@ from .scheduler import (
     Response,
     TrieScheduler,
 )
-from .trie_engine import TrieQueryEngine
+from .trie_engine import TrieQueryEngine, make_trie_engine
 
 __all__ = [
     "TrieQueryEngine",
+    "make_trie_engine",
     "TrieScheduler",
     "QueueFull",
     "Request",

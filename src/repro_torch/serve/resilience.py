@@ -2,14 +2,13 @@
 shard health, and the backend-demotion ladder.
 
 PyTorch port of ``repro.serve.resilience``: plain Python over the port's
-engines.  Every engine the ladder builds answers on its primary's device.
-With a one-device primary (all the port has until ROADMAP slice 6) a
-``ShardFailure`` records the failure, bumps ``failovers`` (orphaning the
-scheduler's cache) and re-runs the call on the same primary, as the
-reference does: both demotion rungs need a primary with a ``plan``.  The
-replicated rung then builds a one-device engine on the primary's device;
-the masked rung needs slice 6's ``mask_dead_shards`` and raises
-``NotImplementedError``.
+engines.  Both demotion rungs need a primary with a ``plan`` (the
+sharded backend): the replicated rung is a one-device engine on the
+primary's device (a sharded primary's lead device), and the masked rung
+serves ``mask_dead_shards(primary.plan, dead)``.  With a one-device
+primary a ``ShardFailure`` records the failure, bumps ``failovers``
+(orphaning the scheduler's cache) and re-runs the call on the same
+primary, as the reference does.
 
 The scheduler (``serve.scheduler``) stays a pure queueing/batching loop;
 everything that decides *where* and *whether to try again* lives here:
@@ -29,8 +28,9 @@ everything that decides *where* and *whether to try again* lives here:
 * ``ResilientTrieEngine`` — wraps a primary ``TrieQueryEngine`` and, on
   per-shard failure, demotes WITHOUT dropping the in-flight batch:
   sharded → replicated (bit-identical answers, ``degraded=False``) →
-  dead-shard-masked degraded plan (slice 6).  The failing call is
-  re-executed on the demoted backend inside the same ``query()`` call.
+  dead-shard-masked degraded plan (partial answers, ``degraded=True``).
+  The failing call is re-executed on the demoted backend inside the same
+  ``query()`` call.
 """
 from __future__ import annotations
 
@@ -225,8 +225,9 @@ class ResilientTrieEngine:
        answers, so responses stay ``degraded=False``.
     3. dead-shard-masked degraded plan — when replicated fallback is
        disallowed (``allow_replicated_fallback=False``, e.g. the trie
-       does not fit one device): ROADMAP slice 6, raises
-       ``NotImplementedError``.
+       does not fit one device), queries run over
+       ``mask_dead_shards(primary.plan, dead)``: partial answers,
+       flagged ``degraded=True``.
 
     A ``ShardFailure`` raised mid-call records the failure and RE-RUNS
     the same call on the demoted backend before returning — in-flight
@@ -246,6 +247,8 @@ class ResilientTrieEngine:
         self.health = health or ShardHealth(primary.n_shards)
         self.allow_replicated_fallback = bool(allow_replicated_fallback)
         self._replicated = None
+        self._degraded = None
+        self._degraded_for: Tuple = ()
         self.failovers = 0
         self._obs = None
         if obs is not None:
@@ -265,7 +268,7 @@ class ResilientTrieEngine:
     def obs(self, value) -> None:
         self._obs = value
         self.health.metrics = value.metrics if value is not None else None
-        for eng in (self.primary, self._replicated):
+        for eng in (self.primary, self._replicated, self._degraded):
             if eng is not None and hasattr(eng, "obs"):
                 eng.obs = value
 
@@ -286,10 +289,25 @@ class ResilientTrieEngine:
         return self._replicated
 
     def _degraded_engine(self):
-        raise NotImplementedError(
-            "the dead-shard-masked rung needs mask_dead_shards over a "
-            "ShardPlan: ROADMAP slice 6 (multi-GPU)"
-        )
+        dead = self.health.dead_shards()
+        # epoch in the cache key: a refreeze swaps the frozen base, so
+        # the masked plan must be rebuilt from the new plan; a pre-fold
+        # masked plan would answer over a stale trie
+        key = (dead, self.epoch)
+        if self._degraded is None or self._degraded_for != key:
+            from repro_torch.distributed.trie_sharding import (
+                mask_dead_shards,
+            )
+            from repro_torch.serve.trie_engine import TrieQueryEngine
+
+            stream = getattr(self.primary, "stream", None)
+            self._degraded = TrieQueryEngine(
+                stream if stream is not None else self.primary.frozen,
+                plan=mask_dead_shards(self.primary.plan, dead),
+            )
+            self._degraded.obs = self._obs
+            self._degraded_for = key
+        return self._degraded
 
     def _active(self):
         """→ ``(engine, degraded, backend_name)`` for the current health."""

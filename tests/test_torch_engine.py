@@ -12,6 +12,10 @@ from repro.core import array_trie as JA  # noqa: E402
 from repro.core import synthetic as JS  # noqa: E402
 from repro.serve.trie_engine import TrieQueryEngine as JaxEngine  # noqa: E402
 from repro_torch.core.array_trie import FrozenTrie  # noqa: E402
+from repro_torch.distributed.trie_sharding import (  # noqa: E402
+    shard_device_trie,
+)
+from repro_torch.launch.mesh import TrieMesh  # noqa: E402
 from repro_torch.serve import TrieQueryEngine  # noqa: E402
 
 
@@ -68,27 +72,36 @@ def test_engine_matches_reference(source, frozen):
 
 
 def test_engine_rejects_later_slices(frozen):
-    # streaming tries (slice 4) are served now
-    # (tests/test_torch_streaming.py); a sharded plan is slice 6, and
-    # anything else is no trie at all
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        TrieQueryEngine(type("ShardPlan", (), {})(), device="cpu")
+    # streaming tries (slice 4) and sharded plans (slice 6) are served
+    # now (tests/test_torch_streaming.py, tests/test_torch_sharding.py);
+    # anything else is no trie at all, and an unknown mode is the
+    # reference's ValueError
     with pytest.raises(TypeError, match="FrozenTrie or a StreamingTrie"):
         TrieQueryEngine(object(), device="cpu")
-    # the sharded backend's arguments are slice 6 too; an unknown mode is
-    # the reference's ValueError
     fz = _port(frozen(0.25))
-    for kw in (dict(mode="sharded"), dict(mesh=object()),
-               dict(plan=object()), dict(mode="auto", mesh=object())):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            TrieQueryEngine(fz, device="cpu", **kw)
     with pytest.raises(ValueError, match="'nope'"):
         TrieQueryEngine(fz, device="cpu", mode="nope")
-    # "auto" and "replicated" serve on the one device, and no engine has
-    # a plan until slice 6
+    want = JaxEngine(frozen(0.25), mode="replicated").rules_with([0, 1], k=3)
+    # "auto" and "replicated" serve on the one device; the sharded mode,
+    # a mesh and a plan answer through a ShardPlan, bitwise alike
     for mode in ("auto", "replicated"):
         eng = TrieQueryEngine(fz, device="cpu", mode=mode)
         assert eng.plan is None and eng.backend == "replicated"
         assert eng.n_shards == 1 and eng.device == torch.device("cpu")
-        _eq(eng.rules_with([0, 1], k=3), JaxEngine(
-            frozen(0.25), mode="replicated").rules_with([0, 1], k=3))
+        _eq(eng.rules_with([0, 1], k=3), want)
+    mesh = TrieMesh(["cpu"] * 3)
+    plan = shard_device_trie(fz, mesh)
+    for kw, p in ((dict(mode="sharded"), 1), (dict(mode="sharded", mesh=mesh), 3),
+                  (dict(plan=plan), 3)):
+        eng = TrieQueryEngine(fz, device="cpu", **kw)
+        assert eng.backend == "sharded" and eng.n_shards == p
+        assert eng.dt is None and eng.device == torch.device("cpu")
+        _eq(eng.rules_with([0, 1], k=3), want)
+        with pytest.raises(NotImplementedError, match="ShardPlan"):
+            eng.trie_reduce()
+    # "auto" with a mesh shards only a trie past the threshold
+    assert TrieQueryEngine(fz, device="cpu", mesh=mesh).backend == \
+        "replicated"
+    eng = TrieQueryEngine(fz, device="cpu", mesh=mesh,
+                          shard_threshold_nodes=1)
+    assert eng.backend == "sharded" and eng.plan.ranges == plan.ranges

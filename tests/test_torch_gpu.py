@@ -1004,3 +1004,77 @@ def test_stream_on_gpu_equals_cpu(cuda):
             _bitwise([g[k] for k in p], [p[k] for k in p])
         for st in streams:
             st.refreeze()
+
+
+@pytest.mark.parametrize("layout", ["plain", "compressed"])
+def test_sharded_plan_on_gpu_equals_cpu(small, cuda, layout):
+    """A P = 2 plan with both shards on ``cuda:0`` gives, bitwise, the
+    CPU plan's plain-version answers and the replicated engine's for all
+    three ops; the rank, membership and descent kernels launch once per
+    shard per op."""
+    from repro_torch.distributed.trie_sharding import shard_device_trie
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import TrieMesh
+
+    arrs, fz = small
+    n_items = int(arrs["edge_item"].max()) + 1
+    q, al = TS.synthetic_search_queries(arrs, 300, 6, seed=3)
+    pairs = [([int(x) for x in r[:1] if x >= 0],
+              [int(x) for x in r[1:] if x >= 0]) for r in q[:40]]
+    prefixes = [[], [0], [1], [n_items + 1], [3]]
+    items = [0, 1, 1, n_items + 2, -1, 5, 7]
+    gpu = shard_device_trie(fz, TrieMesh([cuda] * 2), layout=layout)
+    cpu = shard_device_trie(fz, TrieMesh(["cpu"] * 2), layout=layout)
+    # the replicated answers: the FrozenTrie on the CPU (the compressed
+    # DeviceTrie has no host canonicalization, so no ragged pairs there)
+    repl = fz if layout == "plain" else \
+        fz.device_arrays(device="cpu", layout=layout)
+    search = "rule_search_span" if layout == "compressed" else \
+        "rule_search_fused"
+
+    def run(trie, **kw):
+        out = {"search": TO.rule_search_batch(trie, q, al, **kw),
+               "topk": TO.top_k_rules_batch(trie, prefixes, 10,
+                                            metric="conviction", **kw)}
+        if layout == "plain":
+            out["pairs"] = TO.rule_search_batch(trie, pairs, **kw)
+        for role in ("consequent", "antecedent", "any"):
+            out[role] = TO.rules_with(trie, items, role=role, k=8, **kw)
+        return out
+
+    want, want_repl = run(cpu), run(repl, device="cpu")
+    for _ in range(2):
+        reset_launch_counts()
+        got = run(gpu)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts[search] == 2 * (2 if layout == "plain" else 1)
+        # top-k, plus the consequent role's posting ranks on plain
+        assert counts["topk_rank_batch"] == 2 * (2 if layout == "plain"
+                                                 else 1)
+        assert counts["rules_with_member"] == 2 * (2 if layout == "plain"
+                                                   else 3)
+        for key in want:
+            for f in want[key]:
+                g = got[key][f].cpu()
+                _bitwise([g], [want[key][f]])
+                _bitwise([g], [want_repl[key][f]])
+
+
+def test_default_mesh_leads_with_the_engine_device(small, cuda):
+    """``mode="auto"`` shards over every visible card with the engine's
+    own device as the lead, so the engine answers where it was asked to
+    (one visible card: the replicated backend on it)."""
+    from repro_torch.serve import TrieQueryEngine
+    from repro_torch.serve.trie_engine import _default_mesh
+
+    n = torch.cuda.device_count()
+    for i in range(n):
+        mesh = _default_mesh(torch.device("cuda", i))
+        assert mesh.lead == torch.device("cuda", i)
+        assert sorted(d.index for d in mesh.devices) == list(range(n))
+    _, fz = small
+    eng = TrieQueryEngine(fz, device=f"cuda:{n - 1}",
+                          shard_threshold_nodes=1)
+    assert eng.backend == ("sharded" if n > 1 else "replicated")
+    assert torch.device(eng.device) == torch.device("cuda", n - 1)

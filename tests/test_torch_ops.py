@@ -19,10 +19,14 @@ from repro.kernels import ref as JREF  # noqa: E402
 from repro_torch.core import array_trie as TA  # noqa: E402
 from repro_torch.core import synthetic as TS  # noqa: E402
 from repro_torch.core.delta_trie import StreamingTrie  # noqa: E402
+from repro_torch.distributed.trie_sharding import (  # noqa: E402
+    shard_device_trie,
+)
 from repro_torch.kernels import KERNELS, launch_counts  # noqa: E402
 from repro_torch.kernels import ops as TO  # noqa: E402
 from repro_torch.kernels import rank as TR  # noqa: E402
 from repro_torch.kernels import ref as TREF  # noqa: E402
+from repro_torch.launch.mesh import TrieMesh  # noqa: E402
 
 METRICS = TO.RANK_METRICS
 ROLES = TO.ROLES
@@ -283,16 +287,26 @@ def test_later_slices_raise_not_implemented(pair, frozen):
                                           want[key].numpy())
     with pytest.raises(NotImplementedError, match="slice 4"):
         TO.trie_reduce(stream)
-    plan = type("ShardPlan", (), {})()
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        TO.rule_search_batch(plan, np.zeros((1, 1), np.int32),
-                             np.zeros(1, np.int32))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        TO.top_k_rules_batch(plan, [[]], 3)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        TO.rules_with(plan, [1])
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        StreamingTrie(tf, mesh=object(), device="cpu")
+    # sharded plans (slice 6) answer the three batched ops as the trie
+    # does (tests/test_torch_sharding.py holds the rest); trie_reduce and
+    # prefix_ranges refuse one, as the reference has no sharded form
+    plan = shard_device_trie(tf, TrieMesh(["cpu"] * 2))
+    rows = np.asarray([[0, 1], [1, -1]], np.int32)
+    for got, want in (
+        (TO.rule_search_batch(plan, rows, np.ones(2, np.int32)),
+         TO.rule_search_batch(tf, rows, np.ones(2, np.int32), device="cpu")),
+        (TO.top_k_rules_batch(plan, [[]], 3),
+         TO.top_k_rules_batch(tf, [[]], 3, device="cpu")),
+        (TO.rules_with(plan, [1]), TO.rules_with(tf, [1], device="cpu")),
+    ):
+        for key in want:
+            np.testing.assert_array_equal(got[key].numpy(),
+                                          want[key].numpy())
+    for fn in (TO.trie_reduce, lambda t: TO.prefix_ranges(t, [[0]])):
+        with pytest.raises(NotImplementedError, match="ShardPlan"):
+            fn(plan)
+    meshed = StreamingTrie(tf, mesh=TrieMesh(["cpu"] * 2), device="cpu")
+    assert meshed.shard_plan().ranges == plan.ranges
 
 
 def test_rank_merge_equal():

@@ -56,8 +56,12 @@ from repro_torch.core.build_arrays import build_frozen_trie as t_build  # noqa: 
 from repro_torch.core.builder import build_trie_of_rules  # noqa: E402
 from repro_torch.core.delta_trie import StreamingTrie  # noqa: E402
 from repro_torch.distributed.health import StragglerDetector  # noqa: E402
-from repro_torch.distributed.trie_sharding import ShardFailure  # noqa: E402
+from repro_torch.distributed.trie_sharding import (  # noqa: E402
+    ShardFailure,
+    mask_dead_shards,
+)
 from repro_torch.kernels import ops as TO  # noqa: E402
+from repro_torch.launch.mesh import TrieMesh  # noqa: E402
 from repro_torch.kernels.ops import (  # noqa: E402
     InvalidQueryError,
     TransientBackendError,
@@ -281,12 +285,9 @@ def test_stream_replay_matches_reference():
 # ----------------------------------------------------------------------
 # the failover ladder
 # ----------------------------------------------------------------------
-class PlanPrimary(T.TrieQueryEngine):
-    """A one-device engine that reports a plan: the stand-in for a
-    sharded primary until the sharded backend (ROADMAP slice 6)."""
-
-    plan = "plan"
-    backend = "sharded"
+def _sharded(tf, p):
+    """A sharded primary over ``p`` CPU shards."""
+    return T.TrieQueryEngine(tf, mesh=TrieMesh(["cpu"] * p), mode="sharded")
 
 
 def _ladder(S, Obs, fz, primary, allow=True):
@@ -302,13 +303,13 @@ def _ladder(S, Obs, fz, primary, allow=True):
 
 
 def test_ladder_failover_matches_reference(paper):
-    """A plan-carrying primary takes a ``ShardFailure``: the in-flight
-    batch moves to the replicated rung on the primary's device, answers
+    """A sharded primary takes a ``ShardFailure``: the in-flight batch
+    moves to the replicated rung on the primary's device, answers
     bitwise, and the failover is counted as the reference counts the
     same failure on its one-device sharded engine."""
     jf, tf = paper
     want = _ladder(J, JObs, jf, J.TrieQueryEngine(jf, mode="sharded"))
-    got = _ladder(T, TObs, tf, PlanPrimary(tf, device="cpu"))
+    got = _ladder(T, TObs, tf, _sharded(tf, 1))
     out, reqs, wl, res, obs, sched = got
     assert len(out) == len(reqs) == len(want[0])
     for g, w in zip(out, want[0]):
@@ -341,19 +342,43 @@ def test_ladder_failover_matches_reference(paper):
 
 
 def test_ladder_masked_rung_is_slice_6(paper):
+    """The masked rung (ROADMAP slice 6): with the replicated fallback
+    disallowed, a ``ShardFailure`` on shard 1 of a four-shard primary
+    re-runs the call over ``mask_dead_shards(plan, [1])``, flagged
+    degraded; the masked engine is cached on (dead, epoch)."""
     _, tf = paper
-    inj = T.FaultInjector().fail_nth_launch(1, shard=0)
-    res = T.ResilientTrieEngine(
-        T.FaultyEngine(PlanPrimary(tf, device="cpu"), inj),
-        allow_replicated_fallback=False)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        res.query("rules_with", [0, 1], k=4)
-    assert res.failovers == 1 and res.health.dead == {0}
-    # through the scheduler the batch fails, naming the slice
-    out, *_ = _ladder(T, TObs, tf, PlanPrimary(tf, device="cpu"),
-                      allow=False)
-    assert {r.status for r in out} == {"failed"}
-    assert all("slice 6" in r.error for r in out)
+    primary = _sharded(tf, 4)
+    inj = T.FaultInjector().fail_nth_launch(1, shard=1)
+    res = T.ResilientTrieEngine(T.FaultyEngine(primary, inj),
+                                allow_replicated_fallback=False)
+    got, info = res.query("rules_with", [0, 1], k=4)
+    assert info == {"degraded": True, "backend": "degraded",
+                    "failover": True}
+    assert res.failovers == 1 and res.health.dead == {1}
+    masked = mask_dead_shards(primary.plan, [1])
+    _rows_eq({k: _host(v) for k, v in got.items()},
+             {k: _host(v) for k, v in TO.rules_with(masked, [0, 1],
+                                                    k=4).items()})
+    eng = res._degraded_engine()
+    assert eng is res._degraded_engine() and eng.backend == "sharded"
+    assert eng.plan.trie.shards[1].dfs_len == 0
+    # through the scheduler every response is degraded and equals the
+    # same single query on the masked plan
+    out, reqs, wl, res, obs, sched = _ladder(T, TObs, tf, primary,
+                                             allow=False)
+    assert {r.status for r in out} == {"ok"}
+    assert all(r.degraded and r.backend == "degraded" for r in out)
+    masked = mask_dead_shards(primary.plan, [0])
+    for w, req in zip(wl, reqs):
+        one = {"rule_search": lambda: TO.rule_search_batch(
+                   masked, [tuple(w["payload"])]),
+               "top_k": lambda: TO.top_k_rules_batch(
+                   masked, [w["payload"]], w["kwargs"]["k"],
+                   metric=w["kwargs"]["metric"]),
+               "rules_with": lambda: TO.rules_with(
+                   masked, [w["payload"]], **w["kwargs"])}[w["op"]]()
+        _rows_eq(sched.responses[req.id].result,
+                 {k: _host(v)[0] for k, v in one.items()})
 
 
 def test_one_device_primary_reruns_on_itself(paper):

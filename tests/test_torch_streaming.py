@@ -42,6 +42,7 @@ from repro_torch.core.build_arrays import (  # noqa: E402
 )
 from repro_torch.kernels import ops as TO  # noqa: E402
 from repro_torch.kernels import streaming as TSTR  # noqa: E402
+from repro_torch.launch.mesh import TrieMesh  # noqa: E402
 from repro_torch.serve import TrieQueryEngine  # noqa: E402
 
 METRICS = ("support", "confidence", "lift", "leverage", "conviction")
@@ -534,8 +535,10 @@ def test_stream_refusals(split):
     tries, _ = split
     base = tries["base"][1]
     st = StreamingTrie(base, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        StreamingTrie(base, mesh=object(), device="cpu")
+    # a mesh shards the frozen side (slice 6): its plan covers the base
+    meshed = StreamingTrie(base, mesh=TrieMesh(["cpu"] * 3), device="cpu")
+    assert meshed.shard_plan().n_shards == 3
+    assert meshed.shard_plan().ranges[-1][1] == base.n_nodes
     with pytest.raises(ValueError, match="plain layout"):
         StreamingTrie(base, layout="compressed", device="cpu")
     assert st.shard_plan() is None and st.owner_shard([0]) is None
