@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's batched query path, its rule
 construction path, its path-compressed, quantized and seed layouts, its
-streaming tries, its serve loop, its sharded trie and its launch profiler
-on one NVIDIA GPU.
+streaming tries, its serve loop, its sharded trie, its launch profiler
+and its LM serving path on one NVIDIA GPU.
 
     python3 chip_smoke.py [--edges N] [--seed S] [--reps R]
 
@@ -149,7 +149,17 @@ on one NVIDIA GPU.
 11. Observability: one pass of step 4's main path with the launch
    profiler on: one record per op dispatch under the reference's op names
    and the answers of the pass without it, bitwise.
-12. Prints the GPU's name and power limit, one ``{"kernels": [...]}``
+12. The LM serving path (``[lm]``): smollm-360m at full width and depth
+   (32 units, d_model 960, 15 / 5 heads, vocab 49,152), random f32 weights
+   from a generator seeded by --seed, through ``serve.engine`` and
+   ``serve.spec_decode``; a 512-token prompt (the chunked prefill) and 64
+   greedy tokens.  In f32 (TF32 off), speculative decoding == greedy token
+   for token with a corpus ``NgramTrie(n=4)`` and a trie fit on the greedy
+   continuation (drafts accepted, the cache rewound); 64-token prefill
+   logits on the card == the CPU's within 1e-3; in bf16, the share of
+   positions where the two agree.  Prefill ms, decode ms a token and
+   tokens/s at batch 1 and 8, resident bytes.  No kernel of its own.
+13. Prints the GPU's name and power limit, one ``{"kernels": [...]}``
    line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result when CUDA is unavailable or any phase fails.
@@ -3330,6 +3340,229 @@ def profiler_pass(engine, queries, ant_len, pairs, prefixes, items, res):
     kernel_profiler.clear()
 
 
+# the LM serving phase: smollm-360m at full width and depth
+LM_ARCH = "smollm-360m"
+LM_SIZES = dict(prompt=512,   # chunked prefill: > 256 and a multiple of it
+                decode=64, max_seq=1024, xdev=64, corpus_docs=200)
+LM_XDEV_TOL = 1e-3            # card against CPU, f32 prefill logits
+LM_BATCHES = (1, 8)
+LM_TIMED_STEPS = 32           # decode steps a timed run (median of 3)
+
+
+def lm_token_stream(n_docs, seed):
+    """Byte-tokenized ``synthetic_corpus`` documents: the rows the corpus
+    proposer is fit on, and one stream the prompts are cut from."""
+    import numpy as np
+    from repro_torch.data import ByteTokenizer, synthetic_corpus
+
+    tok = ByteTokenizer()
+    rows = [tok.encode(d) for d in synthetic_corpus(n_docs, seed=seed)]
+    return rows, np.concatenate([np.asarray(r, np.int32) for r in rows])
+
+
+def rejecting_rows(seq, n, vocab):
+    """The n-grams of ``seq`` with the last token changed at two positions
+    in three: a trie fit on them drafts a wrong token after most contexts
+    (after a repeated one too), so its drafts are rejected."""
+    rows = []
+    for i in range(n - 1, len(seq)):
+        gram = [int(t) for t in seq[i - n + 1:i + 1]]
+        if i % 3:
+            gram[-1] = (gram[-1] + 1) % vocab
+        rows.append(gram)
+    return rows
+
+
+def lm_spec_vs_greedy(cfg, params, dev, prompt, sizes, corpus_trie,
+                      cache_dtype):
+    """Greedy tokens, then speculative decoding with three proposers: the
+    corpus n-gram trie (a random model's tokens leave the byte vocabulary,
+    so it drafts little or nothing), a trie fit on the greedy continuation
+    itself (drafts accepted) and one fit on its 4-grams with the last
+    token changed in two of three (drafts rejected, the cache rewound).
+    Returns (greedy tokens, {proposer: (speculative tokens, stats)})."""
+    from repro_torch.data import NgramTrie
+    from repro_torch.models import init_cache
+    from repro_torch.serve.engine import greedy_generate
+    from repro_torch.serve.spec_decode import speculative_generate
+
+    n, max_seq = sizes["decode"], sizes["max_seq"]
+    greedy, _ = greedy_generate(
+        cfg, params, init_cache(cfg, 1, max_seq, cache_dtype, dev), prompt, n)
+    greedy = greedy.cpu().numpy()[0]
+    seq = list(prompt[0]) + list(greedy)
+    tries = {"corpus": corpus_trie,
+             "continuation": NgramTrie(n=4).fit([seq]),
+             "rejecting": NgramTrie(n=4).fit(
+                 rejecting_rows(seq, 4, cfg.vocab_size))}
+    out = {}
+    for name, trie in tries.items():
+        toks, stats = speculative_generate(
+            cfg, params, init_cache(cfg, 1, max_seq, cache_dtype, dev),
+            prompt, trie, n)
+        out[name] = (toks[0], stats)
+    return greedy, out
+
+
+def lm_logit_gap(cfg, params, dev, prompt, greedy, i):
+    """top-1 minus top-2 of the greedy step's f32 logits before token i."""
+    import numpy as np
+    import torch
+    from repro_torch.models import forward
+
+    toks = np.concatenate([prompt[0], greedy[:i]])[None]
+    with torch.inference_mode():
+        logits, _, _ = forward(cfg, params, {"tokens": torch.as_tensor(
+            toks, device=dev)}, logits_mode="last")
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def lm_checks(cfg, params, dev, cpu_params, sizes, seed, label="lm"):
+    """The phase's checks on ``params`` (f32) on ``dev``: (a) in f32,
+    speculative == greedy token for token with every proposer; (b) f32
+    prefill logits of ``sizes["xdev"]`` tokens on ``dev`` against the CPU
+    (``cpu_params``) within LM_XDEV_TOL; then, in the config's bf16, the
+    share of positions where speculative and greedy agree.  Raises on a
+    failed check; returns what it measured."""
+    import numpy as np
+    import torch
+    from repro_torch.data import NgramTrie
+    from repro_torch.models import forward
+
+    rows, stream = lm_token_stream(sizes["corpus_docs"], seed)
+    corpus_trie = NgramTrie(n=4).fit(rows)
+    prompt = stream[:sizes["prompt"]][None]
+    cfg32 = cfg.scaled(compute_dtype="float32")
+    res = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        greedy, spec = lm_spec_vs_greedy(cfg32, params, dev, prompt, sizes,
+                                         corpus_trie, torch.float32)
+        greedy_calls = (1 + sizes["decode"]) / sizes["decode"]
+        for name, (toks, stats) in spec.items():
+            calls = (1 + stats["verify_steps"]) / sizes["decode"]
+            log(f"[{label} f32] {name} proposer: proposed "
+                f"{stats['proposed']}, accepted {stats['accepted']}, verify "
+                f"steps {stats['verify_steps']}, model calls per token "
+                f"{calls:.4f} (greedy {greedy_calls:.4f})")
+            if not np.array_equal(toks, greedy):
+                i = int(np.flatnonzero(toks != greedy)[0])
+                gap = lm_logit_gap(cfg32, params, dev, prompt, greedy, i)
+                raise AssertionError(
+                    f"{label}: f32 speculative ({name}) differs from greedy "
+                    f"at position {i}: {toks[i]} against {greedy[i]}; the "
+                    f"greedy step's top-2 logit gap there is {gap:.3e}")
+            res[name] = stats
+        ok, cut = res["continuation"], res["rejecting"]
+        if ok["accepted"] == 0 or cut["accepted"] == cut["proposed"]:
+            raise AssertionError(
+                f"{label}: no draft accepted ({ok}) or none rejected "
+                f"({cut}): the verify step or the rewind went unchecked")
+        log(f"[{label} f32] speculative == greedy, {sizes['decode']} tokens "
+            f"after a {sizes['prompt']}-token prompt, every proposer")
+
+        x = torch.as_tensor(stream[:sizes["xdev"]][None])
+        with torch.inference_mode():
+            on_dev, _, _ = forward(cfg32, params, {"tokens": x.to(dev)})
+            on_cpu, _, _ = forward(cfg32, cpu_params, {"tokens": x})
+        err = float((on_dev.cpu().double() - on_cpu.double()).abs().max())
+        finite = bool(torch.isfinite(on_dev).all())
+        log(f"[{label} xdev] f32 prefill logits of {sizes['xdev']} tokens "
+            f"{tuple(on_dev.shape)}, {dev} against the CPU: max abs err "
+            f"{err:.3e} (limit {LM_XDEV_TOL})")
+        if not finite or not err <= LM_XDEV_TOL:
+            raise AssertionError(f"{label}: {dev} and CPU logits differ by "
+                                 f"{err} (finite {finite})")
+        res["xdev_err"] = err
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    greedy, spec = lm_spec_vs_greedy(cfg, params, dev, prompt, sizes,
+                                     corpus_trie, torch.bfloat16)
+    res["bf16_agree"] = {
+        name: float(np.mean(toks == greedy)) for name, (toks, _) in
+        spec.items()}
+    log(f"[{label} bf16] share of positions where speculative == greedy: "
+        f"{json.dumps(res['bf16_agree'])}")
+    return res
+
+
+def tree_bytes(tree):
+    from repro_torch.pytree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def lm_phase(args, dev, smi):
+    """smollm-360m at full width and depth on the card: random f32
+    weights from a generator seeded by --seed, bf16 compute and a bf16
+    cache (the config's own).  The checks of ``lm_checks``, then prefill
+    ms (CUDA events, median of 5) and decode ms a token and tokens/s at
+    batch 1 and 8 (CUDA events over LM_TIMED_STEPS greedy steps, median
+    of 3 runs), and the resident bytes of params and cache."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, materialize_params
+    from repro_torch.pytree import tree_leaves, tree_map
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    params, _ = materialize_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    p_bytes = tree_bytes(params)
+    c_bytes = tree_bytes(init_cache(cfg, 1, LM_SIZES["max_seq"], device=dev))
+    log(f"[lm] {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab_size}; "
+        f"{n_params} params, {p_bytes} resident bytes ({cfg.param_dtype}), "
+        f"bf16 cache at max_seq {LM_SIZES['max_seq']} {c_bytes} bytes; "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    lm_checks(cfg, params, dev, cpu_params, LM_SIZES, args.seed)
+    del cpu_params
+    log(f"[lm] checks done in {time.perf_counter() - t0:.1f} s")
+
+    _, stream = lm_token_stream(LM_SIZES["corpus_docs"], args.seed)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    n_prompt, n_dec = LM_SIZES["prompt"], LM_TIMED_STEPS
+    prompt = torch.as_tensor(stream[:n_prompt][None], device=dev)
+    cache = init_cache(cfg, 1, LM_SIZES["max_seq"], device=dev)
+    prefill_ms = cuda_ms(lambda: prefill(params, cache, {"tokens": prompt}),
+                         5, warmup=1)
+    # one decode step reads every f32 weight once and writes its bf16 cast
+    bound_ms = (p_bytes + p_bytes // 2) / HBM_BYTES_PER_S * 1e3
+    line = {"prefill_ms": prefill_ms, "prefill_tokens": n_prompt}
+    for b in LM_BATCHES:
+        rows = torch.as_tensor(stream[:b * n_prompt].reshape(b, n_prompt),
+                               device=dev)
+        times = []
+        for _ in range(3):
+            cache = init_cache(cfg, b, LM_SIZES["max_seq"], device=dev)
+            logits, cache = prefill(params, cache, {"tokens": rows})
+            tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n_dec):
+                logits, cache = decode(params, cache, tok)
+                tok = torch.argmax(logits[:, -1], -1)[:, None].to(
+                    torch.int32)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / n_dec)
+        ms = statistics.median(times)
+        line[f"decode_ms_b{b}"] = ms
+        line[f"tokens_per_s_b{b}"] = b * 1e3 / ms
+        line[f"cache_bytes_b{b}"] = tree_bytes(cache)
+    line.update(param_bytes=p_bytes, decode_bound_ms_b1=bound_ms)
+    log(f"[lm ms] {smi}: " + json.dumps(line))
+    log(f"[lm] phase done in {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--edges", type=int, default=1 << 20)
@@ -3630,6 +3863,9 @@ def main():
 
     # -- 12. observability: the launch profiler on the main path --------
     profiler_pass(engine, queries, ant_len, pairs, prefixes, items, res)
+
+    # -- 13. the LM serving path: smollm-360m at full width -------------
+    lm_phase(args, dev, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -4,8 +4,17 @@ ranges over a ``launch.mesh.TrieMesh``; the batched ops answer a
 ``ShardPlan`` bitwise like one device; ``mask_dead_shards`` answers
 around dead shards), the int8 column encoding of ``compression`` (the
 compressed layout quantizes its confidence and lift columns with it) and
-the serve loop's ``health`` signals.  The LM-side sharding helpers wait
-for ROADMAP slice 8."""
+the serve loop's ``health`` signals, and the LM side's logical-axis
+rules of ``sharding`` (``logical_to_spec`` with its divisibility
+fallback, ``shard_params_specs``, and ``constrain``, the identity on one
+device)."""
+from .sharding import (
+    LOGICAL_RULES,
+    SERVING_RULES,
+    constrain,
+    logical_to_spec,
+    shard_params_specs,
+)
 from .trie_sharding import (
     ShardedDeviceTrie,
     ShardFailure,
@@ -19,6 +28,11 @@ from .trie_sharding import (
 )
 
 __all__ = [
+    "LOGICAL_RULES",
+    "SERVING_RULES",
+    "constrain",
+    "logical_to_spec",
+    "shard_params_specs",
     "ShardFailure",
     "ShardPlan",
     "ShardedDeviceTrie",

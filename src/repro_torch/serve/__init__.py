@@ -1,6 +1,9 @@
-"""Serving: the trie query engine (replicated on one device, or sharded
-over a ``launch.mesh.TrieMesh``) and the resilient continuous-batching
-serve loop (scheduler / resilience / faults)."""
+"""Serving: the LM's prefill/decode steps (``engine``) and trie-backed
+speculative decoding (``spec_decode``), the trie query engine (replicated
+on one device, or sharded over a ``launch.mesh.TrieMesh``) and the
+resilient continuous-batching serve loop (scheduler / resilience /
+faults)."""
+from .engine import make_decode_step, make_prefill_step
 from .faults import FaultInjector, FaultyEngine, zipfian_workload
 from .resilience import (
     MonotonicClock,
@@ -21,6 +24,8 @@ from .scheduler import (
 from .trie_engine import TrieQueryEngine, make_trie_engine
 
 __all__ = [
+    "make_decode_step",
+    "make_prefill_step",
     "TrieQueryEngine",
     "make_trie_engine",
     "TrieScheduler",
