@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's batched query path, its rule
 construction path, its path-compressed, quantized and seed layouts, its
 streaming tries, its serve loop, its sharded trie, its launch profiler
-and its LM serving path on one NVIDIA GPU.
+and its LM serving path (dense, then MLA + MoE) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--edges N] [--seed S] [--reps R]
 
@@ -159,7 +159,24 @@ and its LM serving path on one NVIDIA GPU.
    logits on the card == the CPU's within 1e-3; in bf16, the share of
    positions where the two agree.  Prefill ms, decode ms a token and
    tokens/s at batch 1 and 8, resident bytes.  No kernel of its own.
-13. Prints the GPU's name and power limit, one ``{"kernels": [...]}``
+13. MLA and MoE (``[deepseek]``): DeepSeek-V2-Lite-16B at full width and
+   depth (27 layers, d_model 2048, 16 heads, MLA kv_lora 512, 64 routed
+   experts top-6 + 2 shared, vocab 102,400), f32 weights drawn on the card
+   from a generator seeded by --seed, bf16 compute and cache, no mesh (the
+   MoE's one-device dense path).  (a) In f32 (TF32 off), speculative ==
+   greedy token for token with the three proposers of step 12, a
+   512-token prompt (the chunked absorbed prefill) and 32 greedy tokens;
+   (b) the full-width two-layer slice (the prefix layer and unit 0) on the
+   card against a CPU copy: 64-token f32 prefill logits within 1e-3, and
+   its aux loss; (c) on the slice, expanded (no cache) against absorbed
+   (into a cache) logits within 1e-3; (d) unit 0's MoE on 512 tokens
+   under a mesh {"model": ep}, ep in {1, 4}: at capacity_factor 8 the
+   dispatch path == dense within the reference test's tolerance, at 0.1
+   finite with drops and ep = 1 == ep = 4 within f32 rounding.  Prefill
+   ms (dense and dispatch at ep = 1), decode ms a token and tokens/s at
+   batch 1 and 8, resident bytes and the decode bound.  No kernel of its
+   own.
+14. Prints the GPU's name and power limit, one ``{"kernels": [...]}``
    line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result when CUDA is unavailable or any phase fails.
@@ -3418,6 +3435,42 @@ def lm_logit_gap(cfg, params, dev, prompt, greedy, i):
     return float(top[0] - top[1])
 
 
+def lm_spec_checks(cfg32, params, dev, prompt, sizes, corpus_trie, label):
+    """In f32 (the caller turns TF32 off): speculative == greedy token for
+    token with every proposer of ``lm_spec_vs_greedy``, some drafts
+    accepted and some rejected.  On a mismatch, raises with the position
+    and the greedy step's top-2 logit gap there.  Returns the stats."""
+    import numpy as np
+    import torch
+
+    res = {}
+    greedy, spec = lm_spec_vs_greedy(cfg32, params, dev, prompt, sizes,
+                                     corpus_trie, torch.float32)
+    greedy_calls = (1 + sizes["decode"]) / sizes["decode"]
+    for name, (toks, stats) in spec.items():
+        calls = (1 + stats["verify_steps"]) / sizes["decode"]
+        log(f"[{label} f32] {name} proposer: proposed "
+            f"{stats['proposed']}, accepted {stats['accepted']}, verify "
+            f"steps {stats['verify_steps']}, model calls per token "
+            f"{calls:.4f} (greedy {greedy_calls:.4f})")
+        if not np.array_equal(toks, greedy):
+            i = int(np.flatnonzero(toks != greedy)[0])
+            gap = lm_logit_gap(cfg32, params, dev, prompt, greedy, i)
+            raise AssertionError(
+                f"{label}: f32 speculative ({name}) differs from greedy "
+                f"at position {i}: {toks[i]} against {greedy[i]}; the "
+                f"greedy step's top-2 logit gap there is {gap:.3e}")
+        res[name] = stats
+    ok, cut = res["continuation"], res["rejecting"]
+    if ok["accepted"] == 0 or cut["accepted"] == cut["proposed"]:
+        raise AssertionError(
+            f"{label}: no draft accepted ({ok}) or none rejected "
+            f"({cut}): the verify step or the rewind went unchecked")
+    log(f"[{label} f32] speculative == greedy, {sizes['decode']} tokens "
+        f"after a {sizes['prompt']}-token prompt, every proposer")
+    return res
+
+
 def lm_checks(cfg, params, dev, cpu_params, sizes, seed, label="lm"):
     """The phase's checks on ``params`` (f32) on ``dev``: (a) in f32,
     speculative == greedy token for token with every proposer; (b) f32
@@ -3434,34 +3487,11 @@ def lm_checks(cfg, params, dev, cpu_params, sizes, seed, label="lm"):
     corpus_trie = NgramTrie(n=4).fit(rows)
     prompt = stream[:sizes["prompt"]][None]
     cfg32 = cfg.scaled(compute_dtype="float32")
-    res = {}
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        greedy, spec = lm_spec_vs_greedy(cfg32, params, dev, prompt, sizes,
-                                         corpus_trie, torch.float32)
-        greedy_calls = (1 + sizes["decode"]) / sizes["decode"]
-        for name, (toks, stats) in spec.items():
-            calls = (1 + stats["verify_steps"]) / sizes["decode"]
-            log(f"[{label} f32] {name} proposer: proposed "
-                f"{stats['proposed']}, accepted {stats['accepted']}, verify "
-                f"steps {stats['verify_steps']}, model calls per token "
-                f"{calls:.4f} (greedy {greedy_calls:.4f})")
-            if not np.array_equal(toks, greedy):
-                i = int(np.flatnonzero(toks != greedy)[0])
-                gap = lm_logit_gap(cfg32, params, dev, prompt, greedy, i)
-                raise AssertionError(
-                    f"{label}: f32 speculative ({name}) differs from greedy "
-                    f"at position {i}: {toks[i]} against {greedy[i]}; the "
-                    f"greedy step's top-2 logit gap there is {gap:.3e}")
-            res[name] = stats
-        ok, cut = res["continuation"], res["rejecting"]
-        if ok["accepted"] == 0 or cut["accepted"] == cut["proposed"]:
-            raise AssertionError(
-                f"{label}: no draft accepted ({ok}) or none rejected "
-                f"({cut}): the verify step or the rewind went unchecked")
-        log(f"[{label} f32] speculative == greedy, {sizes['decode']} tokens "
-            f"after a {sizes['prompt']}-token prompt, every proposer")
+        res = lm_spec_checks(cfg32, params, dev, prompt, sizes, corpus_trie,
+                             label)
 
         x = torch.as_tensor(stream[:sizes["xdev"]][None])
         with torch.inference_mode():
@@ -3527,40 +3557,352 @@ def lm_phase(args, dev, smi):
     log(f"[lm] checks done in {time.perf_counter() - t0:.1f} s")
 
     _, stream = lm_token_stream(LM_SIZES["corpus_docs"], args.seed)
-    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
-    n_prompt, n_dec = LM_SIZES["prompt"], LM_TIMED_STEPS
-    prompt = torch.as_tensor(stream[:n_prompt][None], device=dev)
-    cache = init_cache(cfg, 1, LM_SIZES["max_seq"], device=dev)
-    prefill_ms = cuda_ms(lambda: prefill(params, cache, {"tokens": prompt}),
-                         5, warmup=1)
+    n_prompt = LM_SIZES["prompt"]
+    line = lm_timings(cfg, params, dev, stream, n_prompt, LM_SIZES["max_seq"])
     # one decode step reads every f32 weight once and writes its bf16 cast
     bound_ms = (p_bytes + p_bytes // 2) / HBM_BYTES_PER_S * 1e3
-    line = {"prefill_ms": prefill_ms, "prefill_tokens": n_prompt}
-    for b in LM_BATCHES:
-        rows = torch.as_tensor(stream[:b * n_prompt].reshape(b, n_prompt),
-                               device=dev)
-        times = []
-        for _ in range(3):
-            cache = init_cache(cfg, b, LM_SIZES["max_seq"], device=dev)
-            logits, cache = prefill(params, cache, {"tokens": rows})
-            tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(n_dec):
-                logits, cache = decode(params, cache, tok)
-                tok = torch.argmax(logits[:, -1], -1)[:, None].to(
-                    torch.int32)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / n_dec)
-        ms = statistics.median(times)
-        line[f"decode_ms_b{b}"] = ms
-        line[f"tokens_per_s_b{b}"] = b * 1e3 / ms
-        line[f"cache_bytes_b{b}"] = tree_bytes(cache)
     line.update(param_bytes=p_bytes, decode_bound_ms_b1=bound_ms)
     log(f"[lm ms] {smi}: " + json.dumps(line))
     log(f"[lm] phase done in {time.perf_counter() - t0:.1f} s")
+
+
+def lm_prefill_ms(cfg, params, dev, stream, n_prompt, max_seq):
+    """Prefill ms of ``n_prompt`` tokens at batch 1 into a cache (CUDA
+    events, median of 5 after one warm-up)."""
+    import torch
+    from repro_torch.models import init_cache
+    from repro_torch.serve import make_prefill_step
+
+    prefill = make_prefill_step(cfg)
+    prompt = torch.as_tensor(stream[:n_prompt][None], device=dev)
+    cache = init_cache(cfg, 1, max_seq, device=dev)
+    return cuda_ms(lambda: prefill(params, cache, {"tokens": prompt}), 5,
+                   warmup=1)
+
+
+def lm_decode_ms(cfg, params, dev, stream, b, n_prompt, max_seq):
+    """Decode ms a token at batch ``b`` after an ``n_prompt``-token
+    prefill (CUDA events over LM_TIMED_STEPS greedy steps, median of 3
+    runs), and the cache's resident bytes."""
+    import torch
+    from repro_torch.models import init_cache
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    n_dec = LM_TIMED_STEPS
+    rows = torch.as_tensor(stream[:b * n_prompt].reshape(b, n_prompt),
+                           device=dev)
+    times = []
+    for _ in range(3):
+        cache = init_cache(cfg, b, max_seq, device=dev)
+        logits, cache = prefill(params, cache, {"tokens": rows})
+        tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n_dec):
+            logits, cache = decode(params, cache, tok)
+            tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n_dec)
+    return statistics.median(times), tree_bytes(cache)
+
+
+def lm_timings(cfg, params, dev, stream, n_prompt, max_seq):
+    """Prefill ms, then decode ms a token, tokens/s and cache bytes at
+    each of LM_BATCHES."""
+    line = {"prefill_ms": lm_prefill_ms(cfg, params, dev, stream, n_prompt,
+                                        max_seq),
+            "prefill_tokens": n_prompt}
+    for b in LM_BATCHES:
+        ms, c_bytes = lm_decode_ms(cfg, params, dev, stream, b, n_prompt,
+                                   max_seq)
+        line[f"decode_ms_b{b}"] = ms
+        line[f"tokens_per_s_b{b}"] = b * 1e3 / ms
+        line[f"cache_bytes_b{b}"] = c_bytes
+    return line
+
+
+def lm_decode_trace(cfg, params, dev, stream, n_prompt, max_seq, steps=3):
+    """A torch.profiler trace of ``steps`` greedy decode steps at batch 1
+    after an ``n_prompt``-token prefill: wall ms a step (host clock around
+    the traced steps, the profiler's own cost included), device-busy ms a
+    step (the durations of the kernels and copies on the card), the
+    device's idle share of the wall, kernel launches a step, the busy
+    time's shares in copies (the weight casts and upcasts) and in GEMMs,
+    and the five costliest device events by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import init_cache
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    prompt = torch.as_tensor(stream[:n_prompt][None], device=dev)
+    cache = init_cache(cfg, 1, max_seq, device=dev)
+    logits, cache = prefill(params, cache, {"tokens": prompt})
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    logits, cache = decode(params, cache, tok)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = decode(params, cache, tok)
+            tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    events = prof.events()
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+    by_name = Counter()
+    for e in on_card:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3 / steps
+    busy = sum(by_name.values())
+    gemm = sum(ms for n, ms in by_name.items()
+               if any(k in n.lower()
+                      for k in ("gemm", "xmma", "cutlass", "nvjet")))
+    copy = sum(ms for n, ms in by_name.items() if "copy" in n.lower())
+    launches = sum(1 for e in events if e.name.startswith(
+        ("cudaLaunchKernel", "cuLaunchKernel"))) / steps
+    return {"trace_wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall if wall > 0 else None,
+            "launches_per_step": launches,
+            "copy_share": copy / busy if busy else None,
+            "gemm_share": gemm / busy if busy else None,
+            "top": [[n[:80], ms] for n, ms in by_name.most_common(5)]}
+
+
+# the DeepSeek phase: DeepSeek-V2-Lite-16B (MLA + MoE) at full width and
+# depth
+DS_ARCH = "deepseek-v2-lite-16b"
+DS_SIZES = dict(prompt=512,   # the chunked absorbed prefill
+                decode=32, max_seq=1024, xdev=64, corpus_docs=200,
+                moe_tokens=512)
+DS_EPS = (1, 4)               # expert slices of the dispatch path
+DS_MOE_TOL = dict(rtol=2e-2, atol=2e-3)   # tests/test_distributed.py:92-120
+DS_AUX_RTOL = 1e-4
+DS_ABSORBED_TOL = 1e-3        # expanded against absorbed, f32 logits
+DS_EP_RTOL = 1e-5             # ep = 1 against ep = 4 in f32, of max |y|
+
+
+def model_mesh(ep):
+    """A mesh of one ``model`` axis of extent ``ep`` (what the MoE reads
+    of a mesh)."""
+    import types
+
+    return types.SimpleNamespace(shape={"model": ep})
+
+
+def ds_slice(cfg, params):
+    """The full-width two-layer slice: the prefix layer and unit 0, with
+    the embedding and the head (views of ``params``)."""
+    from repro_torch.pytree import tree_map
+
+    sub = dict(params, units=tree_map(lambda t: t[:1], params["units"]))
+    return cfg.scaled(n_units=1), sub
+
+
+def ds_moe_checks(cfg, params, dev, n_tokens, seed, label):
+    """(d) the MoE of unit 0 on ``n_tokens`` tokens under a mesh
+    {"model": ep}: at capacity_factor 8 (no drops) the dispatch path ==
+    ``moe_dense`` within the reference test's tolerance at every ep of
+    DS_EPS (the config's compute dtype); at capacity_factor 0.1 (drops)
+    finite, and ep = 1 == the largest ep within f32 rounding (f32
+    compute)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.models.moe import (
+        _capacity, _router, moe_alltoall, moe_dense,
+    )
+    from repro_torch.pytree import tree_map
+
+    p_moe = tree_map(lambda t: t[0], params["units"]["0"]["ffn"])
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn((1, n_tokens, cfg.d_model), generator=gen,
+                    device=dev) * 0.3
+
+    def run(c, ep):
+        with use_mesh(model_mesh(ep)), torch.inference_mode():
+            return moe_alltoall(c, p_moe, x)
+
+    res = {}
+    wide = cfg.scaled(moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    with torch.inference_mode():
+        y_dense, aux_dense = moe_dense(wide, p_moe, x)
+    for ep in DS_EPS:
+        y, aux = run(wide, ep)
+        err = float((y.double() - y_dense.double()).abs().max())
+        aux_err = abs(float(aux) - float(aux_dense)) / abs(float(aux_dense))
+        close = torch.allclose(y.double(), y_dense.double(), **DS_MOE_TOL)
+        log(f"[{label} moe] dispatch ep={ep} capacity_factor 8 "
+            f"({_capacity(n_tokens, wide)} slots an expert) against dense, "
+            f"{n_tokens} tokens: max abs err {err:.3e}, aux rel err "
+            f"{aux_err:.3e} (rtol {DS_MOE_TOL['rtol']}, atol "
+            f"{DS_MOE_TOL['atol']}; aux rtol {DS_AUX_RTOL})")
+        if not close or not aux_err <= DS_AUX_RTOL:
+            raise AssertionError(f"{label}: dispatch at ep={ep} differs from "
+                                 f"dense by {err}, aux by {aux_err}")
+        res[f"ep{ep}_err"] = err
+    tight = cfg.scaled(compute_dtype="float32", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.1))
+    ys = {ep: run(tight, ep) for ep in DS_EPS}
+    with torch.inference_mode():
+        _, top_i, _ = _router(tight, p_moe, x.reshape(-1, cfg.d_model))
+    cap = _capacity(n_tokens, tight)
+    counts = np.bincount(top_i.reshape(-1).cpu().numpy(),
+                         minlength=cfg.moe.n_routed)
+    dropped = int(np.maximum(counts - cap, 0).sum())
+    lo, hi = DS_EPS[0], DS_EPS[-1]
+    # the largest |y(ep=hi) - y(ep=lo)| over the largest |y(ep=lo)|
+    ep_err = float((ys[hi][0].double() - ys[lo][0].double()).abs().max()
+                   / ys[lo][0].double().abs().max())
+    finite = all(bool(torch.isfinite(y).all()) for y, _ in ys.values())
+    log(f"[{label} moe] capacity_factor 0.1 ({cap} slots an expert, "
+        f"{dropped} of {top_i.numel()} token copies dropped), f32: finite "
+        f"{finite}, ep={hi} against ep={lo} max err {ep_err:.3e} of max |y| "
+        f"(limit {DS_EP_RTOL}), aux {float(ys[hi][1]):.6f} / "
+        f"{float(ys[lo][1]):.6f}")
+    if not finite or not ep_err <= DS_EP_RTOL or dropped == 0:
+        raise AssertionError(f"{label}: capacity_factor 0.1: finite {finite}, "
+                             f"ep error {ep_err}, {dropped} dropped")
+    res.update(ep_err=ep_err, dropped=dropped)
+    return res
+
+
+def ds_checks(cfg, params, dev, sizes, seed, label="deepseek"):
+    """The DeepSeek phase's checks on ``params`` (f32) on ``dev``, TF32
+    off: (a) in f32, speculative == greedy with every proposer after a
+    ``sizes["prompt"]``-token prompt; (b) the two-layer slice's f32
+    prefill logits of ``sizes["xdev"]`` tokens and its aux loss on
+    ``dev`` against a CPU copy of the slice; (c) on the slice, logits
+    without a cache (the expanded form) against a prefill into a cache
+    (the absorbed form) within DS_ABSORBED_TOL; (d) ``ds_moe_checks``.
+    Raises on a failed check; returns what it measured."""
+    import torch
+    from repro_torch.data import NgramTrie
+    from repro_torch.models import forward, init_cache
+    from repro_torch.pytree import tree_leaves, tree_map
+
+    rows, stream = lm_token_stream(sizes["corpus_docs"], seed)
+    prompt = stream[:sizes["prompt"]][None]
+    cfg32 = cfg.scaled(compute_dtype="float32")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = lm_spec_checks(cfg32, params, dev, prompt, sizes,
+                             NgramTrie(n=4).fit(rows), label)
+
+        scfg, sparams = ds_slice(cfg32, params)
+        cpu_sparams = tree_map(lambda t: t.cpu(), sparams)
+        x = torch.as_tensor(stream[:sizes["xdev"]][None])
+        with torch.inference_mode():
+            on_dev, e_dev, _ = forward(scfg, sparams, {"tokens": x.to(dev)})
+            on_cpu, e_cpu, _ = forward(scfg, cpu_sparams, {"tokens": x})
+        del cpu_sparams
+        err = float((on_dev.cpu().double() - on_cpu.double()).abs().max())
+        aux_d, aux_c = float(e_dev["aux_loss"]), float(e_cpu["aux_loss"])
+        aux_err = abs(aux_d - aux_c) / abs(aux_c)
+        finite = bool(torch.isfinite(on_dev).all())
+        log(f"[{label} xdev] two-layer slice ({scfg.n_layers} layers, "
+            f"{sum(t.numel() for t in tree_leaves(sparams))} params), f32 "
+            f"prefill logits of {sizes['xdev']} tokens {tuple(on_dev.shape)},"
+            f" {dev} against the CPU: max abs err {err:.3e} (limit "
+            f"{LM_XDEV_TOL}); aux loss {aux_d:.6f} against {aux_c:.6f}, rel "
+            f"err {aux_err:.3e} (limit {DS_AUX_RTOL})")
+        if not finite or not err <= LM_XDEV_TOL or \
+                not aux_err <= DS_AUX_RTOL:
+            raise AssertionError(f"{label}: {dev} and CPU differ: logits by "
+                                 f"{err} (finite {finite}), aux by {aux_err}")
+        res["xdev_err"], res["aux_err"] = err, aux_err
+
+        full = torch.as_tensor(prompt, device=dev)
+        with torch.inference_mode():
+            expanded, _, _ = forward(scfg, sparams, {"tokens": full})
+            absorbed, _, cache = forward(
+                scfg, sparams, {"tokens": full}, cache=init_cache(
+                    scfg, 1, sizes["max_seq"], torch.float32, dev))
+        err = float((expanded.double() - absorbed.double()).abs().max())
+        log(f"[{label} absorbed] two-layer slice, {full.shape[1]}-token f32 "
+            f"prefill: expanded (no cache) against absorbed (into a cache) "
+            f"max abs err {err:.3e} (limit {DS_ABSORBED_TOL}); cache pos "
+            f"{cache['units']['0']['pos'].tolist()}")
+        if not err <= DS_ABSORBED_TOL:
+            raise AssertionError(f"{label}: expanded and absorbed logits "
+                                 f"differ by {err}")
+        res["absorbed_err"] = err
+        res.update(ds_moe_checks(cfg, params, dev, sizes["moe_tokens"], seed,
+                                 label))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return res
+
+
+def ds_phase(args, dev, smi):
+    """DeepSeek-V2-Lite-16B at full width and depth on the card: random
+    f32 weights drawn on the card from a generator seeded by --seed, the
+    config's bf16 compute and cache, no mesh (the MoE's one-device dense
+    path).  The checks of ``ds_checks``; then prefill ms of 512 tokens on
+    the dense path and on the dispatch path at ep = 1, decode ms a token
+    and tokens/s at batch 1 and 8 (and at batch 1 on the dispatch path),
+    the resident bytes of params and cache, the decode bound, and a
+    profiler trace of three decode steps (``lm_decode_trace``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.models import init_cache, materialize_params
+    from repro_torch.pytree import tree_leaves
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"[deepseek] before the weights: {torch.cuda.memory_allocated()} "
+        f"bytes allocated, {torch.cuda.memory_reserved()} reserved")
+    cfg = get_config(DS_ARCH)
+    params, _ = materialize_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    p_bytes = tree_bytes(params)
+    cache = init_cache(cfg, 1, DS_SIZES["max_seq"], device=dev)
+    c_bytes = tree_bytes(cache)
+    pos_bytes = sum(t.numel() * t.element_size()
+                    for t in tree_leaves(cache) if t.dtype == torch.int32)
+    del cache
+    m, mo = cfg.mla, cfg.moe
+    log(f"[deepseek] {DS_ARCH}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, MLA kv_lora {m.kv_lora_rank}, "
+        f"{mo.n_routed} routed experts top-{mo.top_k} + {mo.n_shared} "
+        f"shared, vocab {cfg.vocab_size}; {n_params} params, {p_bytes} "
+        f"resident bytes ({cfg.param_dtype}), bf16 cache at max_seq "
+        f"{DS_SIZES['max_seq']} {c_bytes} bytes ({pos_bytes} of them pos); "
+        f"peak {torch.cuda.max_memory_allocated()} bytes; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    res = ds_checks(cfg, params, dev, DS_SIZES, args.seed)
+    log(f"[deepseek] checks done in {time.perf_counter() - t0:.1f} s")
+
+    _, stream = lm_token_stream(DS_SIZES["corpus_docs"], args.seed)
+    n_prompt, max_seq = DS_SIZES["prompt"], DS_SIZES["max_seq"]
+    line = lm_timings(cfg, params, dev, stream, n_prompt, max_seq)
+    with use_mesh(model_mesh(1)):
+        line["dispatch_prefill_ms"] = lm_prefill_ms(
+            cfg, params, dev, stream, n_prompt, max_seq)
+        line["dispatch_decode_ms_b1"] = lm_decode_ms(
+            cfg, params, dev, stream, 1, n_prompt, max_seq)[0]
+    # the dense path's decode step reads every f32 weight once and writes
+    # its bf16 cast
+    bound_ms = (p_bytes + p_bytes // 2) / HBM_BYTES_PER_S * 1e3
+    line.update(param_bytes=p_bytes, decode_bound_ms_b1=bound_ms,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                xdev_err=res["xdev_err"], absorbed_err=res["absorbed_err"])
+    log(f"[deepseek ms] {smi}: " + json.dumps(line))
+    log(f"[deepseek trace] {smi}: 3 decode steps at batch 1, dense path: "
+        + json.dumps(lm_decode_trace(cfg, params, dev, stream, n_prompt,
+                                     max_seq)))
+    del params
+    torch.cuda.empty_cache()
+    log(f"[deepseek] phase done in {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -3866,6 +4208,9 @@ def main():
 
     # -- 13. the LM serving path: smollm-360m at full width -------------
     lm_phase(args, dev, smi)
+
+    # -- 14. MLA and MoE: DeepSeek-V2-Lite-16B at full width and depth ---
+    ds_phase(args, dev, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -6,14 +6,16 @@ around dead shards), the int8 column encoding of ``compression`` (the
 compressed layout quantizes its confidence and lift columns with it) and
 the serve loop's ``health`` signals, and the LM side's logical-axis
 rules of ``sharding`` (``logical_to_spec`` with its divisibility
-fallback, ``shard_params_specs``, and ``constrain``, the identity on one
-device)."""
+fallback, ``shard_params_specs``, ``constrain``, the identity on one
+device, and the ambient mesh of ``use_mesh`` / ``get_mesh``)."""
 from .sharding import (
     LOGICAL_RULES,
     SERVING_RULES,
     constrain,
+    get_mesh,
     logical_to_spec,
     shard_params_specs,
+    use_mesh,
 )
 from .trie_sharding import (
     ShardedDeviceTrie,
@@ -31,8 +33,10 @@ __all__ = [
     "LOGICAL_RULES",
     "SERVING_RULES",
     "constrain",
+    "get_mesh",
     "logical_to_spec",
     "shard_params_specs",
+    "use_mesh",
     "ShardFailure",
     "ShardPlan",
     "ShardedDeviceTrie",

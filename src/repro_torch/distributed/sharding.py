@@ -16,6 +16,11 @@ mesh axis name, or a tuple of names — entry for entry the reference's
 mesh; placing tensors by these specs across GPUs (the reference's
 ``named_sharding``) waits for the multi-GPU LM slice (ROADMAP.md).
 
+The ambient mesh: ``with use_mesh(mesh):`` makes ``mesh`` the one
+``get_mesh()`` returns (``None`` outside), as the reference's
+``jax.set_mesh`` does for ``jax.sharding.get_abstract_mesh()``; the MoE's
+expert-parallel paths read it.
+
 Key logical axes:
   batch      data-parallel batch            → ("pod", "data")
   embed      residual/d_model               → None (replicated activations)
@@ -30,7 +35,9 @@ Key logical axes:
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import contextlib
+import contextvars
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 from repro_torch.pytree import tree_map
 
@@ -140,3 +147,24 @@ def constrain(x, axes: Axes):
     """Activation sharding constraint by logical axes: the identity on
     one device (the reference's behaviour off a mesh)."""
     return x
+
+
+_MESH: contextvars.ContextVar = contextvars.ContextVar("mesh", default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh) -> Iterator[object]:
+    """Make ``mesh`` (anything with a ``.shape`` mapping from axis name to
+    extent) the ambient mesh inside the block; the previous one after."""
+    if not hasattr(mesh, "shape"):
+        raise TypeError(f"a mesh needs a .shape mapping, got {mesh!r}")
+    token = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def get_mesh():
+    """The ambient mesh of ``use_mesh``, or ``None``."""
+    return _MESH.get()

@@ -1,7 +1,8 @@
-"""The decoder LM of the port: the dense half of ``repro.models`` (attention
-mixers, SwiGLU MLPs, stub frontends), with ``DecoderLM``, a module that
-owns a parameter tree, and ``convert``, which carries the reference's
-parameters and caches across as numpy trees."""
+"""The decoder LM of the port: ``repro.models`` without Mamba and the
+training loss (attention and MLA mixers, SwiGLU MLPs and MoE FFNs, stub
+frontends, DeepSeek-V3's ``mtp`` params), with ``DecoderLM``, a module
+that owns a parameter tree, and ``convert``, which carries the
+reference's parameters and caches across as numpy trees."""
 from .convert import cache_from_numpy, params_from_numpy
 from .layers import PV, split_pv
 from .model import (

@@ -61,14 +61,16 @@ def _leaf_device(key: Optional[torch.Generator]) -> torch.device:
 def dense_init(key, shape, dtype, fan_in: Optional[int] = None,
                lead: Tuple[int, ...] = ()):
     """N(0, 1/fan) draws of ``lead + shape`` (``lead``: the stacked-unit
-    axis; ``fan`` defaults to ``shape[0]``)."""
+    axis; ``fan`` defaults to ``shape[0]``).  Scaled in place: a leaf
+    never holds two float32 copies at once (DeepSeek-V2-Lite's stacked
+    expert leaves are 19.19 GB each)."""
     full = tuple(lead) + tuple(shape)
     if key is None:
         return torch.empty(full, dtype=dtype, device="meta")
     fan = fan_in if fan_in is not None else shape[0]
     draw = torch.randn(full, generator=key, dtype=torch.float32,
                        device=key.device)
-    return (draw / math.sqrt(max(fan, 1))).to(dtype)
+    return draw.div_(math.sqrt(max(fan, 1))).to(dtype)
 
 
 def pv(key, name, shape, axes, dtype, fan_in=None, zeros=False, ones=False,
@@ -264,19 +266,21 @@ def _triangle_scan(q, k, v, scale, q_offset, q_chunk, segment_ids):
     return num / torch.clamp(den[..., None], min=1e-30)
 
 
-def _cache_write(buf, update, pos):
-    """``buf[:, :, start:start + s] = update`` with the start clamped to
-    ``[0, max_seq - s]``, as ``lax.dynamic_update_slice`` clamps it: a
-    write at ``pos + s > max_seq`` lands at ``max_seq - s``.  In place,
-    with no host read of ``pos``: the cache is consumed by the step, as
-    the reference's jitted decode donates it."""
-    s, max_seq = update.shape[2], buf.shape[2]
+def _cache_write(buf, update, pos, axis=2):
+    """``buf[..., start:start + s, ...] = update`` along ``axis`` (the
+    sequence axis: 2 for the attention cache's [b, kv, seq, hd], 1 for
+    MLA's latent [b, seq, r]) with the start clamped to ``[0, max_seq -
+    s]``, as ``lax.dynamic_update_slice`` clamps it: a write at ``pos + s
+    > max_seq`` lands at ``max_seq - s``.  In place, with no host read of
+    ``pos``: the cache is consumed by the step, as the reference's jitted
+    decode donates it."""
+    s, max_seq = update.shape[axis], buf.shape[axis]
     if s > max_seq:
         raise ValueError(f"{s} new positions do not fit a cache of "
                          f"{max_seq}")
     start = torch.clamp(pos, 0, max_seq - s)
     idx = start + torch.arange(s, device=buf.device)
-    buf.index_copy_(2, idx, update.to(buf.dtype))
+    buf.index_copy_(axis, idx, update.to(buf.dtype))
     return buf
 
 

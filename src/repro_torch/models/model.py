@@ -1,12 +1,13 @@
-"""Decoder LM over the assigned architecture pool: the dense half.
+"""Decoder LM over the assigned architecture pool.
 
 PyTorch port of ``repro.models.model``.  Structure: embed (+ optional
 stub frontend) → prefix layers → a Python loop over identical units
 (params and caches stacked on a leading ``n_units`` axis, as the
 reference stacks them for its scan) → suffix layers → final norm → LM
-head.  The functional core keeps the reference's signatures, so the
-serving steps read line for line like the reference's; ``DecoderLM`` is a
-thin ``nn.Module`` that owns a parameter tree and calls the core.
+head (+ DeepSeek-V3's ``mtp`` params).  The functional core keeps the
+reference's signatures, so the serving steps read line for line like the
+reference's; ``DecoderLM`` is a thin ``nn.Module`` that owns a parameter
+tree and calls the core.
 
 Entry points:
   init_model(cfg, key, device)          → PV param tree (value + axes)
@@ -15,13 +16,14 @@ Entry points:
   init_cache(cfg, batch, max_seq)       → decode cache tree
   decode_step(cfg, params, cache, tokens) → (logits, new cache)
 
-Only attention mixers with MLP (or no) FFNs are ported: an ``mla``,
-``mamba`` or ``moe`` layer, and the ``mtp`` head, raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them;
-nothing falls back to another mixer.  ``loss_fn`` waits for the training
-slice.  A decode step writes its keys and values into the cache's
-buffers in place (the cache is consumed, as the reference's jitted decode
-donates it) and returns a cache with new position counters.
+Mixers: GQA attention (``layers``) and MLA (``mla``); FFNs: the SwiGLU
+MLP and the MoE (``moe``), whose aux loss ``forward`` sums into
+``extras["aux_loss"]``.  A ``mamba`` layer raises ``NotImplementedError``
+naming the ROADMAP.md item that ports it; nothing falls back to another
+mixer.  ``loss_fn`` (with the ``mtp`` head's loss) waits for the training
+slice.  A decode step writes its keys and values (MLA: its latents) into
+the cache's buffers in place (the cache is consumed, as the reference's
+jitted decode donates it) and returns a cache with new position counters.
 """
 from __future__ import annotations
 
@@ -50,14 +52,13 @@ from .layers import (
     split_pv,
     torch_dtype,
 )
+from .mla import init_mla, init_mla_cache, mla_attention, mla_cache_axes
+from .moe import init_moe, moe
 
 # layer kinds of the reference that the port does not run yet, and the
 # ROADMAP.md item that ports each
 NOT_PORTED = {
-    "mla": "ROADMAP.md Queue 1 item 1 (models/mla.py with models/moe.py)",
-    "moe": "ROADMAP.md Queue 1 item 1 (models/mla.py with models/moe.py)",
     "mamba": "ROADMAP.md Queue 1 item 2 (models/mamba.py)",
-    "mtp": "ROADMAP.md Queue 1 item 1 (DeepSeek-V3's mtp head)",
 }
 
 
@@ -66,9 +67,9 @@ def _require_ported(spec: LayerSpec):
         if kind in NOT_PORTED:
             raise NotImplementedError(
                 f"layer {spec} is not ported yet: {NOT_PORTED[kind]}")
-    if spec.mixer != "attn":
+    if spec.mixer not in ("attn", "mla"):
         raise ValueError(spec.mixer)
-    if spec.ffn not in ("mlp", "none"):
+    if spec.ffn not in ("mlp", "moe", "none"):
         raise ValueError(spec.ffn)
 
 
@@ -76,13 +77,17 @@ def _require_ported(spec: LayerSpec):
 # init
 # ----------------------------------------------------------------------
 def _init_layer(key, cfg: ModelConfig, spec: LayerSpec, lead=()):
+    """Draws the mixer's leaves, then the FFN's."""
+    _require_ported(spec)
     p: Dict[str, Any] = {
         "ln_mix": init_rmsnorm(key, cfg.d_model, None, lead=lead),
-        "mixer": init_attention(key, cfg, lead=lead),
+        "mixer": (init_attention if spec.mixer == "attn" else init_mla)(
+            key, cfg, lead=lead),
     }
-    if spec.ffn == "mlp":
+    if spec.ffn != "none":
         p["ln_ffn"] = init_rmsnorm(key, cfg.d_model, None, lead=lead)
-        p["ffn"] = init_mlp(key, cfg, lead=lead)
+        p["ffn"] = (init_mlp if spec.ffn == "mlp" else init_moe)(
+            key, cfg, lead=lead)
     return p
 
 
@@ -91,15 +96,18 @@ def _prepend_layers_axis(tree):
 
 
 def init_model(cfg: ModelConfig, key, device=None) -> Dict[str, Any]:
-    """PV tree drawn from the generator ``key`` (on its device, in a
-    fixed order) and placed on ``device`` (CUDA unless named); ``key=None``
-    builds meta tensors on the ``meta`` device."""
+    """PV tree drawn from the generator ``key`` (on its device) and
+    placed on ``device`` (CUDA unless named); ``key=None`` builds meta
+    tensors on the ``meta`` device.  The draws come in this order:
+    ``embed``, ``lm_head``, ``frontend_proj``, the prefix layers, the
+    suffix layers, the units (each unit layer's leaves for all units at
+    once, layer by layer), then the ``mtp`` head's ``proj`` and ``block``
+    (an ``("mla", "mlp")`` layer when ``cfg.mla`` is set, else
+    ``("attn", "mlp")``); within a layer, the mixer's leaves, then the
+    FFN's, each in its module's stated order.  Norm scales are ones."""
     dev = torch.device("meta") if key is None else resolve_device(device)
     for spec in cfg.layer_specs():
         _require_ported(spec)
-    if cfg.mtp:
-        raise NotImplementedError(
-            f"the mtp head is not ported yet: {NOT_PORTED['mtp']}")
     dt = torch_dtype(cfg.param_dtype)
     params: Dict[str, Any] = {
         "embed": pv(
@@ -124,6 +132,15 @@ def init_model(cfg: ModelConfig, key, device=None) -> Dict[str, Any]:
         str(i): _init_layer(key, cfg, spec, lead=(cfg.n_units,))
         for i, spec in enumerate(cfg.unit)
     })
+    if cfg.mtp:
+        params["mtp"] = {
+            "proj": pv(key, "mtp_proj", (2 * cfg.d_model, cfg.d_model),
+                       ("fsdp", None), dt),
+            "norm_h": init_rmsnorm(key, cfg.d_model, dt),
+            "norm_e": init_rmsnorm(key, cfg.d_model, dt),
+            "block": _init_layer(key, cfg, LayerSpec(
+                "attn" if cfg.mla is None else "mla", "mlp")),
+        }
     if key is None or key.device == dev:
         return params
     return tree_map(lambda p: PV(p.value.to(dev), p.axes), params)
@@ -143,32 +160,48 @@ def materialize_params(cfg: ModelConfig, key, device=None):
 # forward
 # ----------------------------------------------------------------------
 def _apply_layer(cfg, spec: LayerSpec, p, h, positions, segment_ids, cache):
-    """One residual block; returns (h, new_cache).  (The reference's
-    third output, the MoE aux loss, is zero on every ported layer.)"""
+    """One residual block; returns (h, new_cache, aux): ``aux`` is the
+    MoE's aux loss, or ``None`` for a layer without one (the reference's
+    zero, which adds nothing to a sum)."""
     _require_ported(spec)
+    aux = None
     mix_in = rmsnorm(h, p["ln_mix"], cfg.norm_eps)
-    mix_out, new_cache = attention(
+    mix_out, new_cache = (attention if spec.mixer == "attn"
+                          else mla_attention)(
         cfg, p["mixer"], mix_in, positions, segment_ids, cache
     )
     h = h + mix_out
     if spec.ffn != "none":
         f_in = rmsnorm(h, p["ln_ffn"], cfg.norm_eps)
-        h = h + mlp(cfg, p["ffn"], f_in)
-    return h, new_cache
+        if spec.ffn == "moe":
+            f_out, aux = moe(cfg, p["ffn"], f_in)
+        else:
+            f_out = mlp(cfg, p["ffn"], f_in)
+        h = h + f_out
+    return h, new_cache, aux
+
+
+def _add_aux(total, aux):
+    """The sum of two aux losses, either of which may be ``None``."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
 
 
 def _apply_unit(cfg, p_unit, h, positions, segment_ids, cache_unit):
     """Apply every layer of one unit; cache_unit is a dict keyed like
-    p_unit (or None)."""
+    p_unit (or None).  Returns (h, new caches, the unit's aux or None)."""
     new_caches = {}
+    aux_total = None
     for i, spec in enumerate(cfg.unit):
         ci = cache_unit[str(i)] if cache_unit is not None else None
-        h, nc = _apply_layer(
+        h, nc, aux = _apply_layer(
             cfg, spec, p_unit[str(i)], h, positions, segment_ids, ci
         )
+        aux_total = _add_aux(aux_total, aux)
         if nc is not None:
             new_caches[str(i)] = nc
-    return h, (new_caches if cache_unit is not None else None)
+    return h, (new_caches if cache_unit is not None else None), aux_total
 
 
 def _restack(stacked, *per_unit):
@@ -214,14 +247,16 @@ def forward(
         h = h + sinusoidal_pos(positions, cfg.d_model).to(h.dtype)
     h = constrain(h, ("batch", "seq", "embed"))
 
+    aux_total = None
     new_cache = {"prefix": [], "units": None, "suffix": []} \
         if cache is not None else None
 
     for i, spec in enumerate(cfg.prefix):
         ci = cache["prefix"][i] if cache is not None else None
-        h, nc = _apply_layer(
+        h, nc, aux = _apply_layer(
             cfg, spec, params["prefix"][i], h, positions, segment_ids, ci
         )
+        aux_total = _add_aux(aux_total, aux)
         if cache is not None:
             new_cache["prefix"].append(nc)
 
@@ -232,16 +267,19 @@ def forward(
         p_u = tree_map(lambda x: x[u], params["units"])
         c_u = (tree_map(lambda x: x[u], cache_units)
                if cache_units is not None else None)
-        h, nc_u = _apply_unit(cfg, p_u, h, positions, segment_ids, c_u)
+        h, nc_u, aux = _apply_unit(cfg, p_u, h, positions, segment_ids,
+                                   c_u)
+        aux_total = _add_aux(aux_total, aux)
         new_units.append(nc_u)
     if cache is not None:
         new_cache["units"] = tree_map(_restack, cache_units, *new_units)
 
     for i, spec in enumerate(cfg.suffix):
         ci = cache["suffix"][i] if cache is not None else None
-        h, nc = _apply_layer(
+        h, nc, aux = _apply_layer(
             cfg, spec, params["suffix"][i], h, positions, segment_ids, ci
         )
+        aux_total = _add_aux(aux_total, aux)
         if cache is not None:
             new_cache["suffix"].append(nc)
 
@@ -252,8 +290,9 @@ def forward(
         logits = unembed(cfg, params, h[:, -1:, :])
     else:
         logits = unembed(cfg, params, h)
-    extras = {"aux_loss": torch.zeros((), dtype=torch.float32,
-                                      device=h.device), "hidden": h}
+    if aux_total is None:
+        aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    extras = {"aux_loss": aux_total, "hidden": h}
     return logits, extras, new_cache
 
 
@@ -277,11 +316,15 @@ def unembed(cfg, params, h):
 def _layer_cache(cfg, spec: LayerSpec, batch, max_seq, dtype, device,
                  lead=()):
     _require_ported(spec)
+    if spec.mixer == "mla":
+        return init_mla_cache(cfg, batch, max_seq, dtype, device, lead)
     return init_attention_cache(cfg, batch, max_seq, dtype, device, lead)
 
 
 def _layer_cache_axes(spec: LayerSpec):
     _require_ported(spec)
+    if spec.mixer == "mla":
+        return mla_cache_axes()
     return attention_cache_axes()
 
 

@@ -82,3 +82,42 @@ def test_lm_serving_on_gpu_equals_cpu(cuda):
                                    caches["cpu"].numpy(), rtol=0, atol=1e-4)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_deepseek_two_layer_slice_on_gpu_equals_cpu(cuda):
+    """DeepSeek-V2-Lite at full width, cut to two layers (the prefix
+    MLA + MLP layer and one MLA + MoE unit, with the embedding and the
+    head: 1,085,287,424 params) in float32, TF32 off: 64-token prefill
+    logits on the card within 1e-3 of the CPU's, the MoE aux loss within
+    1e-4 relative, and the absorbed prefill into a cache within 1e-3 of
+    the expanded prefill on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_cache, materialize_params
+    from repro_torch.pytree import tree_leaves, tree_map
+
+    cfg = get_config("deepseek-v2-lite-16b").scaled(
+        n_units=1, compute_dtype="float32")
+    params, _ = materialize_params(
+        cfg, torch.Generator(device=cuda).manual_seed(5), cuda)
+    assert sum(t.numel() for t in tree_leaves(params)) == 1_085_287_424
+    on_cpu = tree_map(lambda t: t.cpu(), params)
+    toks = torch.as_tensor(np.random.RandomState(6).randint(
+        0, cfg.vocab_size, (1, 64)), dtype=torch.int32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want, w_ex, _ = forward(cfg, on_cpu, {"tokens": toks})
+            got, g_ex, _ = forward(cfg, params, {"tokens": toks.to(cuda)})
+            absorbed, _, cache = forward(
+                cfg, params, {"tokens": toks.to(cuda)},
+                cache=init_cache(cfg, 1, 128, torch.float32, cuda))
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=0, atol=1e-3)
+        np.testing.assert_allclose(float(g_ex["aux_loss"]),
+                                   float(w_ex["aux_loss"]), rtol=1e-4)
+        np.testing.assert_allclose(absorbed.cpu().numpy(),
+                                   got.cpu().numpy(), rtol=0, atol=1e-3)
+        assert cache["units"]["0"]["pos"].tolist() == [64]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

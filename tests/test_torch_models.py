@@ -21,6 +21,7 @@ configs; of the bf16 layer cases only the MLP differs, by 2.0e-3.
 """
 import dataclasses
 import hashlib
+import math
 import os
 import subprocess
 import sys
@@ -51,8 +52,9 @@ SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 CPU = torch.device("cpu")
 DENSE = ("smollm-360m", "yi-6b", "minitron-8b", "granite-3-2b",
          "musicgen-large", "pixtral-12b")
-NOT_DENSE = ("deepseek-v2-lite-16b", "deepseek-v3-671b",
-             "jamba-1.5-large-398b", "mamba2-370m")
+DEEPSEEK = ("deepseek-v2-lite-16b", "deepseek-v3-671b")
+SERVED = DENSE + DEEPSEEK
+NOT_DENSE = ("jamba-1.5-large-398b", "mamba2-370m")
 F32 = dict(rtol=1e-5, atol=1e-5)
 LOGITS_F32 = dict(rtol=0, atol=1e-4)
 BF16 = dict(rtol=5e-2, atol=5e-2)
@@ -150,7 +152,7 @@ MESHES = (
 )
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_logical_to_spec_matches_reference(arch):
     """Entry for entry over fake meshes, with and without the shapes
     (smollm's 15 / 5 heads and granite's 49,155 vocab on a 16-wide model
@@ -546,10 +548,11 @@ def test_params_from_materialized_reference(reference_smollm):
     assert tc["units"]["0"]["pos"].dtype == torch.int32
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_abstract_params_and_count(arch):
     """Full configs on the meta device: shapes, dtypes and axes leaf for
-    leaf, and the analytic parameter counts."""
+    leaf (DeepSeek's MLA and MoE layers and V3's ``mtp`` params too), and
+    the analytic parameter counts, total and active."""
     cfg = JC.get_config(arch)
     shapes, axes = JM.abstract_params(cfg)
     t_shapes, t_axes = TM.abstract_params(TC.get_config(arch))
@@ -567,14 +570,16 @@ def test_abstract_params_and_count(arch):
         JM.count_params_analytic(cfg, active_only=True)
     if arch == "smollm-360m":
         assert n == 361_821_120
+    if arch == "deepseek-v2-lite-16b":
+        assert n == 15_706_484_224
     assert jax.tree.leaves(JM.cache_axes(cfg), is_leaf=_axes_leaf) == \
         tree_leaves(TM.cache_axes(TC.get_config(arch)))
 
 
 @pytest.mark.parametrize("arch", NOT_DENSE)
 def test_other_mixers_raise_naming_roadmap(arch):
-    """MLA, MoE and Mamba layers are not ported: every entry point raises,
-    naming the ROADMAP.md item; nothing falls back to another mixer."""
+    """Mamba layers are not ported: every entry point raises, naming the
+    ROADMAP.md item; nothing falls back to another mixer."""
     for cfg in (TC.get_config(arch), TC.get_reduced_config(arch)):
         for call in (lambda: TM.abstract_params(cfg),
                      lambda: TM.count_params_analytic(cfg),
@@ -614,6 +619,40 @@ def test_port_init_is_reproducible_and_resident():
             TM.init_cache(cfg, 1, 8)
         with pytest.raises(RuntimeError):
             TM.materialize_params(cfg, torch.Generator().manual_seed(0))
+
+
+def test_dense_init_scales_in_place():
+    """``dense_init`` divides its float32 draw in place: the reduced
+    smollm weights equal ``randn(shape) / sqrt(fan)`` drawn from the same
+    seed in the same order, bit for bit."""
+    cfg = TC.get_reduced_config("smollm-360m")
+    params, _ = TM.materialize_params(cfg, torch.Generator().manual_seed(3),
+                                      CPU)
+    gen = torch.Generator().manual_seed(3)
+
+    def draw(shape, fan):
+        return torch.randn(shape, generator=gen, dtype=torch.float32) / \
+            math.sqrt(fan)
+
+    d, f, u = cfg.d_model, cfg.d_ff, (cfg.n_units,)
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    want = {"embed": draw((cfg.vocab_size, d), d)}
+    if not cfg.tie_embeddings:
+        want["lm_head"] = draw((d, cfg.vocab_size), d)
+    unit = params["units"]["0"]
+    for name, shape, fan in (("wq", (d, h, hd), d), ("wk", (d, kv, hd), d),
+                             ("wv", (d, kv, hd), d),
+                             ("wo", (h, hd, d), h * hd)):
+        assert torch.equal(unit["mixer"][name], draw(u + shape, fan)), name
+    for name, shape, fan in (("wi", (d, f), d), ("wg", (d, f), d),
+                             ("wo", (f, d), f)):
+        assert torch.equal(unit["ffn"][name], draw(u + shape, fan)), name
+    for name, w in want.items():
+        assert torch.equal(params[name], w), name
+    t = torch.randn(1000, generator=torch.Generator().manual_seed(4))
+    assert torch.equal(TL.dense_init(torch.Generator().manual_seed(4),
+                                     (1000,), torch.float32, fan_in=7),
+                       t / math.sqrt(7))
 
 
 _INIT_DIGEST = r"""
