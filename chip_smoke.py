@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's batched query path, its rule
 construction path, its path-compressed, quantized and seed layouts, its
 streaming tries, its serve loop, its sharded trie, its launch profiler
-and its LM serving path (dense, then MLA + MoE) on one NVIDIA GPU.
+and its LM serving path (dense, then MLA + MoE, then Mamba2 and Jamba's
+hybrid unit) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--edges N] [--seed S] [--reps R]
 
@@ -176,7 +177,28 @@ and its LM serving path (dense, then MLA + MoE) on one NVIDIA GPU.
    ms (dense and dispatch at ep = 1), decode ms a token and tokens/s at
    batch 1 and 8, resident bytes and the decode bound.  No kernel of its
    own.
-14. Prints the GPU's name and power limit, one ``{"kernels": [...]}``
+14. Mamba2 (``[mamba]``): mamba2-370m at full width and depth (48
+   Mamba2 layers, d_model 1024, 32 SSD heads of 64, d_state 128, chunk
+   256, vocab 50,280, 368,338,432 params), f32 weights drawn on the card
+   from --seed, through ``materialize_params``, ``init_cache`` and
+   ``serve.engine.greedy_generate``.  (a) In f32 (TF32 off), 64-token
+   prefill logits on the card within 1e-3 of a CPU copy's; (b) in f32,
+   a 256-token chunked prefill into an empty f32 cache against the same
+   tokens as 256 one-token decode steps (the recurrence): the last logits
+   within 1e-3, the SSM state within 1e-4 of its max |state| in the first
+   4 layers and 1e-3 in all 48 (f32 rounding grows with depth; the
+   chunked prefill on a CPU copy is measured beside it);
+   (c) in the config's bf16 compute and cache, greedy tokens at batch 1
+   and 8, prefill ms of 512 tokens (the chunked SSD) and of 256 against
+   255 (the recurrence, one step a token), decode ms a token and
+   tokens/s at batch 1 and 8 (64 greedy steps), resident bytes, the
+   decode bound and a profiler trace of three decode steps; (d) Jamba's
+   reduced hybrid unit (attention, then 7 Mamba layers, the dense MoE on
+   odd layers) in f32 on the card against a CPU copy: a 16-token prefill
+   (the chunked path), a 5-token and a 1-token decode (the recurrence),
+   logits within 1e-3, the aux loss within 1e-6 relative, ``pos`` equal.
+   No kernel of its own.
+15. Prints the GPU's name and power limit, one ``{"kernels": [...]}``
    line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result when CUDA is unavailable or any phase fails.
@@ -3566,9 +3588,10 @@ def lm_phase(args, dev, smi):
     log(f"[lm] phase done in {time.perf_counter() - t0:.1f} s")
 
 
-def lm_prefill_ms(cfg, params, dev, stream, n_prompt, max_seq):
+def lm_prefill_ms(cfg, params, dev, stream, n_prompt, max_seq, reps=5,
+                  warmup=1):
     """Prefill ms of ``n_prompt`` tokens at batch 1 into a cache (CUDA
-    events, median of 5 after one warm-up)."""
+    events, median of ``reps`` after ``warmup`` calls)."""
     import torch
     from repro_torch.models import init_cache
     from repro_torch.serve import make_prefill_step
@@ -3576,20 +3599,20 @@ def lm_prefill_ms(cfg, params, dev, stream, n_prompt, max_seq):
     prefill = make_prefill_step(cfg)
     prompt = torch.as_tensor(stream[:n_prompt][None], device=dev)
     cache = init_cache(cfg, 1, max_seq, device=dev)
-    return cuda_ms(lambda: prefill(params, cache, {"tokens": prompt}), 5,
-                   warmup=1)
+    return cuda_ms(lambda: prefill(params, cache, {"tokens": prompt}), reps,
+                   warmup=warmup)
 
 
-def lm_decode_ms(cfg, params, dev, stream, b, n_prompt, max_seq):
+def lm_decode_ms(cfg, params, dev, stream, b, n_prompt, max_seq,
+                 n_dec=LM_TIMED_STEPS):
     """Decode ms a token at batch ``b`` after an ``n_prompt``-token
-    prefill (CUDA events over LM_TIMED_STEPS greedy steps, median of 3
-    runs), and the cache's resident bytes."""
+    prefill (CUDA events over ``n_dec`` greedy steps, median of 3 runs),
+    and the cache's resident bytes."""
     import torch
     from repro_torch.models import init_cache
     from repro_torch.serve import make_decode_step, make_prefill_step
 
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
-    n_dec = LM_TIMED_STEPS
     rows = torch.as_tensor(stream[:b * n_prompt].reshape(b, n_prompt),
                            device=dev)
     times = []
@@ -3609,15 +3632,16 @@ def lm_decode_ms(cfg, params, dev, stream, b, n_prompt, max_seq):
     return statistics.median(times), tree_bytes(cache)
 
 
-def lm_timings(cfg, params, dev, stream, n_prompt, max_seq):
-    """Prefill ms, then decode ms a token, tokens/s and cache bytes at
-    each of LM_BATCHES."""
+def lm_timings(cfg, params, dev, stream, n_prompt, max_seq,
+               n_dec=LM_TIMED_STEPS):
+    """Prefill ms, then decode ms a token (over ``n_dec`` steps),
+    tokens/s and cache bytes at each of LM_BATCHES."""
     line = {"prefill_ms": lm_prefill_ms(cfg, params, dev, stream, n_prompt,
                                         max_seq),
             "prefill_tokens": n_prompt}
     for b in LM_BATCHES:
         ms, c_bytes = lm_decode_ms(cfg, params, dev, stream, b, n_prompt,
-                                   max_seq)
+                                   max_seq, n_dec)
         line[f"decode_ms_b{b}"] = ms
         line[f"tokens_per_s_b{b}"] = b * 1e3 / ms
         line[f"cache_bytes_b{b}"] = c_bytes
@@ -3903,6 +3927,286 @@ def ds_phase(args, dev, smi):
     del params
     torch.cuda.empty_cache()
     log(f"[deepseek] phase done in {time.perf_counter() - t0:.1f} s")
+
+
+# the Mamba phase: mamba2-370m (SSD) at full width and depth, then
+# Jamba's hybrid unit at its reduced widths
+MAMBA_ARCH = "mamba2-370m"
+JAMBA_ARCH = "jamba-1.5-large-398b"
+MAMBA_SIZES = dict(prompt=512,   # the chunked prefill: 2 chunks of 256
+                   decode=64, max_seq=1024, xdev=64,
+                   state=256,    # (b): one full chunk, against 256 steps
+                   recurrent=255,  # a prompt off the chunk: the recurrence
+                   corpus_docs=200)
+# chunked vs recurrent state, of max |state|: in the first MAMBA_SHALLOW
+# layers, and in all of them (f32 rounding of the reference's SSD grows
+# with depth through the random-weight stack: float64 puts the two
+# branches together, tests/test_torch_mamba.py::test_ssd_duality_float64)
+MAMBA_STATE_RTOL = 1e-4
+MAMBA_SHALLOW = 4
+MAMBA_DEEP_RTOL = 1e-3
+JAMBA_AUX_RTOL = 1e-6         # card vs CPU aux loss, f32
+JAMBA_STEPS = (16, 5, 1)      # prefill (chunked), then two decode steps
+
+
+def mamba_xdev(cfg32, params, cpu_params, dev, x, label):
+    """(a) f32 prefill logits of ``x`` (no cache) on ``dev`` against the
+    CPU copy within LM_XDEV_TOL."""
+    import torch
+    from repro_torch.models import forward
+
+    with torch.inference_mode():
+        on_dev, _, _ = forward(cfg32, params, {"tokens": x.to(dev)})
+        on_cpu, _, _ = forward(cfg32, cpu_params, {"tokens": x})
+    err = float((on_dev.cpu().double() - on_cpu.double()).abs().max())
+    finite = bool(torch.isfinite(on_dev).all())
+    log(f"[{label} xdev] f32 prefill logits of {x.shape[1]} tokens "
+        f"{tuple(on_dev.shape)}, {dev} against the CPU: max abs err "
+        f"{err:.3e} (limit {LM_XDEV_TOL})")
+    if not finite or not err <= LM_XDEV_TOL:
+        raise AssertionError(f"{label}: {dev} and CPU logits differ by "
+                             f"{err} (finite {finite})")
+    return err
+
+
+def mamba_duality(cfg32, params, cpu_params, dev, x, max_seq, label):
+    """(b) In f32 (cache too): ``x`` [1, n] as one chunked prefill into an
+    empty cache (n a multiple of the chunk) against n one-token decode
+    steps into another (the recurrence): the last logits within
+    LM_XDEV_TOL; each layer's SSM state within MAMBA_STATE_RTOL of its
+    max |state| in the first MAMBA_SHALLOW layers and within
+    MAMBA_DEEP_RTOL in every layer.  Beside it, the same chunked prefill
+    on the CPU copy against the card's: the f32 rounding of one branch,
+    layer by layer."""
+    import torch
+    from repro_torch.models import decode_step, forward, init_cache
+
+    n = x.shape[1]
+    if n % cfg32.ssm.chunk:
+        raise ValueError(f"{label}: {n} tokens are not whole chunks of "
+                         f"{cfg32.ssm.chunk}")
+    t0 = time.perf_counter()
+
+    def chunked(p, where):
+        return forward(cfg32, p, {"tokens": x.to(where)},
+                       cache=init_cache(cfg32, 1, max_seq, torch.float32,
+                                        where), logits_mode="last")
+
+    with torch.inference_mode():
+        logits, _, c_chunk = chunked(params, dev)
+        c_rec = init_cache(cfg32, 1, max_seq, torch.float32, dev)
+        for i in range(n):
+            step, c_rec = decode_step(cfg32, params, c_rec, x[:, i:i + 1])
+        _, _, c_cpu = chunked(cpu_params, torch.device("cpu"))
+    torch.cuda.synchronize()
+    err = float((logits[:, -1].double() - step[:, -1].double()).abs().max())
+
+    def per_layer(got, want):
+        """max |got - want| over max |want|, layer by layer."""
+        a, b = (c["units"]["0"]["ssm"].double().cpu() for c in (got, want))
+        return (a - b).flatten(1).abs().amax(1) / b.flatten(1).abs().amax(1)
+
+    rel, xdev = per_layer(c_rec, c_chunk), per_layer(c_chunk, c_cpu)
+    win = max(float((c_chunk["units"]["0"][k].double()
+                     - c_rec["units"]["0"][k].double()).abs().max())
+              for k in ("conv_x", "conv_b", "conv_c"))
+    shallow = float(rel[:MAMBA_SHALLOW].max())
+
+    def show(r):
+        return (f"first {MAMBA_SHALLOW} layers "
+                f"{['%.2e' % v for v in r[:MAMBA_SHALLOW].tolist()]}, median "
+                f"{float(r.median()):.3e}, max {float(r.max()):.3e} at "
+                f"layer {int(r.argmax())}")
+
+    log(f"[{label} duality] f32, {n} tokens as one chunked prefill "
+        f"(chunk {cfg32.ssm.chunk}) against {n} one-token decode steps "
+        f"(the recurrence): last logits max abs err {err:.3e} (limit "
+        f"{LM_XDEV_TOL}); SSM state max err over max |state|: "
+        f"{show(rel)} (limits {MAMBA_STATE_RTOL} for the first "
+        f"{MAMBA_SHALLOW}, {MAMBA_DEEP_RTOL} for all {len(rel)}); conv "
+        f"windows max abs err {win:.3e}; the chunked prefill on the CPU "
+        f"against the card's, the same measure: {show(xdev)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not err <= LM_XDEV_TOL or not shallow <= MAMBA_STATE_RTOL or \
+            not float(rel.max()) <= MAMBA_DEEP_RTOL:
+        raise AssertionError(f"{label}: chunked and recurrent differ: "
+                             f"logits by {err}, state by {shallow} in the "
+                             f"first {MAMBA_SHALLOW} layers, "
+                             f"{float(rel.max())} in all")
+    return {"duality_logit_err": err, "duality_state_rel_err_shallow":
+            shallow, "duality_state_rel_err": float(rel.max()),
+            "chunked_xdev_state_rel_err": float(xdev.max())}
+
+
+def jamba_checks(dev, seed, label="jamba"):
+    """(d) Jamba's reduced hybrid unit (attention at layer 0, Mamba at
+    1-7, the dense MoE on odd layers), f32 compute and cache, weights
+    drawn on the card from ``seed``, against a CPU copy: a prefill of
+    JAMBA_STEPS[0] tokens (the chunked path), then decode steps of the
+    rest (the recurrence): logits within LM_XDEV_TOL at every step, the
+    prefill's aux loss within JAMBA_AUX_RTOL, ``pos`` equal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import (
+        cache_position, forward, init_cache, materialize_params,
+    )
+    from repro_torch.pytree import tree_leaves, tree_map
+
+    cfg = get_reduced_config(JAMBA_ARCH).scaled(compute_dtype="float32")
+    params, _ = materialize_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    toks = torch.as_tensor(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (2, sum(JAMBA_STEPS))), dtype=torch.int32)
+    out = []
+    for where, p in ((dev, params), (torch.device("cpu"), cpu_params)):
+        cache = init_cache(cfg, 2, 64, torch.float32, where)
+        logits, aux, lo = [], None, 0
+        with torch.inference_mode():
+            for n in JAMBA_STEPS:
+                lg, ex, cache = forward(
+                    cfg, p, {"tokens": toks[:, lo:lo + n].to(where)},
+                    cache=cache)
+                logits.append(lg.cpu().double())
+                aux = float(ex["aux_loss"]) if aux is None else aux
+                lo += n
+        out.append((logits, aux, int(cache_position(cache)), cache))
+    (g, g_aux, g_pos, g_c), (w, w_aux, w_pos, w_c) = out
+    errs = [float((a - b).abs().max()) for a, b in zip(g, w)]
+    aux_err = abs(g_aux - w_aux) / abs(w_aux)
+    state_err = max(float((a.cpu().double() - b.double()).abs().max())
+                    for a, b in zip(tree_leaves(g_c), tree_leaves(w_c)))
+    finite = all(bool(torch.isfinite(a).all()) for a in g)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[{label}] reduced {JAMBA_ARCH} ({cfg.n_layers} layers: "
+        f"{[s.mixer + '+' + s.ffn for s in cfg.unit]}, d_model "
+        f"{cfg.d_model}, {n_params} params), f32, {dev} against the CPU: "
+        f"logits max abs err {['%.3e' % e for e in errs]} over steps of "
+        f"{list(JAMBA_STEPS)} tokens (limit {LM_XDEV_TOL}); aux loss "
+        f"{g_aux:.6f} against {w_aux:.6f}, rel err {aux_err:.3e} (limit "
+        f"{JAMBA_AUX_RTOL}); pos {g_pos} / {w_pos}; cache leaves max abs "
+        f"err {state_err:.3e}")
+    if not finite or not max(errs) <= LM_XDEV_TOL or \
+            not aux_err <= JAMBA_AUX_RTOL or g_pos != w_pos or \
+            g_pos != sum(JAMBA_STEPS):
+        raise AssertionError(f"{label}: {dev} and CPU differ: logits by "
+                             f"{errs} (finite {finite}), aux by {aux_err}, "
+                             f"pos {g_pos} / {w_pos}")
+    return {"jamba_logit_err": max(errs), "jamba_aux_err": aux_err}
+
+
+def mamba_checks(cfg, params, dev, cpu_params, sizes, seed, label="mamba"):
+    """The phase's checks on ``params`` (f32) on ``dev``, TF32 off: (a)
+    ``mamba_xdev`` on ``sizes["xdev"]`` tokens, (b) ``mamba_duality`` on
+    ``sizes["state"]``, (d) ``jamba_checks``.  Raises on a failed check;
+    returns what it measured."""
+    import torch
+
+    _, stream = lm_token_stream(sizes["corpus_docs"], seed)
+    cfg32 = cfg.scaled(compute_dtype="float32")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = {"xdev_err": mamba_xdev(
+            cfg32, params, cpu_params, dev,
+            torch.as_tensor(stream[:sizes["xdev"]][None]), label)}
+        x = torch.as_tensor(stream[:sizes["state"]][None], device=dev)
+        res.update(mamba_duality(cfg32, params, cpu_params, dev, x,
+                                 sizes["max_seq"], label))
+        res.update(jamba_checks(dev, seed))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return res
+
+
+def mamba_greedy(cfg, params, dev, stream, n_prompt, n_dec, max_seq):
+    """``greedy_generate`` of ``n_dec`` tokens after an ``n_prompt``-token
+    prompt at batch 1 and 8 (the batch-8 rows cut from the stream, row 0
+    the batch-1 prompt): tokens in the vocabulary, and the share of steps
+    where batch 8's row 0 picks batch 1's token."""
+    import numpy as np
+    from repro_torch.models import init_cache
+    from repro_torch.serve.engine import greedy_generate
+
+    toks = {}
+    for b in LM_BATCHES:
+        rows = stream[:b * n_prompt].reshape(b, n_prompt)
+        out, _ = greedy_generate(cfg, params, init_cache(
+            cfg, b, max_seq, device=dev), rows, n_dec)
+        toks[b] = out.cpu().numpy()
+        if toks[b].shape != (b, n_dec) or toks[b].min() < 0 or \
+                toks[b].max() >= cfg.vocab_size:
+            raise AssertionError(f"greedy tokens at batch {b}: shape "
+                                 f"{toks[b].shape}, range {toks[b].min()}-"
+                                 f"{toks[b].max()}")
+    return float(np.mean(toks[LM_BATCHES[0]][0] == toks[LM_BATCHES[-1]][0]))
+
+
+def mamba_phase(args, dev, smi):
+    """mamba2-370m at full width and depth on the card: random f32
+    weights drawn on the card from a generator seeded by --seed.  The
+    checks of ``mamba_checks``; then, in the config's bf16 compute and
+    cache, ``greedy_generate`` at batch 1 and 8, prefill ms of 512 tokens
+    (the chunked SSD, CUDA events, median of 5), decode ms a token and
+    tokens/s at batch 1 and 8 (64 greedy steps, median of 3 runs), a
+    prompt of 255 tokens against 256 (the recurrence against one chunk),
+    the resident bytes of params and cache, the decode bound, and a
+    profiler trace of three decode steps (``lm_decode_trace``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, materialize_params
+    from repro_torch.pytree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    cfg = get_config(MAMBA_ARCH)
+    params, _ = materialize_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    p_bytes = tree_bytes(params)
+    s = cfg.ssm
+    log(f"[mamba] {MAMBA_ARCH}: {cfg.n_layers} Mamba2 layers, d_model "
+        f"{cfg.d_model}, d_inner {s.expand * cfg.d_model}, "
+        f"{s.expand * cfg.d_model // s.head_dim} SSD heads of "
+        f"{s.head_dim}, d_state {s.d_state}, chunk {s.chunk}, vocab "
+        f"{cfg.vocab_size}; {n_params} params, {p_bytes} resident bytes "
+        f"({cfg.param_dtype}); built in {time.perf_counter() - t0:.1f} s")
+    res = mamba_checks(cfg, params, dev, cpu_params, MAMBA_SIZES, args.seed)
+    del cpu_params
+    log(f"[mamba] checks done in {time.perf_counter() - t0:.1f} s")
+
+    _, stream = lm_token_stream(MAMBA_SIZES["corpus_docs"], args.seed)
+    n_prompt, max_seq = MAMBA_SIZES["prompt"], MAMBA_SIZES["max_seq"]
+    n_dec = MAMBA_SIZES["decode"]
+    agree = mamba_greedy(cfg, params, dev, stream, n_prompt, n_dec, max_seq)
+    line = lm_timings(cfg, params, dev, stream, n_prompt, max_seq, n_dec)
+    # one chunk, then a token fewer: the recurrence, one step a token
+    n_rec = MAMBA_SIZES["recurrent"]
+    line[f"prefill_ms_{n_rec + 1}"] = lm_prefill_ms(
+        cfg, params, dev, stream, n_rec + 1, max_seq)
+    line[f"prefill_ms_{n_rec}"] = lm_prefill_ms(
+        cfg, params, dev, stream, n_rec, max_seq, reps=1, warmup=0)
+    # one decode step reads every f32 weight once and writes its bf16 cast
+    bound_ms = (p_bytes + p_bytes // 2) / HBM_BYTES_PER_S * 1e3
+    line.update(param_bytes=p_bytes, decode_bound_ms_b1=bound_ms,
+                greedy_row0_agree_b1_b8=agree, **res)
+    log(f"[mamba ms] {smi}: " + json.dumps(line))
+    trace = lm_decode_trace(cfg, params, dev, stream, n_prompt, max_seq)
+    trace["launches_per_layer"] = trace["launches_per_step"] / cfg.n_layers
+    log(f"[mamba trace] {smi}: 3 decode steps at batch 1: "
+        + json.dumps(trace))
+    cache_b1 = tree_bytes(init_cache(cfg, 1, max_seq, device=dev))
+    if p_bytes != 4 * n_params or line["cache_bytes_b1"] != cache_b1 or \
+            line["cache_bytes_b8"] != 8 * cache_b1:
+        raise AssertionError(f"mamba: resident bytes {p_bytes}, cache "
+                             f"{line['cache_bytes_b1']} / "
+                             f"{line['cache_bytes_b8']} (one batch row "
+                             f"{cache_b1})")
+    del params
+    torch.cuda.empty_cache()
+    log(f"[mamba] phase done in {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -4211,6 +4515,9 @@ def main():
 
     # -- 14. MLA and MoE: DeepSeek-V2-Lite-16B at full width and depth ---
     ds_phase(args, dev, smi)
+
+    # -- 15. Mamba2: mamba2-370m at full width and depth, Jamba's unit ----
+    mamba_phase(args, dev, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

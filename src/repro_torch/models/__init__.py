@@ -1,5 +1,5 @@
-"""The decoder LM of the port: ``repro.models`` without Mamba and the
-training loss (attention and MLA mixers, SwiGLU MLPs and MoE FFNs, stub
+"""The decoder LM of the port: ``repro.models`` without the training
+loss (attention, MLA and Mamba2 mixers, SwiGLU MLPs and MoE FFNs, stub
 frontends, DeepSeek-V3's ``mtp`` params), with ``DecoderLM``, a module
 that owns a parameter tree, and ``convert``, which carries the
 reference's parameters and caches across as numpy trees."""

@@ -5,7 +5,10 @@ process (it folds ``hash(name)`` into its keys), so the port is held to
 the reference on the reference's own weights: take its tree with numpy
 leaves (``jax.tree.map(np.asarray, params)``) and rebuild it here as
 torch tensors.  The two trees have one structure, leaf for leaf.  bf16
-leaves (numpy's ``bfloat16`` from ``ml_dtypes``) keep their bits.
+leaves (numpy's ``bfloat16`` from ``ml_dtypes``) keep their bits, and
+every leaf keeps its dtype: Mamba's float32 ``a_log``, ``dt_bias`` and
+``d_skip`` beside bf16 params, its bf16 conv windows beside its float32
+``ssm`` state in a cache.
 """
 from __future__ import annotations
 

@@ -16,14 +16,16 @@ Entry points:
   init_cache(cfg, batch, max_seq)       → decode cache tree
   decode_step(cfg, params, cache, tokens) → (logits, new cache)
 
-Mixers: GQA attention (``layers``) and MLA (``mla``); FFNs: the SwiGLU
-MLP and the MoE (``moe``), whose aux loss ``forward`` sums into
-``extras["aux_loss"]``.  A ``mamba`` layer raises ``NotImplementedError``
-naming the ROADMAP.md item that ports it; nothing falls back to another
-mixer.  ``loss_fn`` (with the ``mtp`` head's loss) waits for the training
-slice.  A decode step writes its keys and values (MLA: its latents) into
-the cache's buffers in place (the cache is consumed, as the reference's
-jitted decode donates it) and returns a cache with new position counters.
+Mixers: GQA attention (``layers``), MLA (``mla``) and the Mamba2 SSD
+block (``mamba``); FFNs: the SwiGLU MLP and the MoE (``moe``), whose aux
+loss ``forward`` sums into ``extras["aux_loss"]``.  An unknown mixer or
+FFN raises ``ValueError``.  ``loss_fn`` (with the ``mtp`` head's loss)
+waits for the training slice.  A decode step writes its keys and values
+(MLA: its latents; Mamba: its conv windows and SSM state) into the
+cache's buffers in place (the cache is consumed, as the reference's
+jitted decode donates it) and returns a cache with new position
+counters.  A pure-SSM cache has no position counter: its position reads
+0, as the reference's.
 """
 from __future__ import annotations
 
@@ -52,22 +54,18 @@ from .layers import (
     split_pv,
     torch_dtype,
 )
+from .mamba import init_mamba, init_mamba_cache, mamba_block, mamba_cache_axes
 from .mla import init_mla, init_mla_cache, mla_attention, mla_cache_axes
 from .moe import init_moe, moe
 
-# layer kinds of the reference that the port does not run yet, and the
-# ROADMAP.md item that ports each
-NOT_PORTED = {
-    "mamba": "ROADMAP.md Queue 1 item 2 (models/mamba.py)",
-}
+# each mixer's parameter init and cache axes
+MIXER_INIT = {"attn": init_attention, "mla": init_mla, "mamba": init_mamba}
+MIXER_CACHE_AXES = {"attn": attention_cache_axes, "mla": mla_cache_axes,
+                    "mamba": mamba_cache_axes}
 
 
-def _require_ported(spec: LayerSpec):
-    for kind in (spec.mixer, spec.ffn):
-        if kind in NOT_PORTED:
-            raise NotImplementedError(
-                f"layer {spec} is not ported yet: {NOT_PORTED[kind]}")
-    if spec.mixer not in ("attn", "mla"):
+def _check_spec(spec: LayerSpec):
+    if spec.mixer not in MIXER_INIT:
         raise ValueError(spec.mixer)
     if spec.ffn not in ("mlp", "moe", "none"):
         raise ValueError(spec.ffn)
@@ -78,11 +76,10 @@ def _require_ported(spec: LayerSpec):
 # ----------------------------------------------------------------------
 def _init_layer(key, cfg: ModelConfig, spec: LayerSpec, lead=()):
     """Draws the mixer's leaves, then the FFN's."""
-    _require_ported(spec)
+    _check_spec(spec)
     p: Dict[str, Any] = {
         "ln_mix": init_rmsnorm(key, cfg.d_model, None, lead=lead),
-        "mixer": (init_attention if spec.mixer == "attn" else init_mla)(
-            key, cfg, lead=lead),
+        "mixer": MIXER_INIT[spec.mixer](key, cfg, lead=lead),
     }
     if spec.ffn != "none":
         p["ln_ffn"] = init_rmsnorm(key, cfg.d_model, None, lead=lead)
@@ -107,7 +104,7 @@ def init_model(cfg: ModelConfig, key, device=None) -> Dict[str, Any]:
     FFN's, each in its module's stated order.  Norm scales are ones."""
     dev = torch.device("meta") if key is None else resolve_device(device)
     for spec in cfg.layer_specs():
-        _require_ported(spec)
+        _check_spec(spec)
     dt = torch_dtype(cfg.param_dtype)
     params: Dict[str, Any] = {
         "embed": pv(
@@ -163,13 +160,16 @@ def _apply_layer(cfg, spec: LayerSpec, p, h, positions, segment_ids, cache):
     """One residual block; returns (h, new_cache, aux): ``aux`` is the
     MoE's aux loss, or ``None`` for a layer without one (the reference's
     zero, which adds nothing to a sum)."""
-    _require_ported(spec)
+    _check_spec(spec)
     aux = None
     mix_in = rmsnorm(h, p["ln_mix"], cfg.norm_eps)
-    mix_out, new_cache = (attention if spec.mixer == "attn"
-                          else mla_attention)(
-        cfg, p["mixer"], mix_in, positions, segment_ids, cache
-    )
+    if spec.mixer == "mamba":
+        mix_out, new_cache = mamba_block(cfg, p["mixer"], mix_in, cache)
+    else:
+        mix_out, new_cache = (attention if spec.mixer == "attn"
+                              else mla_attention)(
+            cfg, p["mixer"], mix_in, positions, segment_ids, cache
+        )
     h = h + mix_out
     if spec.ffn != "none":
         f_in = rmsnorm(h, p["ln_ffn"], cfg.norm_eps)
@@ -315,17 +315,16 @@ def unembed(cfg, params, h):
 # ----------------------------------------------------------------------
 def _layer_cache(cfg, spec: LayerSpec, batch, max_seq, dtype, device,
                  lead=()):
-    _require_ported(spec)
-    if spec.mixer == "mla":
-        return init_mla_cache(cfg, batch, max_seq, dtype, device, lead)
-    return init_attention_cache(cfg, batch, max_seq, dtype, device, lead)
+    _check_spec(spec)
+    if spec.mixer == "mamba":
+        return init_mamba_cache(cfg, batch, dtype, device, lead)
+    init = init_mla_cache if spec.mixer == "mla" else init_attention_cache
+    return init(cfg, batch, max_seq, dtype, device, lead)
 
 
 def _layer_cache_axes(spec: LayerSpec):
-    _require_ported(spec)
-    if spec.mixer == "mla":
-        return mla_cache_axes()
-    return attention_cache_axes()
+    _check_spec(spec)
+    return MIXER_CACHE_AXES[spec.mixer]()
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -376,7 +375,9 @@ def cache_position(cache) -> torch.Tensor:
 
     ``pos`` counters are int32 scalars in the prefix and suffix layers and
     [n_units] vectors inside the stacked unit cache (every unit holds the
-    same value); the first in the reference's leaf order answers."""
+    same value); the first in the reference's leaf order answers (Jamba:
+    its attention layer's).  A cache with none (pure SSM: Mamba's windows
+    and state are floats) answers 0."""
     for v in tree_leaves(cache):
         if integer_leaf(v):
             if v.ndim == 0:

@@ -1,5 +1,5 @@
 """Serving steps: prefill (populate cache, last-token logits) and decode
-(one token per step against the KV cache).
+(one token per step against the KV/SSM cache).
 
 PyTorch port of ``repro.serve.engine``.  Both steps are functions of
 (params, cache, tokens) that run under ``torch.inference_mode()``; the

@@ -112,9 +112,12 @@ def _rewind(cache, k: int):
     beyond the position are never attended (the causal mask is
     position-based), so no scrubbing is needed.
 
-    NOTE: only attention caches are rewindable; SSM (Mamba) state has
-    already advanced and would need snapshotting — spec-decode therefore
-    targets attention-family architectures."""
+    NOTE: only attention/MLA caches are rewindable; SSM (Mamba) state
+    and conv windows have already advanced and would need snapshotting —
+    spec-decode therefore targets attention-family architectures.  On an
+    SSM (or Jamba's hybrid) the port keeps the reference's behaviour: the
+    float leaves stay as the verify step left them, so its output can
+    differ from greedy decoding."""
     def fix(x):
         if integer_leaf(x) and x.ndim <= 1:
             return x - k

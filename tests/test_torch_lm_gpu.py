@@ -121,3 +121,76 @@ def test_deepseek_two_layer_slice_on_gpu_equals_cpu(cuda):
         assert cache["units"]["0"]["pos"].tolist() == [64]
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _ssm_serve(cfg, params, dev, toks):
+    """Logits of a no-cache prefill, a 16-token prefill into a float32
+    cache (the chunked branch), a 5-token and a 1-token decode (the
+    recurrence), 8 greedy tokens, and the final cache, on ``dev``."""
+    from repro_torch.models import decode_step, forward, init_cache
+    from repro_torch.serve.engine import greedy_generate
+
+    t = torch.as_tensor(toks, dtype=torch.int32, device=dev)
+    cache = init_cache(cfg, 2, 64, torch.float32, dev)
+    with torch.inference_mode():
+        outs = [forward(cfg, params, {"tokens": t[:, :16]})[0]]
+        logits, extras, cache = forward(cfg, params, {"tokens": t[:, :16]},
+                                        cache=cache)
+        outs.append(logits)
+        for lo, hi in ((16, 21), (21, 22)):
+            logits, cache = decode_step(cfg, params, cache, t[:, lo:hi])
+            outs.append(logits)
+    greedy, _ = greedy_generate(cfg, params, init_cache(
+        cfg, 2, 64, torch.float32, dev), toks[:, :16], 8)
+    return ([o.cpu() for o in outs], float(extras["aux_loss"]),
+            greedy.cpu(), cache)
+
+
+def _ssm_on_gpu_equals_cpu(cuda, arch):
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import cache_position, materialize_params
+    from repro_torch.pytree import tree_leaves, tree_map
+
+    cfg = get_reduced_config(arch).scaled(compute_dtype="float32")
+    params, _ = materialize_params(cfg, torch.Generator().manual_seed(8),
+                                   "cpu")
+    gen = torch.Generator().manual_seed(9)
+    for unit in params["units"].values():     # away from 0 / 0 / 1
+        for k in ("a_log", "dt_bias", "d_skip"):
+            if k in unit["mixer"]:
+                unit["mixer"][k] += 0.3 * torch.randn(
+                    unit["mixer"][k].shape, generator=gen)
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    toks = np.random.RandomState(10).randint(0, cfg.vocab_size, (2, 22))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = _ssm_serve(cfg, params, "cpu", toks)
+        got = _ssm_serve(cfg, on_card, cuda, toks)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for g, w in zip(got[0], want[0]):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-7)
+    assert torch.equal(got[2], want[2])
+    for g, w in zip(tree_leaves(got[3]), tree_leaves(want[3])):
+        assert g.dtype == w.dtype and g.device.type == "cuda"
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
+                                   atol=1e-4)
+    return int(cache_position(got[3]))
+
+
+def test_mamba2_on_gpu_equals_cpu(cuda):
+    """Reduced mamba2-370m in float32, TF32 off, ``a_log`` / ``dt_bias`` /
+    ``d_skip`` moved off their constants: every branch's logits on the
+    card within 1e-4 of the CPU's, the greedy tokens equal, the SSM state
+    and conv windows within 1e-4; the cache position of a pure-SSM cache
+    is 0."""
+    assert _ssm_on_gpu_equals_cpu(cuda, "mamba2-370m") == 0
+
+
+def test_jamba_unit_on_gpu_equals_cpu(cuda):
+    """Reduced Jamba (one unit: attention at layer 0, Mamba at 1-7, the
+    dense MoE on odd layers) in float32: as above, the aux loss within
+    1e-5 relative and the attention layer's ``pos`` 22."""
+    assert _ssm_on_gpu_equals_cpu(cuda, "jamba-1.5-large-398b") == 22

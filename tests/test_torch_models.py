@@ -53,8 +53,8 @@ CPU = torch.device("cpu")
 DENSE = ("smollm-360m", "yi-6b", "minitron-8b", "granite-3-2b",
          "musicgen-large", "pixtral-12b")
 DEEPSEEK = ("deepseek-v2-lite-16b", "deepseek-v3-671b")
-SERVED = DENSE + DEEPSEEK
-NOT_DENSE = ("jamba-1.5-large-398b", "mamba2-370m")
+SSM = ("mamba2-370m", "jamba-1.5-large-398b")
+SERVED = DENSE + DEEPSEEK + SSM
 F32 = dict(rtol=1e-5, atol=1e-5)
 LOGITS_F32 = dict(rtol=0, atol=1e-4)
 BF16 = dict(rtol=5e-2, atol=5e-2)
@@ -551,8 +551,9 @@ def test_params_from_materialized_reference(reference_smollm):
 @pytest.mark.parametrize("arch", SERVED)
 def test_abstract_params_and_count(arch):
     """Full configs on the meta device: shapes, dtypes and axes leaf for
-    leaf (DeepSeek's MLA and MoE layers and V3's ``mtp`` params too), and
-    the analytic parameter counts, total and active."""
+    leaf (DeepSeek's MLA and MoE layers and V3's ``mtp`` params, the Mamba
+    leaves of mamba2-370m and Jamba too), and the analytic parameter
+    counts, total and active."""
     cfg = JC.get_config(arch)
     shapes, axes = JM.abstract_params(cfg)
     t_shapes, t_axes = TM.abstract_params(TC.get_config(arch))
@@ -572,23 +573,13 @@ def test_abstract_params_and_count(arch):
         assert n == 361_821_120
     if arch == "deepseek-v2-lite-16b":
         assert n == 15_706_484_224
+    if arch == "mamba2-370m":
+        assert n == TC.get_config(arch).active_param_count() == 368_338_432
+    if arch == "jamba-1.5-large-398b":
+        assert n == 397_645_855_104
+        assert TC.get_config(arch).active_param_count() == 74_214_685_056
     assert jax.tree.leaves(JM.cache_axes(cfg), is_leaf=_axes_leaf) == \
         tree_leaves(TM.cache_axes(TC.get_config(arch)))
-
-
-@pytest.mark.parametrize("arch", NOT_DENSE)
-def test_other_mixers_raise_naming_roadmap(arch):
-    """Mamba layers are not ported: every entry point raises, naming the
-    ROADMAP.md item; nothing falls back to another mixer."""
-    for cfg in (TC.get_config(arch), TC.get_reduced_config(arch)):
-        for call in (lambda: TM.abstract_params(cfg),
-                     lambda: TM.count_params_analytic(cfg),
-                     lambda: TM.materialize_params(
-                         cfg, torch.Generator().manual_seed(0), CPU),
-                     lambda: TM.init_cache(cfg, 1, 8, device=CPU),
-                     lambda: TM.cache_axes(cfg)):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                call()
 
 
 def test_port_init_is_reproducible_and_resident():
