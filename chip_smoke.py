@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's batched query path, its rule
 construction path, its path-compressed, quantized and seed layouts, its
-streaming tries, its serve loop, its sharded trie, its launch profiler
-and its LM serving path (dense, then MLA + MoE, then Mamba2 and Jamba's
-hybrid unit) on one NVIDIA GPU.
+streaming tries, its serve loop, its sharded trie, its launch profiler,
+its LM serving path (dense, then MLA + MoE, then Mamba2 and Jamba's
+hybrid unit) and its training path on one NVIDIA GPU.
 
     python3 chip_smoke.py [--edges N] [--seed S] [--reps R]
 
@@ -198,18 +198,43 @@ hybrid unit) on one NVIDIA GPU.
    (the chunked path), a 5-token and a 1-token decode (the recurrence),
    logits within 1e-3, the aux loss within 1e-6 relative, ``pos`` equal.
    No kernel of its own.
-15. Prints the GPU's name and power limit, one ``{"kernels": [...]}``
+15. Training (``[train]``): smollm-360m at full width and depth, f32
+   weights drawn on the card from --seed.  (a) One ``loss_fn`` and its
+   gradients in f32 (TF32 off) at 2 x 64 pipeline tokens (``segment_ids``,
+   ``loss_mask``) against a CPU copy: loss and global grad norm within
+   1e-4 relative, each leaf within 1e-3 of its max |grad|, the worst leaf
+   printed; (b) remat on against off at 8 x 256 in f32: within 1e-6, the
+   peak bytes of each; (e) 2 microbatches against 1 in f32 within the
+   reference test's tolerance; (c) ``launch.train.main`` for 24 steps at
+   8 x 256 (bf16 compute, AdamW, checkpoints every 8): finite losses, the
+   last 4 below the first 4; step ms (CUDA events, median after 2
+   warm-up steps), tokens/s, peak bytes, param and AdamW bytes and the
+   step's bound, and a profiler trace of one more step; (d) the CPU
+   copy's params checkpointed and restored onto the card bitwise, and 17
+   steps, then resumed to 24: params and state within 1e-6 of each leaf's
+   max of the uninterrupted run's (bitwise reported); (g) Adafactor
+   forced for 4 steps, its state bytes beside AdamW's; (f)
+   ``--compress-grads`` for 4 steps: finite losses and residual; then 4
+   AdamW steps of mamba2-370m at
+   full width at 4 x 256 (the chunked SSD's backward), and reduced
+   DeepSeek-V3 (MLA, MoE aux, MTP) and Jamba: loss, metrics and every
+   gradient card against CPU in f32 within 1e-3.  No kernel of its own.
+16. Prints the GPU's name and power limit, one ``{"kernels": [...]}``
    line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result when CUDA is unavailable or any phase fails.
 """
 import argparse
+import contextlib
+import functools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 
@@ -3648,10 +3673,10 @@ def lm_timings(cfg, params, dev, stream, n_prompt, max_seq,
     return line
 
 
-def lm_decode_trace(cfg, params, dev, stream, n_prompt, max_seq, steps=3):
-    """A torch.profiler trace of ``steps`` greedy decode steps at batch 1
-    after an ``n_prompt``-token prefill: wall ms a step (host clock around
-    the traced steps, the profiler's own cost included), device-busy ms a
+def trace_steps(run, steps):
+    """A torch.profiler trace of ``steps`` calls of ``run`` (the device
+    synchronized before and after): wall ms a step (host clock around the
+    traced calls, the profiler's own cost included), device-busy ms a
     step (the durations of the kernels and copies on the card), the
     device's idle share of the wall, kernel launches a step, the busy
     time's shares in copies (the weight casts and upcasts) and in GEMMs,
@@ -3659,22 +3684,13 @@ def lm_decode_trace(cfg, params, dev, stream, n_prompt, max_seq, steps=3):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import init_cache
-    from repro_torch.serve import make_decode_step, make_prefill_step
 
-    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
-    prompt = torch.as_tensor(stream[:n_prompt][None], device=dev)
-    cache = init_cache(cfg, 1, max_seq, device=dev)
-    logits, cache = prefill(params, cache, {"tokens": prompt})
-    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
-    logits, cache = decode(params, cache, tok)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            logits, cache = decode(params, cache, tok)
-            tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+            run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
     events = prof.events()
@@ -3695,6 +3711,29 @@ def lm_decode_trace(cfg, params, dev, stream, n_prompt, max_seq, steps=3):
             "copy_share": copy / busy if busy else None,
             "gemm_share": gemm / busy if busy else None,
             "top": [[n[:80], ms] for n, ms in by_name.most_common(5)]}
+
+
+def lm_decode_trace(cfg, params, dev, stream, n_prompt, max_seq, steps=3):
+    """``trace_steps`` of ``steps`` greedy decode steps at batch 1 after
+    an ``n_prompt``-token prefill."""
+    import torch
+    from repro_torch.models import init_cache
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    prompt = torch.as_tensor(stream[:n_prompt][None], device=dev)
+    cache = init_cache(cfg, 1, max_seq, device=dev)
+    logits, cache = prefill(params, cache, {"tokens": prompt})
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    logits, cache = decode(params, cache, tok)
+    state = {"cache": cache, "tok": tok}
+
+    def run():
+        logits, state["cache"] = decode(params, state["cache"], state["tok"])
+        state["tok"] = torch.argmax(logits[:, -1], -1)[:, None].to(
+            torch.int32)
+
+    return trace_steps(run, steps)
 
 
 # the DeepSeek phase: DeepSeek-V2-Lite-16B (MLA + MoE) at full width and
@@ -4209,6 +4248,527 @@ def mamba_phase(args, dev, smi):
     log(f"[mamba] phase done in {time.perf_counter() - t0:.1f} s")
 
 
+# the training phase: smollm-360m trained at full width and depth through
+# launch/train.py, with mamba2-370m's steps and the reduced DeepSeek-V3
+# and Jamba gradients beside it
+TRAIN_ARCH = "smollm-360m"
+TRAIN_SIZES = dict(xdev_batch=2, xdev_seq=64,   # (a): card against CPU
+                   batch=8, seq=256,             # (b), (c)-(g)
+                   steps=24, ckpt_every=8,       # (c)
+                   resume_at=17,                 # (d): its checkpoint: 16
+                   short=4,                      # (f), (g), mamba2-370m
+                   mamba_batch=4, mamba_seq=256,
+                   reduced_batch=2, reduced_seq=32)
+TRAIN_XDEV_RTOL = 1e-4        # (a) loss and global grad norm, relative
+TRAIN_XDEV_LEAF = 1e-3        # (a) a leaf's max grad err over its max |grad|
+TRAIN_REMAT_RTOL = 1e-6       # (b) remat on against off, the same measures
+TRAIN_RESUME_TOL = 1e-6       # (d) of each leaf's max |param|
+TRAIN_MB_LOSS_RTOL = 1e-3     # (e) tests/test_train.py's tolerance
+TRAIN_MB_TOL = dict(rtol=2e-2, atol=2e-4)
+TRAIN_REDUCED_TOL = 1e-3      # reduced DeepSeek-V3 / Jamba, card vs CPU
+ADAMW_BYTES = 28              # a param's f32 p, g, m, v read, p, m, v written
+TRAIN_REDUCED = ("deepseek-v3-671b", "jamba-1.5-large-398b")
+
+
+@contextlib.contextmanager
+def f32_exact():
+    """TF32 off for matmuls and cuDNN inside the block."""
+    import torch
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+@functools.lru_cache(maxsize=None)
+def train_pipeline(seq, batch):
+    """The trainer's pipeline (``launch/train.py``: 512 synthetic
+    documents, seed 1), built once a shape."""
+    from repro_torch.data.pipeline import (
+        PipelineConfig, TokenPipeline, synthetic_corpus,
+    )
+
+    return TokenPipeline(synthetic_corpus(512, seed=1),
+                         PipelineConfig(seq_len=seq, global_batch=batch))
+
+
+def on_device(batch, dev):
+    import torch
+
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def tree_rel_err(got, want):
+    """(worst leaf's path, its max |got - want| over max |want|), leaf by
+    leaf in float64 on ``want``'s device."""
+    from repro_torch.pytree import tree_leaves, tree_leaves_with_path
+
+    worst = ("", 0.0)
+    for (path, g), w in zip(tree_leaves_with_path(got), tree_leaves(want)):
+        w = w.double()
+        diff = float((g.to(w.device).double() - w).abs().max())
+        peak = float(w.abs().max())
+        err = diff / peak if peak > 0 else diff
+        if not err <= worst[1]:
+            worst = ("/".join(map(str, path)), err)
+    return worst
+
+
+def rel(a, b):
+    a, b = float(a), float(b)
+    return abs(a - b) / abs(b) if b else abs(a - b)
+
+
+def grads_xdev(cfg, params, cpu_params, dev, batch, label, leaf_tol,
+               rtol):
+    """``loss_and_grads`` on ``dev`` against the CPU copy in f32 (the
+    CPU without remat's recompute): the loss and each metric within
+    ``rtol`` relative, the global grad norm too, every leaf within
+    ``leaf_tol`` of its max |grad|."""
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import loss_and_grads
+
+    with f32_exact():
+        got = loss_and_grads(cfg, params, on_device(batch, dev))
+        # remat changes no value (``train_remat``): the CPU skips it
+        want = loss_and_grads(cfg.scaled(remat=False), cpu_params,
+                              on_device(batch, "cpu"))
+    errs = {"loss": rel(got[0], want[0]),
+            "grad_norm": rel(global_norm(got[2]), global_norm(want[2]))}
+    errs.update({k: rel(got[1][k], want[1][k]) for k in want[1]})
+    leaf, leaf_err = tree_rel_err(got[2], want[2])
+    log(f"[{label}] f32, {dev} against the CPU: loss {float(got[0]):.6f} "
+        f"against {float(want[0]):.6f}; relative errors "
+        f"{json.dumps(errs)} (limit {rtol}); worst leaf {leaf}: max grad "
+        f"err {leaf_err:.3e} of its max |grad| (limit {leaf_tol})")
+    finite = all(math.isfinite(float(v)) for v in
+                 [got[0], *got[1].values()])
+    if not finite or max(errs.values()) > rtol or not leaf_err <= leaf_tol:
+        raise AssertionError(f"{label}: {dev} and CPU differ: {errs}, "
+                             f"leaf {leaf} by {leaf_err} (finite {finite})")
+    return {"rel_errs": errs, "worst_leaf": leaf, "worst_leaf_err": leaf_err}
+
+
+def train_remat(cfg32, params, dev, batch, label):
+    """(b) ``loss_and_grads`` with remat on (the config's policy) and off,
+    on the card in f32: loss and every leaf within TRAIN_REMAT_RTOL, and
+    each run's peak bytes above what it found allocated."""
+    import torch
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.train.train_step import loss_and_grads
+
+    runs = {}
+    with f32_exact():
+        for remat in (True, False):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            loss, _, grads = loss_and_grads(cfg32.scaled(remat=remat),
+                                            params, on_device(batch, dev))
+            torch.cuda.synchronize()
+            runs[remat] = (loss, grads,
+                           torch.cuda.max_memory_allocated(dev) - base)
+    loss_err = rel(runs[True][0], runs[False][0])
+    leaf, leaf_err = tree_rel_err(runs[True][1], runs[False][1])
+    bitwise = bool(torch.equal(runs[True][0], runs[False][0])) and all(
+        torch.equal(a, b) for a, b in zip(
+            *(tree_leaves(runs[r][1]) for r in (True, False))))
+    peaks = {"peak_bytes_remat": runs[True][2],
+             "peak_bytes_no_remat": runs[False][2]}
+    log(f"[{label}] remat ({cfg32.remat_policy}) against none, f32, batch "
+        f"{tuple(batch['tokens'].shape)}: loss rel err {loss_err:.3e}, "
+        f"worst leaf {leaf} {leaf_err:.3e} (limit {TRAIN_REMAT_RTOL}); "
+        f"bitwise {bitwise}; peak bytes above the resident "
+        f"{json.dumps(peaks)}")
+    if loss_err > TRAIN_REMAT_RTOL or not leaf_err <= TRAIN_REMAT_RTOL:
+        raise AssertionError(f"{label}: remat changed values: loss by "
+                             f"{loss_err}, {leaf} by {leaf_err}")
+    return dict(peaks, remat_bitwise=bitwise)
+
+
+def train_microbatches(cfg32, params, dev, batch, label):
+    """(e) ``make_train_step`` with 2 microbatches against 1 on the same
+    batch, f32, AdamW at lr 1e-3 (tests/test_train.py's case): the loss
+    within TRAIN_MB_LOSS_RTOL, params within TRAIN_MB_TOL."""
+    import torch
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.train import OptConfig, make_train_step, pick_optimizer
+
+    opt = pick_optimizer(cfg32, OptConfig(lr=1e-3))
+    out = {}
+    with f32_exact():
+        for mb in (1, 2):
+            step = make_train_step(cfg32, opt, microbatches=mb)
+            p, _, m = step(params, opt.init(params), on_device(batch, dev),
+                           0)
+            out[mb] = (p, float(m["loss"]))
+    loss_err = rel(out[2][1], out[1][1])
+    bad, worst = 0, 0.0
+    for a, b in zip(tree_leaves(out[2][0]), tree_leaves(out[1][0])):
+        d = (a.float() - b.float()).abs()
+        bad += int((d > TRAIN_MB_TOL["atol"]
+                    + TRAIN_MB_TOL["rtol"] * b.float().abs()).sum())
+        worst = max(worst, float(d.max()))
+    log(f"[{label}] microbatches 2 against 1, f32, batch "
+        f"{tuple(batch['tokens'].shape)}: loss {out[2][1]:.6f} / "
+        f"{out[1][1]:.6f}, rel err {loss_err:.3e} (limit "
+        f"{TRAIN_MB_LOSS_RTOL}); params max abs diff {worst:.3e}, {bad} "
+        f"outside rtol {TRAIN_MB_TOL['rtol']} / atol {TRAIN_MB_TOL['atol']}")
+    if loss_err > TRAIN_MB_LOSS_RTOL or bad:
+        raise AssertionError(f"{label}: microbatches differ: loss by "
+                             f"{loss_err}, {bad} params")
+    return {"mb_loss_rel_err": loss_err, "mb_param_max_diff": worst}
+
+
+def run_trainer(arch, dev, seed, ckpt_dir, steps, batch, seq, *extra):
+    """``launch.train.main`` in process; its result."""
+    from repro_torch.launch import train as launch_train
+
+    return launch_train.main([
+        "--arch", arch, "--steps", str(steps), "--batch", str(batch),
+        "--seq", str(seq), "--seed", str(seed), "--device", str(dev),
+        "--ckpt-dir", ckpt_dir, *extra])
+
+
+def step_ms_of(res):
+    """Median step ms after 2 warm-up steps (CUDA events)."""
+    return statistics.median(res["step_ms"][2:])
+
+
+def train_driver(args, dev, tmp, label):
+    """(c) The driver for TRAIN_SIZES["steps"] steps with a checkpoint
+    every ``ckpt_every``: finite losses falling (the mean of the last 4
+    below the first 4's), step ms, tokens/s, peak bytes, param and AdamW
+    state bytes and the step's bound.  Returns the run's result."""
+    import numpy as np
+    import torch
+    from repro_torch.pytree import tree_leaves
+
+    sz = TRAIN_SIZES
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = run_trainer(TRAIN_ARCH, dev, args.seed, os.path.join(tmp, "whole"),
+                      sz["steps"], sz["batch"], sz["seq"], "--ckpt-every",
+                      str(sz["ckpt_every"]), "--log-every",
+                      str(sz["ckpt_every"]))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = np.asarray(res["losses"])
+    first, last = float(losses[:4].mean()), float(losses[-4:].mean())
+    n = sum(t.numel() for t in tree_leaves(res["params"]))
+    tokens = sz["batch"] * sz["seq"]
+    ms = step_ms_of(res)
+    # forward 2N, backward 4N and the remat recompute 2N flops a token;
+    # AdamW's bytes once
+    passes = 8 if res["cfg"].remat else 6
+    bound_ms = (passes * n * tokens / BF16_OPS_PER_S
+                + ADAMW_BYTES * n / HBM_BYTES_PER_S) * 1e3
+    line = {"arch": TRAIN_ARCH, "params": n, "batch": sz["batch"],
+            "seq": sz["seq"], "steps": sz["steps"],
+            "optimizer": type(res["optimizer"]).__name__,
+            "step_ms": ms, "tokens_per_s": tokens * 1e3 / ms,
+            # before the first checkpoint's writer thread starts
+            "step_ms_before_ckpt": statistics.median(
+                res["step_ms"][2:sz["ckpt_every"] + 1]),
+            "step_ms_all": res["step_ms"], "peak_bytes": peak,
+            "param_bytes": tree_bytes(res["params"]),
+            "opt_state_bytes": tree_bytes(res["opt_state"]),
+            "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+            "loss_first4": first, "loss_last4": last,
+            "run_s": wall}
+    log(f"[{label} driver] {json.dumps(line)}")
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f"{label}: losses {losses.tolist()}")
+    if line["optimizer"] != "AdamW":
+        raise AssertionError(f"{label}: picked {line['optimizer']}")
+    return res, line
+
+
+def train_resume(args, dev, tmp, whole, label):
+    """(d) The same run stopped at TRAIN_SIZES["resume_at"] steps (one
+    checkpoint, at its last step) and resumed to the end: final params
+    and AdamW state within TRAIN_RESUME_TOL of each leaf's max of the
+    uninterrupted run's, the resumed losses too."""
+    import torch
+    from repro_torch.pytree import tree_leaves
+
+    sz = TRAIN_SIZES
+    ckpt = os.path.join(tmp, "resumed")
+    common = (TRAIN_ARCH, dev, args.seed, ckpt)
+    log_every = ("--log-every", str(sz["ckpt_every"]))
+    # stopped: its one checkpoint is its last step's
+    run_trainer(*common, sz["resume_at"], sz["batch"], sz["seq"],
+                "--ckpt-every", "1000000", *log_every)
+    res = run_trainer(*common, sz["steps"], sz["batch"], sz["seq"],
+                      "--ckpt-every", str(sz["ckpt_every"]), *log_every)
+    if res["start_step"] != sz["resume_at"]:
+        raise AssertionError(f"{label}: resumed at {res['start_step']}")
+    state = {"params": res["params"], "opt": res["opt_state"]}
+    want = {"params": whole["params"], "opt": whole["opt_state"]}
+    leaf, err = tree_rel_err(state, want)
+    bitwise = all(torch.equal(a, b) for a, b in zip(tree_leaves(state),
+                                                    tree_leaves(want)))
+    loss_err = max(rel(a, b) for a, b in zip(
+        res["losses"], whole["losses"][sz["resume_at"]:]))
+    log(f"[{label} resume] {sz['resume_at']} steps, then resumed to "
+        f"{sz['steps']} from step {res['start_step'] - 1}: params and "
+        f"AdamW state against the uninterrupted run: worst leaf {leaf} "
+        f"{err:.3e} of its max (limit {TRAIN_RESUME_TOL}), bitwise "
+        f"{bitwise}; resumed losses max rel err {loss_err:.3e}")
+    if not err <= TRAIN_RESUME_TOL:
+        raise AssertionError(f"{label}: resume differs: {leaf} by {err}")
+    return {"resume_bitwise": bitwise, "resume_worst_err": err,
+            "resume_loss_err": loss_err}
+
+
+def train_cpu_checkpoint(cpu_params, params, tmp, label):
+    """(d) The CPU copy's params saved by ``train.checkpoint.save`` and
+    restored onto the card's tree: every leaf on the card, bitwise."""
+    import torch
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.train.checkpoint import restore_latest, save
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "from_cpu")
+    save(path, 0, {"params": cpu_params})
+    restored, _ = restore_latest(path, {"params": params})
+    secs = time.perf_counter() - t0
+    ok = restored is not None and all(
+        a.device == b.device and torch.equal(a, b) for a, b in zip(
+            tree_leaves(restored), tree_leaves({"params": params})))
+    log(f"[{label} checkpoint] the CPU copy's params ({tree_bytes(params)} "
+        f"bytes) saved and restored onto the card's tree: bitwise {ok} "
+        f"({secs:.1f} s)")
+    if not ok:
+        raise AssertionError(f"{label}: the CPU checkpoint did not restore")
+    shutil.rmtree(path)
+    return {"cpu_ckpt_restore_s": secs}
+
+
+def train_steps(cfg, opt, params, dev, seq, batch, n):
+    """``n`` steps of ``make_train_step(cfg, opt)`` on the trainer's
+    pipeline batches 0..n-1: losses, step ms (CUDA events) and the final
+    optimizer state."""
+    import torch
+    from repro_torch.train import make_train_step
+
+    step = make_train_step(cfg, opt)
+    state = opt.init(params)
+    pipe = train_pipeline(seq, batch)
+    losses, times = [], []
+    for i in range(n):
+        b = on_device(pipe.batch_at(i), dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in "se"]
+        ev[0].record()
+        params, state, m = step(params, state, b, float(i))
+        ev[1].record()
+        losses.append(float(m["loss"]))
+        times.append(ev[0].elapsed_time(ev[1]))
+    return losses, times, state
+
+
+def train_adafactor(cfg, whole, dev, label):
+    """(g) Adafactor forced on smollm-360m, TRAIN_SIZES["short"] steps
+    from the driver's final params: finite losses, step ms and the state's
+    bytes beside AdamW's."""
+    import numpy as np
+    from repro_torch.train import Adafactor, OptConfig
+
+    sz = TRAIN_SIZES
+    opt = Adafactor(OptConfig(name="adafactor", warmup_steps=20))
+    losses, times, state = train_steps(cfg, opt, whole["params"], dev,
+                                       sz["seq"], sz["batch"], sz["short"])
+    line = {"adafactor_losses": losses,
+            "adafactor_step_ms": statistics.median(times[2:]),
+            "adafactor_state_bytes": tree_bytes(state),
+            "adamw_state_bytes": tree_bytes(whole["opt_state"])}
+    log(f"[{label} adafactor] {json.dumps(line)}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: Adafactor losses {losses}")
+    return line
+
+
+def train_mamba(dev, seed, label):
+    """mamba2-370m at full width and depth, f32 weights drawn on the card
+    from ``seed``: TRAIN_SIZES["short"] AdamW steps (``pick_optimizer``)
+    at mamba_batch x mamba_seq tokens (the chunked SSD's backward):
+    finite losses, step ms."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import materialize_params
+    from repro_torch.train import OptConfig, pick_optimizer
+
+    sz = TRAIN_SIZES
+    cfg = get_config("mamba2-370m")
+    params, _ = materialize_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    opt = pick_optimizer(cfg, OptConfig(warmup_steps=20))
+    losses, times, _ = train_steps(cfg, opt, params, dev, sz["mamba_seq"],
+                                   sz["mamba_batch"], sz["short"])
+    line = {"arch": "mamba2-370m", "optimizer": type(opt).__name__,
+            "batch": sz["mamba_batch"], "seq": sz["mamba_seq"],
+            "losses": losses, "step_ms": statistics.median(times[2:]),
+            "step_ms_all": times}
+    log(f"[{label}] {json.dumps(line)}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: losses {losses}")
+    return line
+
+
+def train_compress(dev, seed, tmp, label):
+    """(f) The driver with ``--compress-grads`` for TRAIN_SIZES["short"]
+    steps (one checkpoint, at the end): finite losses and a finite
+    residual; step ms."""
+    import numpy as np
+    from repro_torch.pytree import tree_leaves
+
+    sz = TRAIN_SIZES
+    res = run_trainer(TRAIN_ARCH, dev, seed, os.path.join(tmp, "compress"),
+                      sz["short"], sz["batch"], sz["seq"], "--ckpt-every",
+                      "1000000", "--compress-grads")
+    residual = tree_leaves(res["residual"])
+    line = {"losses": res["losses"], "step_ms": step_ms_of(res),
+            "step_ms_all": res["step_ms"],
+            "residual_max_abs": max(float(r.abs().max()) for r in residual),
+            "residual_finite": all(bool(r.isfinite().all())
+                                   for r in residual)}
+    log(f"[{label}] {json.dumps(line)}")
+    if not np.isfinite(res["losses"]).all() or not line["residual_finite"]:
+        raise AssertionError(f"{label}: {line}")
+    return line
+
+
+def train_reduced(dev, seed, label="train"):
+    """Reduced DeepSeek-V3 (MLA, the MoE aux, MTP) and Jamba (attention,
+    Mamba, the MoE aux), f32 weights drawn on the card from ``seed``:
+    loss, metrics and every gradient card against CPU within
+    TRAIN_REDUCED_TOL."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import materialize_params
+    from repro_torch.pytree import tree_map
+
+    import torch
+
+    sz = TRAIN_SIZES
+    batch = train_pipeline(sz["reduced_seq"], sz["reduced_batch"]).batch_at(0)
+    out = {}
+    for arch in TRAIN_REDUCED:
+        cfg = get_reduced_config(arch)
+        cfg = cfg.scaled(compute_dtype="float32",
+                         vocab_size=max(cfg.vocab_size, 260))
+        params, _ = materialize_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        out[arch] = grads_xdev(
+            cfg, params, tree_map(lambda t: t.cpu(), params), dev, batch,
+            f"{label} {arch}", TRAIN_REDUCED_TOL, TRAIN_REDUCED_TOL)
+    return out
+
+
+def train_phase(args, dev, smi):
+    """smollm-360m trained at full width and depth on the card, f32
+    weights drawn from --seed: (a) one ``loss_fn`` and its gradients in
+    f32 against a CPU copy; (b) remat on against off; (e) 2 microbatches
+    against 1; (c) ``launch.train.main`` for 24 steps (bf16 compute, AdamW,
+    checkpoints every 8) with a profiler trace of one more step; (d) the
+    CPU copy's checkpoint restored on the card, and a run stopped at 17
+    steps and resumed; (g) Adafactor forced for 4 steps; (f) the driver
+    with --compress-grads for 4 steps; then 4 steps of mamba2-370m at full
+    width (the chunked SSD's backward) and the reduced DeepSeek-V3 and
+    Jamba gradients card against CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import materialize_params
+    from repro_torch.pytree import tree_leaves, tree_map
+    from repro_torch.train import make_train_step
+
+    t0 = time.perf_counter()
+    secs = {}
+
+    def lap(name, since=[t0]):
+        now = time.perf_counter()
+        secs[name] = now - since[0]
+        since[0] = now
+
+    sz = TRAIN_SIZES
+    cfg = get_config(TRAIN_ARCH)
+    cfg32 = cfg.scaled(compute_dtype="float32")
+    params, _ = materialize_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[train] {TRAIN_ARCH}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}; {n_params} {cfg.param_dtype}"
+        f" params; remat {cfg.remat} ({cfg.remat_policy}); the CPU copy "
+        f"runs on {torch.get_num_threads()} threads of {os.cpu_count()} "
+        f"cores")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        xdev_pipe = train_pipeline(sz["xdev_seq"], sz["xdev_batch"])
+        res = {"xdev": grads_xdev(cfg32, params, cpu_params, dev,
+                                  xdev_pipe.batch_at(0), "train xdev",
+                                  TRAIN_XDEV_LEAF, TRAIN_XDEV_RTOL)}
+        lap("xdev")
+        res.update(train_cpu_checkpoint(cpu_params, params, tmp, "train"))
+        del cpu_params
+        lap("cpu_checkpoint")
+        batch = train_pipeline(sz["seq"], sz["batch"]).batch_at(0)
+        res.update(train_remat(cfg32, params, dev, batch, "train"))
+        res.update(train_microbatches(cfg32, params, dev, batch,
+                                      "train microbatches"))
+        del params
+        torch.cuda.empty_cache()
+        lap("remat_microbatches")
+
+        whole, line = train_driver(args, dev, tmp, "train")
+        shutil.rmtree(os.path.join(tmp, "whole"))
+        lap("driver")
+        step = make_train_step(whole["cfg"], whole["optimizer"])
+        state = {"p": whole["params"], "s": whole["opt_state"]}
+        batch = on_device(train_pipeline(sz["seq"], sz["batch"]).batch_at(
+            sz["steps"]), dev)
+
+        def run():
+            state["p"], state["s"], _ = step(state["p"], state["s"], batch,
+                                             float(sz["steps"]))
+
+        trace = trace_steps(run, 1)
+        del state
+        log(f"[train trace] {smi}: one train step at batch "
+            f"{sz['batch']} x {sz['seq']}: " + json.dumps(trace))
+        lap("trace")
+        line.update(res)
+        line.update(train_resume(args, dev, tmp, whole, "train"))
+        lap("resume")
+        line.update(train_adafactor(whole["cfg"], whole, dev, "train"))
+        del whole
+        torch.cuda.empty_cache()
+        lap("adafactor")
+        line["compress_step_ms"] = train_compress(
+            dev, args.seed, tmp, "train compress")["step_ms"]
+        lap("compress")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    line["mamba_step_ms"] = train_mamba(dev, args.seed,
+                                        "train mamba")["step_ms"]
+    torch.cuda.empty_cache()
+    lap("mamba")
+    line["reduced"] = train_reduced(dev, args.seed)
+    lap("reduced")
+    line.pop("step_ms_all")
+    line["seconds"] = secs
+    log(f"[train ms] {smi}: " + json.dumps(line))
+    log(f"[train] phase done in {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--edges", type=int, default=1 << 20)
@@ -4518,6 +5078,9 @@ def main():
 
     # -- 15. Mamba2: mamba2-370m at full width and depth, Jamba's unit ----
     mamba_phase(args, dev, smi)
+
+    # -- 16. training: smollm-360m at full width and depth -------------
+    train_phase(args, dev, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

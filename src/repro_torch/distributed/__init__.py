@@ -2,8 +2,9 @@
 (``shard_device_trie`` cuts a frozen trie into contiguous DFS subtree
 ranges over a ``launch.mesh.TrieMesh``; the batched ops answer a
 ``ShardPlan`` bitwise like one device; ``mask_dead_shards`` answers
-around dead shards), the int8 column encoding of ``compression`` (the
-compressed layout quantizes its confidence and lift columns with it) and
+around dead shards), the int8 encoding of ``compression`` (the compressed
+layout quantizes its confidence and lift columns with it; the trainer's
+error-feedback gradient compressor and ``compressed_psum`` too) and
 the serve loop's ``health`` signals, and the LM side's logical-axis
 rules of ``sharding`` (``logical_to_spec`` with its divisibility
 fallback, ``shard_params_specs``, ``constrain``, the identity on one

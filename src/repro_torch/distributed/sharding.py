@@ -44,6 +44,10 @@ from repro_torch.pytree import tree_map
 Axes = Tuple[Optional[str], ...]
 Spec = Tuple[object, ...]
 
+# what every path that would span several GPUs names when it raises
+MULTI_GPU = ("ROADMAP.md Queue 1 item 4 (named_sharding, the multi-GPU LM "
+             "slice)")
+
 # logical axis -> mesh axis (or tuple of mesh axes)
 LOGICAL_RULES: Dict[str, Optional[Tuple[str, ...]]] = {
     "batch": ("pod", "data"),

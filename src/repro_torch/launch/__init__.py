@@ -1,5 +1,7 @@
-"""Launch helpers of the port: the trie mesh (``mesh.TrieMesh``,
-``mesh.make_trie_mesh``) the sharded trie spreads over."""
-from .mesh import TrieMesh, make_trie_mesh
+"""Launch helpers of the port: the host mesh (``mesh.make_host_mesh``)
+the trainer runs under, the trie mesh (``mesh.TrieMesh``,
+``mesh.make_trie_mesh``) the sharded trie spreads over, and the training
+driver ``train`` (``python -m repro_torch.launch.train``)."""
+from .mesh import HostMesh, TrieMesh, make_host_mesh, make_trie_mesh
 
-__all__ = ["TrieMesh", "make_trie_mesh"]
+__all__ = ["HostMesh", "TrieMesh", "make_host_mesh", "make_trie_mesh"]

@@ -1,6 +1,15 @@
-"""The trie mesh: the devices a sharded trie spreads over, in one process.
+"""Meshes in one process: the host mesh the trainer runs under and the
+trie mesh a sharded trie spreads over.
 
-PyTorch counterpart of ``make_trie_mesh`` in ``repro.launch.mesh``.  The
+``make_host_mesh`` is the PyTorch counterpart of the reference's: a
+``("data", "model")`` mesh of shape (1, 1) on one device, which
+``distributed.use_mesh`` accepts (a mesh is anything with ``.shape``).
+More than one visible GPU raises ``NotImplementedError``: placing a model
+over several cards waits for the multi-GPU slice
+(``distributed.sharding.MULTI_GPU``).
+
+``TrieMesh`` is the counterpart of ``make_trie_mesh`` in
+``repro.launch.mesh``.  The
 reference's mesh is one controller over one host's local devices, with
 ``shard_map`` under a single ``jit``; here a ``TrieMesh`` is a tuple of
 ``torch.device``s along one ``"data"`` axis, and the sharded ops
@@ -17,7 +26,11 @@ from __future__ import annotations
 
 from typing import Iterable, Optional, Tuple
 
+import numpy as np
 import torch
+
+from repro_torch.core.array_trie import resolve_device
+from repro_torch.distributed.sharding import MULTI_GPU
 
 
 def _indexed(device) -> torch.device:
@@ -66,3 +79,37 @@ def make_trie_mesh(n_shards: Optional[int] = None) -> TrieMesh:
             f"n_shards={n} outside [1, {count}] visible devices"
         )
     return TrieMesh([torch.device("cuda", i) for i in range(n)])
+
+
+class HostMesh:
+    """A ``("data", "model")`` mesh of shape (1, 1): ``devices`` is a
+    [1, 1] object array holding the one ``torch.device``."""
+
+    axis_names = ("data", "model")
+
+    def __init__(self, device):
+        self.devices = np.empty((1, 1), dtype=object)
+        self.devices[0, 0] = _indexed(device)
+
+    @property
+    def shape(self) -> dict:
+        return {"data": 1, "model": 1}
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0, 0]
+
+    def __repr__(self) -> str:
+        return f"HostMesh({self.device})"
+
+
+def make_host_mesh(device=None) -> HostMesh:
+    """The degenerate 1 x 1 mesh over the local device (CUDA unless
+    named).  The reference spans every visible device along ``model``;
+    with more than one visible GPU this raises."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            f"{torch.cuda.device_count()} visible GPUs: the host mesh "
+            f"spans one device here: {MULTI_GPU}")
+    return HostMesh(dev)

@@ -1,0 +1,166 @@
+"""End-to-end training driver with fault tolerance.
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch smollm-360m --reduced --steps 200 --resume auto
+
+PyTorch port of ``repro.launch.train``, with its flags and printed lines,
+plus ``--device`` (CUDA unless named; ``cpu`` runs the same path on the
+host) and ``--seed`` (the generator the weights are drawn from).  What it
+exercises, on one device:
+  - the deterministic, stateless-seekable data pipeline (a restart sees
+    the same stream);
+  - async, atomic, hash-verified checkpoints and auto-resume;
+  - straggler detection (EWMA step times);
+  - microbatch gradient accumulation;
+  - optional int8 error-feedback gradient compression.
+``main(argv)`` returns what the run produced (losses, step ms, the final
+params and optimizer state, the compressor's residual) for callers that
+drive it in process.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_reduced_config
+from repro_torch.core.array_trie import resolve_device
+from repro_torch.data.pipeline import (
+    PipelineConfig,
+    TokenPipeline,
+    synthetic_corpus,
+)
+from repro_torch.distributed.compression import ErrorFeedbackInt8
+from repro_torch.distributed.sharding import use_mesh
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import materialize_params
+from repro_torch.train.checkpoint import AsyncCheckpointer, restore_latest
+from repro_torch.train.elastic import StragglerDetector
+from repro_torch.train.optimizer import OptConfig, pick_optimizer
+from repro_torch.train.train_step import make_train_step
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", default="smollm-360m")
+    p.add_argument("--reduced", action="store_true")
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seq", type=int, default=256)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--microbatches", type=int, default=1)
+    p.add_argument("--compress-grads", action="store_true")
+    p.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_ckpt"))
+    p.add_argument("--ckpt-every", type=int, default=50)
+    p.add_argument("--resume", default="auto", choices=["auto", "never"])
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--device", default=None)
+    p.add_argument("--seed", type=int, default=0)
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    dev = resolve_device(args.device)
+    cfg = (
+        get_reduced_config(args.arch) if args.reduced
+        else get_config(args.arch)
+    )
+    # fit the byte vocab when training on the synthetic corpus
+    cfg = cfg.scaled(vocab_size=max(cfg.vocab_size, 260))
+
+    mesh = make_host_mesh(dev)
+    docs = synthetic_corpus(512, seed=1)
+    pipe = TokenPipeline(
+        docs, PipelineConfig(seq_len=args.seq, global_batch=args.batch)
+    )
+    print(f"pipeline: {pipe.n_rows} packed rows")
+
+    with use_mesh(mesh):
+        params, _ = materialize_params(
+            cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+        opt = pick_optimizer(cfg, OptConfig(lr=args.lr, warmup_steps=20))
+        opt_state = opt.init(params)
+
+        compressor = ErrorFeedbackInt8() if args.compress_grads else None
+        state = {"residual": compressor.init(params) if compressor else None}
+
+        grad_transform = None
+        if compressor is not None:
+            # stateful hook: the closure carries the residual across steps
+            def grad_transform(grads):
+                dq, state["residual"] = compressor.compress(
+                    grads, state["residual"]
+                )
+                return dq
+
+        step_fn = make_train_step(
+            cfg, opt, microbatches=args.microbatches,
+            grad_transform=grad_transform,
+        )
+
+        start_step = 0
+        ckpt = AsyncCheckpointer(args.ckpt_dir)
+        if args.resume == "auto":
+            restored, manifest = restore_latest(
+                args.ckpt_dir, {"params": params, "opt": opt_state}
+            )
+            if restored is not None:
+                params, opt_state = restored["params"], restored["opt"]
+                start_step = manifest["step"] + 1
+                print(f"resumed from step {manifest['step']}")
+
+        detector = StragglerDetector()
+        losses, step_ms = [], []
+        timer = dev.type == "cuda"
+        for step in range(start_step, args.steps):
+            batch = {
+                k: torch.as_tensor(v, device=dev)
+                for k, v in pipe.batch_at(step).items()
+            }
+            t0 = time.time()
+            if timer:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "se"]
+                ev[0].record()
+            params, opt_state, metrics = step_fn(
+                params, opt_state, batch, float(step)
+            )
+            if timer:
+                ev[1].record()
+            loss = float(metrics["loss"])
+            dt = time.time() - t0
+            step_ms.append(ev[0].elapsed_time(ev[1]) if timer else dt * 1e3)
+            losses.append(loss)
+            if detector.observe(step, dt):
+                print(f"[straggler] sustained slowdown at step {step} "
+                      f"({dt:.2f}s vs ewma {detector._ewma:.2f}s) — a real "
+                      "deployment re-meshes here (train/elastic.py)")
+            if step % args.log_every == 0:
+                print(f"step {step:5d} loss {loss:.4f} "
+                      f"({dt*1000:.0f} ms)", flush=True)
+            if step and step % args.ckpt_every == 0:
+                ckpt.save_async(
+                    step, {"params": params, "opt": opt_state},
+                    extra={"loss": loss},
+                )
+        ckpt.wait()
+        ckpt.save_async(args.steps - 1,
+                        {"params": params, "opt": opt_state})
+        ckpt.wait()
+        first = np.mean(losses[:10])
+        last = np.mean(losses[-10:])
+        print(f"done: loss {first:.3f} → {last:.3f} "
+              f"({'improved' if last < first else 'NO IMPROVEMENT'})")
+    return {"cfg": cfg, "losses": losses, "step_ms": step_ms,
+            "start_step": start_step, "params": params,
+            "opt_state": opt_state, "optimizer": opt,
+            "residual": state["residual"]}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,14 @@
-"""The decoder LM of the port: ``repro.models`` without the training
-loss (attention, MLA and Mamba2 mixers, SwiGLU MLPs and MoE FFNs, stub
-frontends, DeepSeek-V3's ``mtp`` params), with ``DecoderLM``, a module
-that owns a parameter tree, and ``convert``, which carries the
-reference's parameters and caches across as numpy trees."""
-from .convert import cache_from_numpy, params_from_numpy
+"""The decoder LM of the port: ``repro.models`` whole (attention, MLA and
+Mamba2 mixers, SwiGLU MLPs and MoE FFNs, stub frontends, DeepSeek-V3's
+``mtp`` head, the training loss ``loss_fn``), with ``DecoderLM``, a
+module that owns a parameter tree, and ``convert``, which carries the
+reference's parameters, caches and optimizer states across as numpy
+trees."""
+from .convert import (
+    cache_from_numpy,
+    opt_state_from_numpy,
+    params_from_numpy,
+)
 from .layers import PV, split_pv
 from .model import (
     DecoderLM,
@@ -15,6 +20,7 @@ from .model import (
     forward,
     init_cache,
     init_model,
+    loss_fn,
     materialize_params,
 )
 
@@ -27,10 +33,12 @@ __all__ = [
     "forward",
     "init_cache",
     "init_model",
+    "loss_fn",
     "materialize_params",
     "DecoderLM",
     "PV",
     "split_pv",
     "cache_from_numpy",
+    "opt_state_from_numpy",
     "params_from_numpy",
 ]

@@ -1,4 +1,5 @@
-"""Carry the reference's parameters and caches into the port.
+"""Carry the reference's parameters, caches and optimizer states into
+the port.
 
 The reference's random init cannot be re-derived from a seed in another
 process (it folds ``hash(name)`` into its keys), so the port is held to
@@ -8,7 +9,9 @@ torch tensors.  The two trees have one structure, leaf for leaf.  bf16
 leaves (numpy's ``bfloat16`` from ``ml_dtypes``) keep their bits, and
 every leaf keeps its dtype: Mamba's float32 ``a_log``, ``dt_bias`` and
 ``d_skip`` beside bf16 params, its bf16 conv windows beside its float32
-``ssm`` state in a cache.
+``ssm`` state in a cache.  Optimizer states (AdamW's ``m`` / ``v``,
+Adafactor's ``vr`` / ``vc`` / ``v``) cross the same way, against the
+port optimizer's own ``init`` of the config's shapes.
 """
 from __future__ import annotations
 
@@ -28,10 +31,10 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def params_from_numpy(cfg, tree, device=None):
-    """The reference's parameter tree (numpy leaves) as the port's, on
+def tree_from_numpy(like, tree, device=None):
+    """``tree`` (numpy leaves, ``like``'s structure) as tensors on
     ``device`` (CUDA unless named).  Raises if a leaf's shape or dtype
-    differs from ``abstract_params(cfg)``."""
+    differs from ``like``'s (meta tensors will do)."""
     dev = resolve_device(device)
 
     def leaf(want, got):
@@ -42,7 +45,22 @@ def params_from_numpy(cfg, tree, device=None):
                 f"{tuple(want.shape)} {want.dtype}")
         return t
 
-    return tree_map(leaf, abstract_params(cfg)[0], tree)
+    return tree_map(leaf, like, tree)
+
+
+def params_from_numpy(cfg, tree, device=None):
+    """The reference's parameter tree (numpy leaves) as the port's, on
+    ``device`` (CUDA unless named), checked against
+    ``abstract_params(cfg)``."""
+    return tree_from_numpy(abstract_params(cfg)[0], tree, device)
+
+
+def opt_state_from_numpy(cfg, optimizer, tree, device=None):
+    """The reference's optimizer state for ``cfg`` (numpy leaves) as the
+    port's ``optimizer`` (``train.AdamW`` or ``train.Adafactor``) keeps
+    it, checked against ``optimizer.init`` of the config's shapes."""
+    like = optimizer.init(abstract_params(cfg)[0])
+    return tree_from_numpy(like, tree, device)
 
 
 def cache_from_numpy(cfg, tree, device=None):

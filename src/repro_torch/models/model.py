@@ -12,15 +12,19 @@ tree and calls the core.
 Entry points:
   init_model(cfg, key, device)          → PV param tree (value + axes)
   abstract_params(cfg)                  → meta-tensor tree + axes tree
-  forward(cfg, params, batch)           → logits (+extras) for prefill
+  forward(cfg, params, batch)           → logits (+extras) for train/prefill
+  loss_fn(cfg, params, batch)           → scalar LM loss (+ MoE aux, MTP)
   init_cache(cfg, batch, max_seq)       → decode cache tree
   decode_step(cfg, params, cache, tokens) → (logits, new cache)
 
 Mixers: GQA attention (``layers``), MLA (``mla``) and the Mamba2 SSD
 block (``mamba``); FFNs: the SwiGLU MLP and the MoE (``moe``), whose aux
 loss ``forward`` sums into ``extras["aux_loss"]``.  An unknown mixer or
-FFN raises ``ValueError``.  ``loss_fn`` (with the ``mtp`` head's loss)
-waits for the training slice.  A decode step writes its keys and values
+FFN raises ``ValueError``.  ``loss_fn`` is the reference's training loss:
+cross-entropy, 1e-3 x the MoE aux, and 0.3 x DeepSeek-V3's depth-1 MTP
+loss; with ``cfg.remat`` and autograd on, each unit of ``forward`` runs
+under ``torch.utils.checkpoint`` (memory only, never values).  A decode
+step writes its keys and values
 (MLA: its latents; Mamba: its conv windows and SSM state) into the
 cache's buffers in place (the cache is consumed, as the reference's
 jitted decode donates it) and returns a cache with new position
@@ -30,10 +34,16 @@ counters.  A pure-SSM cache has no position counter: its position reads
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.array_trie import resolve_device
@@ -204,6 +214,30 @@ def _apply_unit(cfg, p_unit, h, positions, segment_ids, cache_unit):
     return h, (new_caches if cache_unit is not None else None), aux_total
 
 
+# the products ``remat_policy="dots"`` keeps (jax's ``dots_saveable``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_unit(cfg, p_u, h, positions, segment_ids):
+    """``_apply_unit`` without a cache under ``torch.utils.checkpoint``:
+    policy ``"nothing"`` keeps only the unit's inputs and recomputes the
+    rest in the backward pass; ``"dots"`` also keeps the matmul outputs
+    (selective checkpointing)."""
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                   _save_dots)
+    h, _, aux = checkpoint(_apply_unit, cfg, p_u, h, positions, segment_ids,
+                           None, use_reentrant=False, **kw)
+    return h, None, aux
+
+
 def _restack(stacked, *per_unit):
     """One leaf of the units' new caches: the stacked buffer itself where
     every unit wrote into its own slice in place, else a new stack."""
@@ -260,15 +294,25 @@ def forward(
         if cache is not None:
             new_cache["prefix"].append(nc)
 
-    # the stacked units, one after another
+    # the stacked units, one after another; rematerialized where a
+    # backward pass will run (the reference's ``jax.checkpoint`` of its
+    # scan body changes memory only, and a cache is written in place)
     cache_units = cache["units"] if cache is not None else None
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    # each stacked leaf split once into per-unit views: its backward
+    # stacks the units' gradients once, where indexing one unit at a time
+    # would sum n_units zero-padded [n_units, ...] copies
+    units = tree_map(lambda x: x.unbind(0), params["units"])
     new_units = []
     for u in range(cfg.n_units):
-        p_u = tree_map(lambda x: x[u], params["units"])
-        c_u = (tree_map(lambda x: x[u], cache_units)
-               if cache_units is not None else None)
-        h, nc_u, aux = _apply_unit(cfg, p_u, h, positions, segment_ids,
-                                   c_u)
+        p_u = tree_map(lambda x: x[u], units)
+        if remat:
+            h, nc_u, aux = _remat_unit(cfg, p_u, h, positions, segment_ids)
+        else:
+            c_u = (tree_map(lambda x: x[u], cache_units)
+                   if cache_units is not None else None)
+            h, nc_u, aux = _apply_unit(cfg, p_u, h, positions, segment_ids,
+                                       c_u)
         aux_total = _add_aux(aux_total, aux)
         new_units.append(nc_u)
     if cache is not None:
@@ -308,6 +352,69 @@ def unembed(cfg, params, h):
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return constrain(logits, ("batch", "seq", "vocab"))
+
+
+# ----------------------------------------------------------------------
+# loss
+# ----------------------------------------------------------------------
+def _ce(logits, labels, mask):
+    """Mean cross-entropy over the positions ``mask`` keeps, in float32:
+    logsumexp less the label's logit (a gather, which equals the
+    reference's one-hot dot exactly for labels in ``[0, vocab)``), over
+    ``max(sum(mask), 1)``."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    mask = mask.float()
+    return torch.sum((lse - ll) * mask) / torch.clamp(torch.sum(mask),
+                                                      min=1.0)
+
+
+def _loss_mask(batch):
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    return mask
+
+
+def loss_fn(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, Dict]:
+    """(total loss, metrics): the LM cross-entropy plus 1e-3 x the MoE aux
+    loss, plus 0.3 x the MTP loss when ``cfg.mtp`` is set; metrics
+    ``lm_loss``, ``aux_loss`` (and ``mtp_loss``).  ``batch["loss_mask"]``
+    defaults to ones."""
+    logits, extras, _ = forward(cfg, params, batch)
+    mask = _loss_mask(batch)
+    loss = _ce(logits, batch["labels"], mask)
+    total = loss + 1e-3 * extras["aux_loss"]
+    metrics = {"lm_loss": loss, "aux_loss": extras["aux_loss"]}
+    if cfg.mtp:
+        mtp_loss = _mtp_loss(cfg, params, batch, extras["hidden"])
+        total = total + 0.3 * mtp_loss
+        metrics["mtp_loss"] = mtp_loss
+    return total, metrics
+
+
+def _mtp_loss(cfg, params, batch, hidden):
+    """DeepSeek-V3 MTP (depth 1): predict t+2 from (h_t, emb(t+1))."""
+    p = params["mtp"]
+    tokens, labels = batch["tokens"], batch["labels"]
+    mask = _loss_mask(batch)
+    cdt = torch_dtype(cfg.compute_dtype)
+    h = rmsnorm(hidden[:, :-1], p["norm_h"], cfg.norm_eps)
+    e = F.embedding(tokens[:, 1:], params["embed"]).to(cdt)
+    e = rmsnorm(e, p["norm_e"], cfg.norm_eps)
+    x = torch.cat((h, e), -1).to(cdt) @ p["proj"].to(cdt)
+    b, s1, _ = x.shape
+    positions = torch.arange(s1, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s1)
+    # the reference's block spec: the last unit layer's mixer with an MLP
+    spec = LayerSpec(cfg.unit[-1].mixer, "mlp")
+    x, _, _ = _apply_layer(cfg, spec, p["block"], x, positions, None, None)
+    logits = unembed(cfg, params, x)
+    # target at position i is labels[i+1] = t_{i+2}
+    return _ce(logits[:, :-1], labels[:, 2:], mask[:, 2:])
 
 
 # ----------------------------------------------------------------------

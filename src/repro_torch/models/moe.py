@@ -44,11 +44,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import constrain, get_mesh
+from repro_torch.distributed.sharding import MULTI_GPU, constrain, get_mesh
 from .layers import pv, torch_dtype
-
-MULTI_GPU = ("ROADMAP.md Queue 1 item 4 (named_sharding, the multi-GPU LM "
-             "slice)")
 
 
 def init_moe(key, cfg, lead: Tuple[int, ...] = ()):

@@ -38,3 +38,22 @@ def tree_leaves_with_path(tree, path: Tuple = ()
 
 def tree_leaves(tree) -> list:
     return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure holding ``leaves``, taken in the
+    order of ``tree_leaves(tree)`` (dict keys sorted)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, list):
+            return [build(v) for v in t]
+        return next(it)
+
+    out = build(tree)
+    end = object()
+    if next(it, end) is not end:
+        raise ValueError("more leaves than the tree has places")
+    return out

@@ -1,5 +1,7 @@
-"""The LM serving path on the card against the CPU, at a reduced config
-in float32.  Marked ``gpu``: it skips where no CUDA GPU is visible.
+"""The LM serving and training paths on the card against the CPU, at
+reduced configs (or reduced depth) in float32, and a checkpoint saved and
+restored on the card.  Marked ``gpu``: it skips where no CUDA GPU is
+visible.
 This module imports neither JAX nor the reference package, so on a GPU
 host without JAX it runs alone:
 
@@ -194,3 +196,76 @@ def test_jamba_unit_on_gpu_equals_cpu(cuda):
     dense MoE on odd layers) in float32: as above, the aux loss within
     1e-5 relative and the attention layer's ``pos`` 22."""
     assert _ssm_on_gpu_equals_cpu(cuda, "jamba-1.5-large-398b") == 22
+
+
+def test_train_step_on_gpu_equals_cpu(cuda):
+    """smollm-360m at full width (d_model 960, vocab 49,152) cut to two
+    units, f32 compute, remat on as the config sets it, TF32 off: one
+    AdamW ``make_train_step`` step on a pipeline batch (``segment_ids``,
+    ``loss_mask``) on the card against its CPU copy: the loss and the
+    grad norm within 1e-4 relative, the params within the reference
+    test's tolerance (rtol 2e-2, atol 2e-4), the AdamW moments within
+    1e-3 of each leaf's max."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (
+        PipelineConfig, TokenPipeline, synthetic_corpus,
+    )
+    from repro_torch.models import materialize_params
+    from repro_torch.pytree import tree_leaves, tree_map
+    from repro_torch.train import OptConfig, make_train_step, pick_optimizer
+
+    cfg = get_config("smollm-360m").scaled(n_units=2,
+                                           compute_dtype="float32")
+    params, _ = materialize_params(cfg, torch.Generator().manual_seed(12),
+                                   "cpu")
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    batch = TokenPipeline(synthetic_corpus(64, seed=1), PipelineConfig(
+        seq_len=64, global_batch=2)).batch_at(0)
+    opt = pick_optimizer(cfg, OptConfig(lr=1e-3, warmup_steps=1))
+    step = make_train_step(cfg, opt)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        outs = [step(p, opt.init(p), {k: torch.as_tensor(v, device=dev)
+                                      for k, v in batch.items()}, 0)
+                for p, dev in ((params, "cpu"), (on_card, cuda))]
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    (want_p, want_s, want_m), (got_p, got_s, got_m) = outs
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(got_m[k]), float(want_m[k]),
+                                   rtol=1e-4)
+    for g, w in zip(tree_leaves(got_p), tree_leaves(want_p)):
+        assert g.device.type == "cuda"
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=2e-2,
+                                   atol=2e-4)
+    for g, w in zip(tree_leaves(got_s), tree_leaves(want_s)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
+                                   atol=1e-3 * float(w.abs().max()))
+
+
+def test_checkpoint_save_restore_on_gpu(cuda, tmp_path):
+    """A checkpoint of a tree on the card (f32 and bf16 leaves, an int32
+    counter) saved through ``AsyncCheckpointer`` restores onto the card
+    bitwise, and a CPU-written copy restores onto the card too."""
+    from repro_torch.pytree import tree_leaves, tree_map
+    from repro_torch.train.checkpoint import (
+        AsyncCheckpointer, restore_latest, save,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    tree = {"w": torch.randn(64, 33, generator=gen, device=cuda),
+            "h": [torch.randn(7, generator=gen, device=cuda).bfloat16()],
+            "n": torch.arange(5, dtype=torch.int32, device=cuda)}
+    ck = AsyncCheckpointer(str(tmp_path / "card"))
+    ck.save_async(3, tree)
+    ck.wait()
+    save(str(tmp_path / "host"), 4, tree_map(lambda t: t.cpu(), tree))
+    for where in ("card", "host"):
+        restored, _ = restore_latest(str(tmp_path / where), tree)
+        for g, w in zip(tree_leaves(restored), tree_leaves(tree)):
+            assert g.device == w.device and g.dtype == w.dtype
+            assert torch.equal(g, w)
