@@ -6,11 +6,31 @@ its LM serving path (dense, then MLA + MoE, then Mamba2 and Jamba's
 hybrid unit) and its training path on one NVIDIA GPU.
 
     python3 chip_smoke.py [--edges N] [--seed S] [--reps R]
+                          [--tuning-out DIR] [--tuning-only]
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, in
    parallel, beside the latency probe ``probes/pointer_chase.cu``).
 2. Builds ``synthetic_csr_trie(--edges)`` (default 2^20 rules) on the host
-   and uploads it.
+   and uploads it.  Then the ``[tuning]`` phase prints the launch config
+   every later phase runs under (``kernels/tuning.get_kernel_config()``,
+   which must be the defaults).  With ``--tuning-only`` it sweeps instead,
+   and stops: every launch knob of ``kernels/tuning.py`` one at a time
+   over powers of two around its default, every other knob at its
+   default, on step 4's traffic (the rank kernel at k = 10 and 100 over
+   the 256 prefixes, the membership kernel over the 256 items a role,
+   trie_reduce on the trie, on 2^23 random columns and on its first 2-16
+   tiles), the seed layout's 8192 x 8 sweep rows, the retail support
+   counts of step 5 and a 1,024-request serve-loop drain.  Each value's
+   outputs == the plain version's (``kernels.ref`` on the same card
+   tensors) and the default's, bitwise (the reduction's sums bitwise
+   against ``ref.trie_reduce_split_ref`` at the launch's block count and
+   within 1e-6 of the default's; the drain against the default's drain);
+   one line per (knob, value) with each lane's device ms by name (L2
+   flushed, mean of --reps) and ``launch.roofline.kernel_roofline``'s
+   bandwidth share, and the value the sweep would choose (the default
+   unless another beats it by 2% in the sweep and again in turns).  The
+   sweep's record goes to ``--tuning-out``/``sweep.json`` (default
+   ``chiprun_out/tuning/``).
 3. Holds every kernel against its plain PyTorch version on the card at
    full size: all rank metrics, k in {10, 100} and a k past small ranges,
    every rules_with role (min_depth 0 too: the item -1's consequent row
@@ -222,7 +242,10 @@ hybrid unit) and its training path on one NVIDIA GPU.
 16. Prints the GPU's name and power limit, one ``{"kernels": [...]}``
    line, and last ``{"ok": true, "device": {...}}``.
 
-Exits non-zero with no result when CUDA is unavailable or any phase fails.
+Exits non-zero with no result when CUDA is unavailable, when
+``REPRO_TORCH_FORCE_INTERPRET`` asks for the plain versions (which run on
+CPU tensors only), or when any phase fails.  The card's peaks (bounds) come from
+``repro_torch.launch.roofline``.
 """
 import argparse
 import contextlib
@@ -241,9 +264,12 @@ from collections import Counter
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
-FP32_OPS_PER_S = 67e12       # H100 SXM 32-bit CUDA-core peak
-BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+# the card's peaks (H100 SXM at 700 W: HBM bytes/s, float32 CUDA-core
+# and dense bf16 tensor-core operations/s)
+from repro_torch.launch.roofline import (  # noqa: E402
+    FP32_FLOPS as FP32_OPS_PER_S, HBM_BW as HBM_BYTES_PER_S,
+    PEAK_FLOPS as BF16_OPS_PER_S,
+)
 MINSUP = 0.002               # the retail operating point (arm/datasets.py)
 COMPRESS_N_TX = 100_000      # int32 support denominator of the chain trie
 # the compressed tries of step 6: FrozenTrie.device_arrays arguments
@@ -894,6 +920,349 @@ def unstaged_case(dev, seed):
         f"launch {shape}: kernel == plain version == host sweep, exactly; "
         f"{cuda_ms(lambda: support_count_bitmap(*args_t), 5):.4f} ms per "
         f"call")
+
+
+# ----------------------------------------------------------------------
+# the tuning sweep: every launch knob, one at a time, on the card
+# ----------------------------------------------------------------------
+# the values each knob is swept over (powers of two around its default)
+TUNING_VALUES = {
+    "select_work_blocks": (256, 512, 1024, 2048, 4096),
+    "rank_min_tiles": (1, 2, 4, 8, 16, 32),
+    "member_min_tiles": (1, 2, 4, 8, 16, 32),
+    "reduce_blocks_per_sm": (1, 2, 4, 8),
+    "reduce_single_block_tiles": (1, 2, 4, 8),
+    "sweep_blocks_per_sm": (1, 2, 4, 8),
+    "support_max_bw": (4, 8, 16, 32),
+    "launch_pad_floor": (1, 8, 32),
+}
+# the lanes of traffic each knob's sweep times (tuning_lanes)
+MEMBER_LANES = tuple(f"member {role}" for role in ROLES)
+TUNING_LANES = {
+    "select_work_blocks": ("rank k=10", "rank k=100", *MEMBER_LANES),
+    "rank_min_tiles": ("rank k=10", "rank k=100"),
+    "member_min_tiles": MEMBER_LANES,
+    "reduce_blocks_per_sm": ("reduce 2^20", "reduce 2^23 columns"),
+    "reduce_single_block_tiles": tuple(f"reduce {t} tiles"
+                                       for t in (2, 4, 8, 16)),
+    "sweep_blocks_per_sm": ("sweep rows", "sweep consequent rows"),
+    "support_max_bw": ("support retail levels",),
+    "launch_pad_floor": ("serve drain",),
+}
+# a value replaces the default only when its lanes' summed ms are this
+# share under the default's (the spread between repeated runs, PERF.md §5)
+TUNING_MARGIN = 0.02
+TUNING_DRAIN = 1024          # requests of the floor's serve-loop drain
+REDUCE_NODES = 1 << 23       # synthetic columns: twice the L2, 2048 tiles
+
+
+def tuple_of(out):
+    """A wrapper's outputs as a tuple of tensors (a dict in key order)."""
+    return tuple(out.values()) if isinstance(out, dict) else tuple(out)
+
+
+def drain_lane(engine, frozen, seed):
+    """The floor's lane: ``TUNING_DRAIN`` zipfian requests drained at once
+    through a fresh ``TrieScheduler`` on a virtual clock with no timer
+    (the same batches at every value); returns each request's (status,
+    host rows)."""
+    from repro_torch.serve import (
+        FaultInjector, FaultyEngine, ResilientTrieEngine, TrieScheduler,
+        VirtualClock, zipfian_workload,
+    )
+
+    wl = zipfian_workload(frozen, TUNING_DRAIN, seed=seed,
+                          deadline_ms=(math.inf,))
+
+    def call():
+        clock = VirtualClock()
+        sched = TrieScheduler(
+            ResilientTrieEngine(FaultyEngine(engine, FaultInjector(),
+                                             clock=clock)),
+            clock=clock, max_batch=SERVE_MAX_BATCH, max_pending=len(wl))
+        reqs = [sched.submit(w["op"], w["payload"], w["kwargs"],
+                             tenant=w["tenant"]) for w in wl]
+        sched.drain()
+        return [(sched.responses[r.id].status, sched.responses[r.id].result)
+                for r in reqs]
+    return call
+
+
+def tuning_lanes(args, dev, engine, frozen, traffic):
+    """Every lane of the sweep, by name: ``call`` (one pass, returning
+    its outputs), ``plain`` (the plain PyTorch version of the same call,
+    from ``kernels.ref``, for the ``exact`` lanes), ``kernels`` (the
+    device kernels timed by name), ``bytes`` (the work's bytes at the
+    card's rate, or None), ``kind`` (``exact``: every output bitwise;
+    ``reduce``: ``check_reduce``'s rules on ``cols``; ``drain``: statuses
+    and rows bitwise).  Made under the default config (the member and
+    sweep rows are padded by ``launch_pad``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.arm.datasets import online_retail_db
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.item_index import rules_with_member
+    from repro_torch.kernels.rank import topk_rank_batch
+    from repro_torch.kernels.rule_search import rule_search_sweep
+    from repro_torch.kernels.support_count import support_count_bitmap
+    from repro_torch.kernels.trie_reduce import trie_reduce_stats
+
+    queries, ant_len, pairs, prefixes, items = traffic
+    dt, n = engine.dt, frozen.n_nodes
+    lanes = {}
+    dfs = ops.dfs_rank_arrays(dt)
+    los, his, _ = ops.prefix_ranges(frozen, prefixes, dt=dt)
+    r_args = (dfs["support"], dfs["confidence"], dfs["lift"], dfs["depth"],
+              los, his)
+    covered = covered_positions(n, los, his)
+    for k in (10, 100):
+        kw = dict(k=k, metric="confidence", min_depth=1)
+        lanes[f"rank k={k}"] = dict(
+            call=functools.partial(topk_rank_batch, *r_args, **kw),
+            plain=functools.partial(ref.topk_rank_batch_ref, *r_args, **kw),
+            kernels=KERNEL_NAMES["topk_rank_batch"], kind="exact",
+            bytes=score_bytes("confidence", *r_args[:2]) * covered
+            + 8 * los.numel() * (1 + k))
+    ia = ops.item_rank_arrays(dt)
+    m_rows = member_kernel_rows(ia, items, dev)
+    m_args = (ia["support"], ia["confidence"], ia["lift"], ia["depth"],
+              ia["node_item"], ia["post_lo"], ia["post_hi"], *m_rows)
+    for role in ROLES:
+        kw = dict(k=10, metric="confidence", min_depth=1, role=role)
+        lanes[f"member {role}"] = dict(
+            call=functools.partial(rules_with_member, *m_args, **kw),
+            plain=functools.partial(ref.rules_with_ref, *m_args, **kw),
+            kernels=KERNEL_NAMES["rules_with_member"], kind="exact",
+            bytes=member_work(ia, m_rows, role, 10, score_bytes(
+                "confidence", ia["support"], ia["confidence"]))[0])
+
+    def reduce_lane(cols):
+        return dict(call=functools.partial(trie_reduce_stats, *cols),
+                    kernels=KERNEL_NAMES["trie_reduce_columns"],
+                    kind="reduce", cols=cols,
+                    bytes=12 * cols[0].shape[0] + 20)
+    red = (dt.support, dt.confidence, dt.node_depth)
+    lanes["reduce 2^20"] = reduce_lane(red)
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    lanes["reduce 2^23 columns"] = reduce_lane((
+        torch.rand((REDUCE_NODES,), generator=g, device=dev),
+        torch.rand((REDUCE_NODES,), generator=g, device=dev),
+        torch.randint(0, 8, (REDUCE_NODES,), generator=g, device=dev,
+                      dtype=torch.int32)))
+    # 4,096 f32 nodes a tile: the first t tiles of the 2^20 trie
+    for t in (2, 4, 8, 16):
+        lanes[f"reduce {t} tiles"] = reduce_lane(
+            tuple(c[:4096 * t] for c in red))
+
+    seed_dt = dataclasses.replace(dt, child_offsets=None, max_fanout=0)
+    sw = ops.edge_metric_arrays(seed_dt)
+    sw_cols = [sw[k] for k in ("edge_parent", "edge_item", "edge_child",
+                               "edge_conf", "edge_sup", "edge_lift")]
+    rows, rows_al = seed_rows(queries, ant_len, frozen, pairs)
+    e = int(sw_cols[0].shape[0])
+    for tag, (q_t, al_t) in sweep_launch_rows(rows, rows_al, dev).items():
+        lanes[f"sweep {tag}"] = dict(
+            call=functools.partial(rule_search_sweep, *sw_cols, q_t, al_t),
+            plain=functools.partial(ref.rule_search_sweep_ref, *sw_cols,
+                                    q_t, al_t),
+            kernels=KERNEL_NAMES["rule_search_sweep"], kind="exact",
+            bytes=sweep_work(dt, e, q_t, al_t)[0])
+
+    db = online_retail_db()
+    _, levels, _ = support_launches(db, MINSUP, dev)
+    bm = db.device_bitmaps(dev)
+    up = [(torch.as_tensor(m, device=dev), torch.as_tensor(ln, device=dev))
+          for m, ln in levels]
+    lanes["support retail levels"] = dict(
+        call=lambda: tuple(support_count_bitmap(bm, m, ln, db.n_transactions)
+                           for m, ln in up),
+        plain=lambda: tuple(ref.support_count_bitmap_ref(
+            bm, m, ln, db.n_transactions) for m, ln in up),
+        kernels=KERNEL_NAMES["support_count_bitmap"], kind="exact",
+        bytes=sum(support_work(m, db.n_words)[0] for m, _ in levels))
+
+    lanes["serve drain"] = dict(
+        call=drain_lane(engine, frozen, args.seed), kind="drain",
+        kernels=sum((KERNEL_NAMES[k] for k in PLAIN_QUERY_KERNELS), ()),
+        bytes=None)
+    return lanes
+
+
+def tuning_check(what, lane, got, plain, default):
+    """One value's outputs of ``lane`` against the plain version's and
+    the default value's: bitwise, but for the reduction's sums (bitwise
+    against ``ref.trie_reduce_split_ref`` at the launch's block count,
+    within 1e-6 relative of the default's).  The drain has no plain
+    version of its own and is held to the default's drain: every kernel
+    it launches is held to its plain version by the other lanes."""
+    if lane["kind"] == "exact":
+        check_same(f"{what} (plain version)", tuple_of(got), plain, [])
+        check_same(f"{what} (the default)", tuple_of(got), default, [])
+    elif lane["kind"] == "reduce":
+        check_reduce(what, *lane["cols"], [])
+        got = tuple_of(got)
+        check_same(f"{what} count/max (the default)", (got[0], got[2]),
+                   (default[0], default[2]), [])
+        for i in (1, 3, 4):
+            g, w = float(got[i]), float(default[i])
+            if abs(g - w) > 1e-6 * abs(w):
+                raise AssertionError(f"{what}: a sum {g} is off the "
+                                     f"default's {w}")
+    else:
+        for want in (default,):
+            if len(got) != len(want):
+                raise AssertionError(f"{what}: {len(got)} responses")
+            for i, ((gs, gr), (ws, wr)) in enumerate(zip(got, want)):
+                if gs != ws or gs != "ok":
+                    raise AssertionError(f"{what}: request {i} {gs} / {ws}")
+                host_fields_equal(f"{what} request {i}", gr, wr)
+
+
+def lane_ms(lane, args, l2_flush):
+    """``(ms, timer)`` of one pass of ``lane``: its kernels' device ms by
+    name (L2 flushed, mean of --reps; of 2 for the drain), or CUDA events
+    around a pass where a trace holds no device time."""
+    reps = 2 if lane["kind"] == "drain" else args.reps
+    ms = device_ms(lane["call"], reps, l2_flush.zero_,
+                   kernel=lane["kernels"])
+    if ms is None:
+        return cuda_ms(lane["call"], reps), "events"
+    return ms, "profiler"
+
+
+def tuning_sweep(args, dev, smi, engine, frozen, traffic, l2_flush):
+    """Sweep each knob over ``TUNING_VALUES`` with every other knob at its
+    default: each value's lanes checked against the plain version and the
+    default, and timed (device ms of their kernels by name, L2 flushed,
+    mean of --reps; CUDA events where a trace holds no device time).
+    Returns ``(the config the sweep would choose, sweep record)``; a
+    value is chosen where its summed ms beat the default's by
+    ``TUNING_MARGIN``, in the sweep and again in turns."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels.tuning import (
+        DEFAULTS, get_kernel_config, tuning_overrides,
+    )
+    from repro_torch.launch.roofline import kernel_roofline
+
+    t0 = time.perf_counter()
+    if get_kernel_config() != DEFAULTS:
+        raise AssertionError("[tuning] the sweep starts from the defaults")
+    lanes = tuning_lanes(args, dev, engine, frozen, traffic)
+    plain, default = {}, {}
+    for name, lane in lanes.items():
+        # the drain's outputs are responses; the reduction's plain
+        # version is check_reduce's
+        keep = (lambda out: out) if lane["kind"] == "drain" else tuple_of
+        default[name] = keep(lane["call"]())
+        if "plain" in lane:
+            plain[name] = tuple_of(lane["plain"]())
+    torch.cuda.synchronize()
+    log(f"[tuning] {smi}: {len(lanes)} lanes, each run once at the "
+        f"defaults and, but for the drain and the reductions, once as "
+        f"its plain version on the card "
+        f"({time.perf_counter() - t0:.1f} s)")
+    record, chosen = {}, {}
+    for knob, values in TUNING_VALUES.items():
+        base = getattr(DEFAULTS, knob)
+        record[knob] = {}
+        for v in values:
+            with tuning_overrides(**{knob: v}):
+                parts = []
+                total = 0.0
+                for name in TUNING_LANES[knob]:
+                    lane = lanes[name]
+                    tuning_check(f"[tuning] {knob}={v} {name}", lane,
+                                 lane["call"](), plain.get(name),
+                                 default[name])
+                    ms, timer = lane_ms(lane, args, l2_flush)
+                    total += ms
+                    share = "" if lane["bytes"] is None else \
+                        " (bw {:.1%})".format(kernel_roofline(
+                            lane["bytes"], ms / 1e3, dev)
+                            ["bandwidth_util"])
+                    parts.append(f"{name} {ms:.5f} ms{share}"
+                                 + ("" if timer == "profiler"
+                                    else " [events]"))
+                    record[knob].setdefault(str(v), {})[name] = ms
+            record[knob][str(v)]["total"] = total
+            log(f"[tuning] {knob}={v}{' (default)' if v == base else ''}"
+                f": {'; '.join(parts)}; total {total:.5f} ms; == plain "
+                f"version and default")
+        totals = {v: record[knob][str(v)]["total"] for v in values}
+        best = min(values, key=totals.get)
+        chosen[knob] = base
+        if best != base and \
+                totals[best] < (1 - TUNING_MARGIN) * totals[base]:
+            # the sweep's winner against the default again, in turns
+            # (default, winner, winner, default)
+            turns = {base: [], best: []}
+            for v in (base, best, best, base):
+                with tuning_overrides(**{knob: v}):
+                    turns[v].append(sum(
+                        lane_ms(lanes[name], args, l2_flush)[0]
+                        for name in TUNING_LANES[knob]))
+            ratio = sum(turns[best]) / sum(turns[base])
+            record[knob]["confirm"] = {str(v): t for v, t in
+                                       turns.items()}
+            if ratio < 1 - TUNING_MARGIN:
+                chosen[knob] = best
+            log(f"[tuning] {knob}: {best} against the default {base} "
+                f"in turns: {turns[base][0]:.5f} / {turns[best][0]:.5f}"
+                f" / {turns[best][1]:.5f} / {turns[base][1]:.5f} ms "
+                f"({ratio - 1:+.1%})")
+        log(f"[tuning] {knob}: chose {chosen[knob]}"
+            f"{' (the default)' if chosen[knob] == base else ''}; the "
+            f"sweep's best {best} at "
+            f"{totals[best] / totals[base] - 1:+.1%} of the default's "
+            f"ms (a value must beat it by {TUNING_MARGIN:.0%}, in the "
+            f"sweep and in turns); {smi}")
+    cfg = dataclasses.replace(DEFAULTS, **chosen)
+    log(f"[tuning] sweep done in {time.perf_counter() - t0:.1f} s: "
+        f"{dataclasses.asdict(cfg)}")
+    return cfg, record
+
+
+def tuning_live(what):
+    """The launch knobs every later phase runs under: ``get_kernel_config()``
+    on the card, which must be the defaults (no override is active and
+    the port has no table).  Returns the config."""
+    import dataclasses
+
+    from repro_torch.kernels.tuning import DEFAULTS, get_kernel_config
+
+    live = get_kernel_config()
+    if live != DEFAULTS:
+        raise AssertionError(f"{what}: get_kernel_config() {live} is not "
+                             f"the defaults")
+    log(f"{what} resolved config {dataclasses.asdict(live)} (the defaults)")
+    return live
+
+
+def tuning_phase(args, dev, smi, engine, frozen, traffic, l2_flush):
+    """The ``[tuning]`` phase.  With ``--tuning-only``: the sweep, its
+    record written to ``--tuning-out``/``sweep.json``.  Otherwise the
+    config every later phase runs under, printed."""
+    import dataclasses
+
+    import torch
+
+    if not args.tuning_only:
+        return tuning_live("[tuning]")
+    cfg, record = tuning_sweep(args, dev, smi, engine, frozen, traffic,
+                               l2_flush)
+    os.makedirs(args.tuning_out, exist_ok=True)
+    path = os.path.join(args.tuning_out, "sweep.json")
+    with open(path, "w") as fh:
+        json.dump({"device": smi, "torch": torch.__version__,
+                   "cuda": torch.version.cuda, "reps": args.reps,
+                   "margin": TUNING_MARGIN, "chosen": dataclasses.asdict(cfg),
+                   "lanes": TUNING_LANES, "sweep_ms": record}, fh, indent=2)
+        fh.write("\n")
+    log(f"[tuning] the sweep's record -> {path}")
+    return cfg
 
 
 def construction_phase(args, dev, l2_flush):
@@ -4774,6 +5143,12 @@ def main():
     ap.add_argument("--edges", type=int, default=1 << 20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--tuning-out", default=os.path.join(
+        HERE, "chiprun_out", "tuning"),
+        help="where --tuning-only writes its sweep's record")
+    ap.add_argument("--tuning-only", action="store_true",
+                    help="build, sweep every launch knob, write the "
+                    "sweep's record and stop")
     args = ap.parse_args()
 
     import numpy as np
@@ -4786,7 +5161,7 @@ def main():
 
     from repro_torch.core import synthetic
     from repro_torch.kernels import (
-        KERNELS, launch_counts, ops, reset_launch_counts,
+        KERNELS, interpret_mode, launch_counts, ops, reset_launch_counts,
     )
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.item_index import rules_with_member
@@ -4804,6 +5179,12 @@ def main():
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda", 0)
+    try:
+        interpret_mode(dev)
+    except ValueError as exc:
+        # REPRO_TORCH_FORCE_INTERPRET asks for the plain versions
+        print(f"chip_smoke: {exc}", file=sys.stderr)
+        return 2
     t_start = time.perf_counter()
 
     # -- 1. build ------------------------------------------------------
@@ -4850,6 +5231,17 @@ def main():
     plos_t = torch.as_tensor(plos, device=dev)
     phis_t = torch.as_tensor(phis, device=dev)
     qitems_t = torch.as_tensor(qitems, device=dev)
+
+    # written between timed calls: the L2 cold for every device time
+    l2_flush = torch.empty((L2_FLUSH_BYTES // 4,), dtype=torch.float32,
+                           device=dev)
+
+    # -- 2b. the launch knobs: the sweep (--tuning-only), else the config --
+    tuning_phase(args, dev, smi, engine, frozen,
+                 (queries, ant_len, pairs, prefixes, items), l2_flush)
+    log(f"[tuning] phase done at {time.perf_counter() - t_start:.1f} s")
+    if args.tuning_only:
+        return 0
 
     def tie_heavy(cols):
         return [torch.round(c * 10) / 10 for c in cols]
@@ -5010,8 +5402,6 @@ def main():
     # casts, clamps and reductions too); "call_ms" and "plain_call_ms" are
     # CUDA events around one call, host launch work included, which is
     # all a call shorter than its launches shows
-    l2_flush = torch.empty((L2_FLUSH_BYTES // 4,), dtype=torch.float32,
-                           device=dev)
     rows = [kernel_row(name, kern, plain, work[name], sources[name],
                        launches[name], max(errs[name]), reps, l2_flush.zero_)
             for name, (kern, plain) in calls.items()]

@@ -13,8 +13,10 @@ hand-written for Hopper, and the ops over them.
   transaction bitmaps (CUDA)
 
 Each wrapper runs its kernel on CUDA tensors and its plain PyTorch version
-(``ref``) on CPU tensors, and counts its kernel launches in a plain
-integer attribute ``launches``.  The rank, membership, span-search and
+(``ref``) on CPU tensors (``interpret_mode``), reads its launch knobs
+from ``tuning.get_kernel_config`` (a ``tuning_overrides`` scope, else the
+defaults), and counts its kernel launches in a plain integer attribute
+``launches``.  The rank, membership, span-search and
 reduction kernels take quantized metric columns and widen them in-kernel.
 """
 from .item_index import ROLES, rules_with_member
@@ -25,7 +27,9 @@ from .rule_search import (
 )
 from .support_count import support_count_bitmap
 from .trie_reduce import trie_reduce_columns
-from .tuning import launch_pad
+from .tuning import (
+    KernelConfig, get_kernel_config, launch_pad, tuning_overrides,
+)
 from .ops import (
     InvalidQueryError,
     TransientBackendError,
@@ -36,6 +40,7 @@ from .ops import (
     dense_from_bitmaps,
     dfs_rank_arrays,
     edge_metric_arrays,
+    interpret_mode,
     is_retryable,
     item_rank_arrays,
     members_from_candidates,
@@ -72,6 +77,7 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS",
+    "KernelConfig",
     "RANK_METRICS",
     "ROLES",
     "InvalidQueryError",
@@ -83,6 +89,8 @@ __all__ = [
     "dense_from_bitmaps",
     "dfs_rank_arrays",
     "edge_metric_arrays",
+    "get_kernel_config",
+    "interpret_mode",
     "is_retryable",
     "item_rank_arrays",
     "launch_counts",
@@ -104,4 +112,5 @@ __all__ = [
     "topk_rank_batch",
     "trie_reduce",
     "trie_reduce_columns",
+    "tuning_overrides",
 ]

@@ -5,6 +5,10 @@ Every ``csrc/*.cu`` becomes its own library, all compiled in parallel at
 first use, into ``build/repro_torch_kernels/<hash>/`` at the checkout root;
 the hash covers every source, header and flag, so an edited source
 rebuilds and an unchanged one loads.  Nothing here runs at import time.
+
+``interpret_mode`` decides, for every wrapper, whether a call runs the
+kernel or its plain version (``ops`` re-exports it under the reference's
+name and place).
 """
 from __future__ import annotations
 
@@ -156,6 +160,57 @@ def build_all() -> Dict[str, ctypes.CDLL]:
 
 def lib(name: str) -> ctypes.CDLL:
     return build_all()[name]
+
+
+_TRUTHY = frozenset({"1", "true", "yes", "on", "interpret"})
+_FALSY = frozenset({"0", "false", "no", "off", "compiled"})
+_interpret_cache: dict = {}
+
+
+def interpret_mode(device=None) -> bool:
+    """Whether a kernel wrapper called on ``device`` (a ``torch.device``, a
+    name, or None for CUDA where it is available, else the CPU) runs its
+    plain PyTorch version instead of launching its kernel: on the CPU it
+    does, on CUDA it launches (no other device has a kernel; a wrapper
+    raises there).  Only the tensors' device decides.
+
+    ``REPRO_TORCH_FORCE_INTERPRET`` takes the reference's
+    ``REPRO_FORCE_INTERPRET`` values and checks them: truthy
+    (1/true/yes/on/interpret) asks for the plain versions, which the port
+    runs on CPU tensors only, so on CUDA it raises; falsy
+    (0/false/no/off/compiled) asks for the kernels, so on the CPU it
+    raises rather than quietly running the plain version.  The decision
+    is cached per (env value, device type), so flipping the env var
+    mid-process takes effect on the next call.
+    """
+    import torch
+
+    env = os.environ.get("REPRO_TORCH_FORCE_INTERPRET")
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    kind = torch.device(device).type
+    key = (env, kind)
+    hit = _interpret_cache.get(key)
+    if hit is not None:
+        return hit
+    mode = kind == "cpu"
+    if env is not None and env.strip():
+        val = env.strip().lower()
+        if val not in _TRUTHY | _FALSY:
+            raise ValueError(
+                f"REPRO_TORCH_FORCE_INTERPRET={env!r} not understood; use "
+                f"one of {sorted(_TRUTHY)} or {sorted(_FALSY)}"
+            )
+        if (val in _TRUTHY) != mode:
+            raise ValueError(
+                f"REPRO_TORCH_FORCE_INTERPRET={env!r} asks for the "
+                f"{'plain versions' if val in _TRUTHY else 'kernels'}, but "
+                f"{kind} tensors run "
+                f"{'the plain versions' if mode else 'the kernels'}: "
+                f"only the tensors' device chooses"
+            )
+    _interpret_cache[key] = mode
+    return mode
 
 
 def check(err: int, what: str) -> None:

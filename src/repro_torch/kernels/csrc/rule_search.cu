@@ -499,7 +499,9 @@ extern "C" int rule_search_span_launch(
 #define SW_LANE_EDGES 4            // edge fingerprints a lane reads at once
 #define SW_CHUNK (32 * SW_LANE_EDGES)  // edges a warp reads at once
 #define SW_THREADS 256             // match block: 8 warps
-#define SW_BLOCKS_PER_SM 4         // match blocks resident on an SM
+#define SW_BLOCKS_PER_SM 4         // register budget: 4 resident an SM
+                                   // (the grid's count is the knob
+                                   // sweep_blocks_per_sm)
 #define SW_STEP_THREADS 256        // advance block
 #define SW_CANON_NAN 0x7fc00000
 

@@ -13,7 +13,7 @@
 // and does three adds, a compare and a max per node.  At 2^20 nodes the
 // bytes take 3.8 us at 3.35 TB/s, about what two launches' fixed cost
 // takes, so the design is one launch that streams:
-//   1. A persistent grid: trie_reduce.py's BLOCKS_PER_SM blocks an SM
+//   1. A persistent grid: the knob reduce_blocks_per_sm's blocks an SM
 //      (fewer when the columns hold fewer tiles), each walking tiles of
 //      TR_THREADS x TR_TILE_NODES nodes, tile b, b + grid, ...  A vector
 //      is 16 bytes of the confidence column (4 f32, 8 bf16 or 16 int8

@@ -19,7 +19,10 @@ query's members, in the closed form of ``ref.member_ranges_ref``: the
 outermost posting ranges (antecedent, any) or the postings themselves
 (consequent).  On a CPU tensor it runs the plain version
 ``ref.rules_with_ref``.  Quantized metric columns (the compressed layout)
-widen in the kernel's score pass, as in ``rank``.
+widen in the kernel's score pass, as in ``rank``.  Its selection grid
+(``select_work_blocks``) and the fewest tiles a block of its top-k pass
+takes (``member_min_tiles``) are launch knobs, read from
+``tuning.get_kernel_config()`` at call time (``launch_shape``).
 """
 from __future__ import annotations
 
@@ -32,13 +35,27 @@ from .rank import (
     TILE, metric_column_args, scratch, selection_grid, selection_lists,
 )
 from .ref import _empty_ranked, rules_with_ref
+from .tuning import DEFAULTS, get_kernel_config
 
 ROLES = ("consequent", "antecedent", "any")
 POSTING_CHUNK = 2048  # postings per block of the range pass (item_index.cu)
-# the fewest tiles of candidates a block of the top-k pass takes (its grid
-# is rank.selection_grid's): a block's first tile sorts every candidate it
-# admits, later ones only those that beat the query's running k-th key
-MIN_TILES = 8
+# the default of member_min_tiles (tuning.DEFAULTS): the fewest tiles of
+# candidates a block of the top-k pass takes (its grid is
+# rank.selection_grid's), since a block's first tile sorts every candidate
+# it admits and later ones only those that beat the query's running k-th
+# key
+MIN_TILES = DEFAULTS.member_min_tiles
+
+
+def launch_shape(q: int, k: int) -> dict:
+    """The top-k pass of ``q`` item queries at ``k``: the selection grid
+    (``rank.selection_grid``), the fewest tiles a block takes and the
+    int32 words of its plan scratch (a first block, a block count and a
+    finished count a query, then a query a block)."""
+    work_blocks, grid = selection_grid(q, k)
+    return {"work_blocks": work_blocks, "grid": grid,
+            "min_tiles": get_kernel_config().member_min_tiles,
+            "plan_words": 3 * q + grid}
 
 
 def rules_with_member(
@@ -55,7 +72,7 @@ def rules_with_member(
     dev = support.device
     dequant = dict(n_transactions=n_transactions,
                    confidence_scale=confidence_scale, lift_scale=lift_scale)
-    if dev.type == "cpu":
+    if _build.interpret_mode(dev):
         return rules_with_ref(
             support, confidence, lift, depth, node_item, post_lo, post_hi,
             plos, phis, items, k=k, metric=metric, min_depth=min_depth,
@@ -93,7 +110,7 @@ def rules_with_member(
         np.cumsum(lens) - lens, np.cumsum(chunks) - chunks,
         np.repeat(np.arange(q), chunks),
     ]).astype(np.int32)).to(dev)
-    work_blocks, grid = selection_grid(q, k)
+    shape = launch_shape(q, k)
     # held here until the launch returns: the C side takes raw pointers
     n_chunks, slots = int(chunks.sum()), int(lens.sum())
     bufs = [
@@ -101,13 +118,13 @@ def rules_with_member(
         scratch(n_chunks, torch.int64, dev),
         scratch(slots, torch.int32, dev), scratch(slots, torch.int32, dev),
         scratch(2 * q, torch.int32, dev),
-        scratch(3 * q + grid, torch.int32, dev),
+        scratch(shape["plan_words"], torch.int32, dev),
         scratch(q, torch.int64, dev),
     ]
     lists = [
         scratch(n, torch.float32, dev),
         scratch(-(-n // TILE), torch.int64, dev),
-        *selection_lists(grid, k, dev),
+        *selection_lists(shape["grid"], k, dev),
     ]
     vals = torch.empty((q, k), dtype=torch.float32, device=dev)
     pos = torch.empty((q, k), dtype=torch.int32, device=dev)
@@ -117,7 +134,8 @@ def rules_with_member(
         plos.data_ptr(), phis.data_ptr(), items.data_ptr(),
         q, k, metric_index(metric), int(min_depth), ROLES.index(role),
         meta.data_ptr(), n_chunks, *[b.data_ptr() for b in bufs],
-        MIN_TILES, work_blocks, *[b.data_ptr() for b in lists],
+        shape["min_tiles"], shape["work_blocks"],
+        *[b.data_ptr() for b in lists],
         vals.data_ptr(), pos.data_ptr(), _build.stream_handle(dev),
     )
     _build.check(err, "rules_with_member")

@@ -44,6 +44,13 @@ its own range, and the answers merge on the mesh's lead device, bitwise
 the single-device op's.  Every other op refuses a plan, as the reference
 has no sharded form of it.
 
+Each wrapper chooses its kernel or its plain version by
+``interpret_mode``: the plain version on the CPU, the kernel on CUDA
+(``REPRO_TORCH_FORCE_INTERPRET`` can only assert one of the two, and
+raises where the device disagrees).  It lives in ``_build``, beside the
+launches, since the wrappers import it and this module imports them.
+Launch knobs resolve at call time from ``tuning.get_kernel_config()``.
+
 Every kernel dispatch runs under ``_profiled``, the launch profiler's
 hook (``obs.profile.kernel_profiler``): disabled, it costs one attribute
 read.
@@ -67,6 +74,7 @@ from repro_torch.core.array_trie import (
 from repro_torch.core.delta_trie import StreamingTrie
 from repro_torch.obs.profile import kernel_profiler
 
+from ._build import interpret_mode  # noqa: F401  (the reference's ops name)
 from .item_index import ROLES, rules_with_member
 from .metrics_inkernel import RANK_METRICS, compound_lift, rank_score
 from .rank import topk_rank_batch

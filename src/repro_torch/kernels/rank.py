@@ -22,6 +22,10 @@ layout's quantized storage (int32 support counts, bf16 or int8 confidence
 and lift): the kernel widens them in its score pass, with
 ``n_transactions`` and the int8 scales, as the TPU kernel does.
 ``rank_merge`` is the reference's k-best list merge as a tensor op.
+
+The selection grid (``select_work_blocks``) and the fewest tiles a block
+takes (``rank_min_tiles``) are launch knobs, read from
+``tuning.get_kernel_config()`` at call time; they move no answer.
 """
 from __future__ import annotations
 
@@ -30,16 +34,18 @@ import torch
 from . import _build
 from .metrics_inkernel import count_reciprocal, metric_index, storage_codes
 from .ref import _empty_ranked, topk_rank_batch_ref
+from .tuning import DEFAULTS, get_kernel_config
 
 TILE = 1024   # positions per DFS tile (RT_TILE in topk_select.cuh)
 GROUP = 32    # positions per group key (RT_GROUP)
-# blocks a selection launch (here and in item_index) spreads a call's
-# tiles over: about a wave of the card's 132 SMs
-WORK_BLOCKS = 1024
-# the fewest tiles a rank block takes: a block's first tile sorts every
-# candidate it admits, later ones only those that beat the range's running
-# k-th key
-MIN_TILES = 4
+# the knobs' defaults (tuning.DEFAULTS): the blocks a selection launch
+# (here and in item_index) spreads a call's tiles over, about a wave of
+# the card's 132 SMs (select_work_blocks); the fewest tiles a rank block
+# takes, since a block's first tile sorts every candidate it admits and
+# later ones only those that beat the range's running k-th key
+# (rank_min_tiles)
+WORK_BLOCKS = DEFAULTS.select_work_blocks
+MIN_TILES = DEFAULTS.rank_min_tiles
 # list elements (k keys per block) one call's lists may take
 LIST_ELEMS = 1 << 22
 _BIG = 2**30
@@ -47,10 +53,11 @@ _BIG = 2**30
 
 def selection_grid(q: int, k: int) -> tuple[int, int]:
     """``(work_blocks, grid)`` of a selection launch: about
-    ``WORK_BLOCKS`` blocks share the tiles read, plus one a query at most;
-    every block keeps a list of k, and the lists stay within
-    ``LIST_ELEMS``."""
-    work_blocks = max(1, min(WORK_BLOCKS, LIST_ELEMS // k - q))
+    ``select_work_blocks`` blocks share the tiles read, plus one a query at
+    most; every block keeps a list of k, and the lists stay within
+    ``LIST_ELEMS`` (so at a large k the knob may not move the grid)."""
+    work_blocks = max(1, min(get_kernel_config().select_work_blocks,
+                             LIST_ELEMS // k - q))
     return work_blocks, work_blocks + q
 
 
@@ -76,15 +83,17 @@ def launch_shape(q: int, k: int, n: int) -> dict:
     block a query at most), the hash table of ranges (a power of two at
     least ``2 q``), each range's tile list (``list_cap``: no range reads
     more than ``k + 2`` tiles below its seed, nor more than the trie's
-    ``n_tiles``) and the 32-bit words of the plan scratch
-    (``rank.cu::rank_scratch_words``)."""
+    ``n_tiles``), the 32-bit words of the plan scratch
+    (``rank.cu::rank_scratch_words``) and the fewest tiles a block takes
+    (``min_tiles``, the knob ``rank_min_tiles``)."""
     work_blocks, grid = selection_grid(q, k)
     table = 1 << (2 * q - 1).bit_length()
     n_tiles = -(-n // TILE)
     list_cap = min(k + 2, n_tiles)
     words = 2 * table + 2 * q + table + 1 + 6 * q + grid + q * list_cap
     return dict(work_blocks=work_blocks, grid=grid, table=table,
-                n_tiles=n_tiles, list_cap=list_cap, words=words)
+                n_tiles=n_tiles, list_cap=list_cap, words=words,
+                min_tiles=get_kernel_config().rank_min_tiles)
 
 
 def metric_column_args(what, support, confidence, lift, n_transactions,
@@ -111,7 +120,7 @@ def topk_rank_batch(
     dev = support.device
     dequant = dict(n_transactions=n_transactions,
                    confidence_scale=confidence_scale, lift_scale=lift_scale)
-    if dev.type == "cpu":
+    if _build.interpret_mode(dev):
         return topk_rank_batch_ref(
             support, confidence, lift, depth, los, his,
             k=k, metric=metric, min_depth=min_depth, **dequant,
@@ -149,7 +158,7 @@ def topk_rank_batch(
     err = _build.lib("rank").topk_rank_batch_launch(
         *columns, depth.data_ptr(), n, los.data_ptr(), his.data_ptr(),
         q, k, metric_index(metric), int(min_depth), shape["table"],
-        shape["list_cap"], MIN_TILES, shape["work_blocks"],
+        shape["list_cap"], shape["min_tiles"], shape["work_blocks"],
         *[b.data_ptr() for b in bufs], shape["words"],
         *[b.data_ptr() for b in lists],
         vals.data_ptr(), pos.data_ptr(), _build.stream_handle(dev),

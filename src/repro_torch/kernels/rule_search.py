@@ -43,7 +43,14 @@ rows active in it, compacted on the device, with the (row tile, edge
 chunk) units split evenly over a fixed grid of warps
 (``sweep_launch_shape``), 32-bit fingerprints compared first and the
 exact pair on a fingerprint hit; ``ref.rule_search_sweep_split_ref`` runs
-that design in plain PyTorch.
+that design in plain PyTorch.  The match grid's blocks an SM
+(``sweep_blocks_per_sm``) is a launch knob, read from
+``tuning.get_kernel_config()`` at call time; the kernel's
+``__launch_bounds__(SW_THREADS, SW_BLOCKS_PER_SM)`` stays a compile-time
+register budget for 4 resident blocks an SM, so a grid of more blocks an
+SM than fit at once runs the rest in a later wave (its units split evenly
+over every warp of the grid, resident or not), and any grid gives the
+same answers.
 """
 from __future__ import annotations
 
@@ -57,11 +64,11 @@ from .ref import (
     SEARCH_GROUP, SWEEP_CHUNK, SWEEP_ROWS, not_found, rule_search_fused_ref,
     rule_search_span_ref, rule_search_sweep_ref, sweep_not_found,
 )
+from .tuning import get_kernel_config
 
-# mirrors of csrc/rule_search.cu's sweep constants (SW_THREADS,
-# SW_BLOCKS_PER_SM; SW_R and SW_CHUNK are ref.SWEEP_ROWS and SWEEP_CHUNK)
+# mirror of csrc/rule_search.cu's sweep constant SW_THREADS (SW_R and
+# SW_CHUNK are ref.SWEEP_ROWS and SWEEP_CHUNK)
 SWEEP_WARPS_PER_BLOCK = 8
-SWEEP_BLOCKS_PER_SM = 4
 # mirror of the descent searches' block (RS_THREADS; RS_GROUP and
 # RS_ROOT_CAP are ref.SEARCH_GROUP and SEARCH_ROOT_CAP)
 SEARCH_THREADS = 256
@@ -90,7 +97,7 @@ def rule_search_fused(
     all ``[Q]``, for int32 ``queries[Q, L]`` (-1 padded) and
     ``ant_len[Q]``."""
     dev = queries.device
-    if dev.type == "cpu":
+    if _build.interpret_mode(dev):
         return rule_search_fused_ref(
             child_offsets, edge_item, edge_child, edge_conf, edge_sup,
             edge_lift, queries, ant_len, max_fanout,
@@ -158,7 +165,7 @@ def rule_search_span(
     dev = queries.device
     dequant = dict(n_transactions=n_transactions,
                    confidence_scale=confidence_scale, lift_scale=lift_scale)
-    if dev.type == "cpu":
+    if _build.interpret_mode(dev):
         return rule_search_span_ref(
             child_offsets, edge_item, edge_pos, edge_span, edge_tail,
             node_item, support, confidence, lift, queries, ant_len,
@@ -225,13 +232,14 @@ def sweep_launch_shape(q: int, width: int, e: int, sms: int) -> dict:
     padded to whole chunks), the int32 ``words`` of scratch
     (``rule_search.cu::sweep_scratch``: the table, a count per step
     rounded up to 4, and 9 words a row) and the match grid:
-    ``SWEEP_BLOCKS_PER_SM`` blocks an SM, fewer when even Q active rows
+    ``sweep_blocks_per_sm`` blocks an SM, fewer when even Q active rows
     give fewer (tile, chunk) units than warps; ``warps`` is the grid's
     warp count, over which every step's units split evenly."""
     n_chunks = -(-int(e) // SWEEP_CHUNK)
     words = n_chunks * SWEEP_CHUNK + -(-int(width) // 4) * 4 + 9 * int(q)
     units = -(-int(q) // SWEEP_ROWS) * n_chunks
-    blocks = max(1, min(SWEEP_BLOCKS_PER_SM * int(sms),
+    per_sm = get_kernel_config().sweep_blocks_per_sm
+    blocks = max(1, min(per_sm * int(sms),
                         -(-units // SWEEP_WARPS_PER_BLOCK)))
     return {"n_chunks": n_chunks, "words": words, "match_blocks": blocks,
             "warps": blocks * SWEEP_WARPS_PER_BLOCK}
@@ -245,7 +253,7 @@ def rule_search_sweep(
     ``[Q]``, for int32 ``queries[Q, L]`` (-1 padded) and ``ant_len[Q]``,
     by the full sweep of the edge table at every step."""
     dev = queries.device
-    if dev.type == "cpu":
+    if _build.interpret_mode(dev):
         return rule_search_sweep_ref(
             edge_parent, edge_item, edge_child, edge_conf, edge_sup,
             edge_lift, queries, ant_len,

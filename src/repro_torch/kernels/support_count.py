@@ -17,7 +17,9 @@ copy and sizes the main launch (``launch_shape``), whose blocks stage a
 word tile of the D item rows in shared memory for a slice of candidates.
 ``ref.support_slots_ref`` and ``ref.support_count_tiled_ref`` mirror that
 plan.  On a CPU tensor it runs the plain version
-``ref.support_count_bitmap_ref``, the reference's dense formulation.
+``ref.support_count_bitmap_ref``, the reference's dense formulation.  The
+widest staged tile (``support_max_bw``) is a launch knob, read from
+``tuning.get_kernel_config()`` at call time; it moves no count.
 """
 from __future__ import annotations
 
@@ -25,10 +27,10 @@ import torch
 
 from . import _build
 from .ref import support_count_bitmap_ref, support_slots_ref
+from .tuning import get_kernel_config
 
 # mirrors of csrc/support_count.cu's constants
 THREADS = 768         # candidates a tile block holds at once: one block an SM
-MAX_BW = 32           # words a staged tile, at most
 GLOBAL_BW = 32        # words a tile of the unstaged variant
 # H100: dynamic shared memory a block may take (227 KB)
 SMEM_BLOCK = 232_448
@@ -54,12 +56,12 @@ def tile_bytes(n_distinct: int, bw: int, n_items: int) -> int:
 
 def tile_words(n_distinct: int, n_words: int, n_items: int) -> int:
     """Words ``BW`` of a staged tile for ``n_distinct`` of ``n_items``
-    item rows: the largest power of two in 4..``MAX_BW``, and not above the
-    smallest one that covers ``n_words``, whose ``tile_bytes`` fit
-    ``SMEM_BLOCK``; 0 when even 4 words do not fit, and the rows are read
-    from device memory unstaged."""
+    item rows: the largest power of two in 4..``support_max_bw``, and not
+    above the smallest one that covers ``n_words``, whose ``tile_bytes``
+    fit ``SMEM_BLOCK``; 0 when even 4 words do not fit, and the rows are
+    read from device memory unstaged."""
     cap = 4
-    while cap < min(int(n_words), MAX_BW):
+    while cap < min(int(n_words), get_kernel_config().support_max_bw):
         cap *= 2
     bw = cap
     while bw >= 4:
@@ -145,7 +147,7 @@ def support_count_bitmap(bitmaps, candidates, lengths, n_transactions: int):
             f"candidate rows"
         )
     check_transaction_count(n_words, n_transactions)
-    if dev.type == "cpu":
+    if _build.interpret_mode(dev):
         _check_range(support_slots_ref(candidates, n_items)[0], n_items)
         return support_count_bitmap_ref(
             bitmaps, candidates, lengths, n_transactions

@@ -23,6 +23,12 @@ What bounds it: memory.  It reads at most 12 bytes per node (support,
 confidence, depth) once and does three adds and a max per node.  Count
 and max are exact in any order (the count is an int until the end); the
 sums reassociate and hold to the plain version within 1e-6 relative.
+
+The grid's blocks an SM (``reduce_blocks_per_sm``) and the most tiles one
+block folds alone (``reduce_single_block_tiles``) are launch knobs, read
+from ``tuning.get_kernel_config()`` at call time.  Count and max are
+bitwise at any value; the sums are bitwise ``ref.trie_reduce_split_ref``'s
+at the same block count.
 """
 from __future__ import annotations
 
@@ -31,16 +37,16 @@ import torch
 from . import _build
 from .metrics_inkernel import count_reciprocal, storage_codes
 from .ref import trie_reduce_ref
+from .tuning import get_kernel_config
 
 # mirrors of csrc/trie_reduce.cu's constants
 THREADS = 256         # TR_THREADS: threads a block
 TILE_NODES = 16       # TR_TILE_NODES: nodes a thread loads per tile
-BLOCKS_PER_SM = 4     # blocks of the persistent grid an SM, at most
-SINGLE_BLOCK_TILES = 2  # at most this many tiles: one block, no ticket
 PARTIAL_BYTES = 16    # a block's partial (count, Σ support, max, Σ conf)
 
 # per (device index, stream): the ticket (16 bytes) and the partials of
-# the largest grid, zeroed once; each launch leaves the ticket at 0
+# the largest grid yet, zeroed when made; each launch leaves the ticket at
+# 0, and a larger grid gets a larger buffer
 _scratch = {}
 
 
@@ -67,25 +73,28 @@ def launch_shape(n: int, vec: int, head: int, sms: int) -> dict:
     """The launch for ``n`` nodes, ``vec`` a vector, whole vectors from
     ``head``, on ``sms`` SMs: ``nv`` vectors, ``unroll`` vectors a thread
     a tile (``TILE_NODES`` nodes), ``tiles`` of ``THREADS x unroll``
-    vectors and ``blocks``, ``BLOCKS_PER_SM`` an SM and no more than there
-    are tiles; one block (which writes the outputs without the ticket's
-    round trips) for at most ``SINGLE_BLOCK_TILES``."""
+    vectors and ``blocks``, ``reduce_blocks_per_sm`` an SM and no more
+    than there are tiles; one block (which writes the outputs without the
+    ticket's round trips) for at most ``reduce_single_block_tiles``."""
+    cfg = get_kernel_config()
     nv = (int(n) - int(head)) // int(vec)
     unroll = TILE_NODES // int(vec)
     tiles = -(-nv // (THREADS * unroll))
-    blocks = min(BLOCKS_PER_SM * int(sms), tiles)
-    if tiles <= SINGLE_BLOCK_TILES:
+    blocks = min(cfg.reduce_blocks_per_sm * int(sms), tiles)
+    if tiles <= cfg.reduce_single_block_tiles:
         blocks = 1
     return {"nv": nv, "tiles": tiles, "blocks": blocks,
             "threads": THREADS, "unroll": unroll}
 
 
-def _scratch_for(dev, stream: int) -> torch.Tensor:
+def _scratch_for(dev, stream: int, blocks: int) -> torch.Tensor:
+    """The ticket and room for ``blocks`` partials on ``stream``: the
+    cached buffer, or a larger zeroed one when a grid outgrows it."""
     key = (dev.index, stream)
     buf = _scratch.get(key)
-    if buf is None:
-        size = PARTIAL_BYTES * (1 + BLOCKS_PER_SM * _build.sm_count(dev))
-        buf = _scratch[key] = torch.zeros((size // 4,), dtype=torch.int32,
+    size = PARTIAL_BYTES * (1 + int(blocks)) // 4
+    if buf is None or buf.numel() < size:
+        buf = _scratch[key] = torch.zeros((size,), dtype=torch.int32,
                                           device=dev)
     return buf
 
@@ -96,7 +105,7 @@ def trie_reduce_stats(support, confidence, depth, n_transactions: int = 0,
     confidence)``, f32 scalars; ``support`` f32, int32 counts or bf16,
     ``confidence`` f32, bf16 or int8, ``depth`` int32, one length."""
     dev = support.device
-    if dev.type == "cpu":
+    if _build.interpret_mode(dev):
         n, sup_sum, conf_max, conf_sum = trie_reduce_ref(
             support, confidence, depth, n_transactions, confidence_scale)
         return n, sup_sum, conf_max, conf_sum, conf_sum / n.clamp(min=1.0)
@@ -124,7 +133,7 @@ def trie_reduce_stats(support, confidence, depth, n_transactions: int = 0,
     shape = launch_shape(n, vector_nodes(confidence.dtype), head,
                          _build.sm_count(dev))
     stream = _build.stream_handle(dev)
-    scratch = _scratch_for(dev, stream)
+    scratch = _scratch_for(dev, stream, shape["blocks"])
     out = torch.empty((5,), dtype=torch.float32, device=dev)
     err = _build.lib("trie_reduce").trie_reduce_launch(
         support.data_ptr(), confidence.data_ptr(), confidence.data_ptr(),

@@ -26,6 +26,7 @@ from repro_torch.kernels.trie_reduce import (  # noqa: E402
     launch_shape, trie_reduce_columns, trie_reduce_stats,
     vector_head, vector_nodes,
 )
+from repro_torch.kernels.tuning import tuning_overrides  # noqa: E402
 from repro_torch.serve import TrieQueryEngine  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -56,36 +57,33 @@ def _bitwise(got, want):
         assert torch.equal(g, w)
 
 
+# the launch knobs of each case (tuning_overrides): the default plan,
+# few blocks with many tiles each, and one block a tile
+RANK_BLOCKS = {None: {}, 2: dict(select_work_blocks=2),
+               "split": dict(select_work_blocks=1 << 16, rank_min_tiles=1)}
+MEMBER_BLOCKS = {None: {}, 2: dict(select_work_blocks=2),
+                 "split": dict(select_work_blocks=1 << 16,
+                               member_min_tiles=1)}
+
+
 @pytest.fixture(params=[None, 2, "split"])
-def rank_blocks(request, monkeypatch):
+def rank_blocks(request):
     """The rank kernel's launch shapes: the default plan, few blocks with
     many tiles each (the running top-k path, and for k > 1024 its lists in
     global scratch, that the small trie would not otherwise reach), and
     one block per tile (many blocks a range, whose lists its last block
     merges)."""
-    from repro_torch.kernels import rank
-
-    if request.param == 2:
-        monkeypatch.setattr(rank, "WORK_BLOCKS", 2)
-    elif request.param == "split":
-        monkeypatch.setattr(rank, "WORK_BLOCKS", 1 << 16)
-        monkeypatch.setattr(rank, "MIN_TILES", 1)
-    return request.param
+    with tuning_overrides(**RANK_BLOCKS[request.param]):
+        yield request.param
 
 
 @pytest.fixture(params=[None, 2, "split"])
-def member_blocks(request, monkeypatch):
+def member_blocks(request):
     """The membership kernel's launch shapes: the default plan, few
     blocks with many tiles each, and one block per tile of candidates
     (many blocks a query, whose lists its last block merges)."""
-    from repro_torch.kernels import item_index, rank
-
-    if request.param == 2:
-        monkeypatch.setattr(rank, "WORK_BLOCKS", 2)
-    elif request.param == "split":
-        monkeypatch.setattr(rank, "WORK_BLOCKS", 1 << 16)
-        monkeypatch.setattr(item_index, "MIN_TILES", 1)
-    return request.param
+    with tuning_overrides(**MEMBER_BLOCKS[request.param]):
+        yield request.param
 
 
 def test_rank_kernel(small, cuda, rank_blocks):
