@@ -3,10 +3,11 @@
 construction path, its path-compressed, quantized and seed layouts, its
 streaming tries, its serve loop, its sharded trie, its launch profiler,
 its LM serving path (dense, then MLA + MoE, then Mamba2 and Jamba's
-hybrid unit) and its training path on one NVIDIA GPU.
+hybrid unit), its training path and its dry run on one NVIDIA GPU.
 
     python3 chip_smoke.py [--edges N] [--seed S] [--reps R]
                           [--tuning-out DIR] [--tuning-only]
+                          [--dryrun-out DIR] [--dryrun-only]
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, in
    parallel, beside the latency probe ``probes/pointer_chase.cu``).
@@ -239,7 +240,24 @@ hybrid unit) and its training path on one NVIDIA GPU.
    full width at 4 x 256 (the chunked SSD's backward), and reduced
    DeepSeek-V3 (MLA, MoE aux, MTP) and Jamba: loss, metrics and every
    gradient card against CPU in f32 within 1e-3.  No kernel of its own.
-16. Prints the GPU's name and power limit, one ``{"kernels": [...]}``
+16. The dry run (``[dryrun]``; alone with ``--dryrun-only``): (a)
+   ``launch.dryrun.run_cell`` of smollm-360m at full width and depth on a
+   1 x 1 mesh, on meta tensors, for step 15's train cell (8 x 256
+   tokens, AdamW, remat) and step 12's decode cell (batch 8, a cache of
+   512 + 64),
+   each held against the same step on the card: FLOPs equal as integers
+   (``FlopCounterMode`` around the real step), the argument bytes equal
+   to the bytes the allocator is asked for when params, optimizer state,
+   batch and cache are placed and ``memory_allocated``'s growth within
+   its slack (512 B a tensor, plus 1 MiB a tensor over 1 MiB), the step's
+   added allocation within 5% (or 64 MiB) of the dry run's temp, the
+   predicted and measured peaks and the roofline terms beside the step
+   ms (CUDA events, median); (b) meanwhile, in one worker process each,
+   DeepSeek-V3 train_4k on both production meshes, Jamba-1.5-Large
+   long_500k, smollm-360m decode_32k and Yi-6B prefill_32k on meta
+   tensors, their seconds, their records under ``--dryrun-out`` (default
+   ``dryrun_out/smoke/``) and the roofline table over them.
+17. Prints the GPU's name and power limit, one ``{"kernels": [...]}``
    line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result when CUDA is unavailable, when
@@ -5138,6 +5156,232 @@ def train_phase(args, dev, smi):
     log(f"[train] phase done in {time.perf_counter() - t0:.1f} s")
 
 
+DRYRUN_ARCH = "smollm-360m"
+# (a) the cells held against the card, on a 1 x 1 mesh: the [train]
+# phase's cell (8 x 256 tokens, AdamW, remat) and the [lm] decode cell
+# (batch 8, a cache of a 512-token prompt + 64 decoded tokens)
+DRYRUN_HELD = (("train_8x256", 256, 8, "train"),
+               ("decode_8x576", 576, 8, "decode"))
+DRYRUN_STEPS = {"train": 3, "decode": 10}   # timed steps after one warm-up
+# the caching allocator's slack a tensor: a request rounded up to 512 B,
+# and a block of over 1 MiB not split where less than 1 MiB would remain
+DRYRUN_ALLOC_ROUND = 512
+DRYRUN_ALLOC_SPLIT = 1 << 20
+# the predicted step peak (argument + temp) against the card's: the
+# allocated bytes a step adds over what was live before it, within 5% of
+# the dry run's temp or 64 MiB (PERF.md §6, written before the run)
+DRYRUN_TEMP_RTOL = 0.05
+DRYRUN_TEMP_ATOL = 64 << 20
+# (b) the production cells, on meta tensors
+DRYRUN_CELLS = (("deepseek-v3-671b", "train_4k", False),
+                ("deepseek-v3-671b", "train_4k", True),
+                ("jamba-1.5-large-398b", "long_500k", False),
+                ("smollm-360m", "decode_32k", False),
+                ("yi-6b", "prefill_32k", False))
+
+
+def dryrun_held(dev, smi, seed, cell, out_dir):
+    """One cell of (a): the dry run of smollm-360m at full width and
+    depth on a 1 x 1 mesh (meta tensors, this host), then the same step
+    on the card: FLOPs equal as integers (``FlopCounterMode`` around the
+    real step); the argument bytes equal to the requested bytes the
+    allocator gains when the params, optimizer state, batch and cache
+    are placed, and ``memory_allocated``'s growth within the allocator's
+    slack (``DRYRUN_ALLOC_ROUND`` a tensor, plus ``DRYRUN_ALLOC_SPLIT``
+    for a tensor over 1 MiB); the predicted peak (argument + temp) beside
+    ``max_memory_allocated``; and the roofline terms beside the measured
+    step ms.  Returns the line it logs."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.perf import terms_of
+    from repro_torch.models import init_cache, materialize_params
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.serve.engine import make_decode_step
+    from repro_torch.train.optimizer import pick_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    name, seq, batch, kind = cell
+    shape = ShapeConfig(name, seq, batch, kind)
+    mesh = AbstractMesh((1, 1), ("data", "model"))
+    cfg = get_config(DRYRUN_ARCH)
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(DRYRUN_ARCH, name, False, shape=shape, mesh=mesh)
+    meta_s = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"{DRYRUN_ARCH}__{name}__1x1.json"),
+              "w") as f:
+        json.dump(rec, f, indent=1)
+
+    def requested():
+        return torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    a0, r0 = torch.cuda.memory_allocated(dev), requested()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params, _ = materialize_params(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device=dev, dtype=torch.int32)
+    if kind == "train":
+        opt = pick_optimizer(cfg)
+        state = opt.init(params)
+        data = {"tokens": tokens, "labels": tokens.clone()}
+        args = (params, state, data)
+        step = make_train_step(cfg, opt)
+        box = {"p": params, "s": state}
+
+        def run(i):
+            box["p"], box["s"], _ = step(box["p"], box["s"], data, float(i))
+    else:
+        cache = init_cache(cfg, batch, seq, device=dev)
+        last = tokens[:, :1].clone()
+        del tokens
+        args = (params, cache, last)
+        decode = make_decode_step(cfg)
+        box = {"p": params, "c": cache}
+
+        def run(i):
+            _, box["c"] = decode(box["p"], box["c"], last)
+    torch.cuda.synchronize()
+    growth = torch.cuda.memory_allocated(dev) - a0
+    req_growth = requested() - r0
+    sizes = [t.numel() * t.element_size() for t in tree_leaves(list(args))
+             if isinstance(t, torch.Tensor)]
+    n_tensors = len(sizes)
+    slack = DRYRUN_ALLOC_ROUND * n_tensors + DRYRUN_ALLOC_SPLIT * sum(
+        n > DRYRUN_ALLOC_SPLIT for n in sizes)
+    del args, params
+    if kind == "train":
+        del state
+    else:
+        del cache
+    argument = int(rec["memory"]["argument_size_in_bytes"])
+    with use_mesh(mesh):
+        run(0)                                   # warm-up: cuBLAS, caches
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with FlopCounterMode(display=False) as fc:
+            run(1)
+        torch.cuda.synchronize()
+        step_temp = torch.cuda.max_memory_allocated(dev) - base
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(DRYRUN_STEPS[kind] + 1)]
+        ev[0].record()
+        for i in range(DRYRUN_STEPS[kind]):
+            run(2 + i)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+    ms = statistics.median(a.elapsed_time(b) for a, b in zip(ev, ev[1:]))
+    del box, run
+    torch.cuda.empty_cache()
+    flops_card = fc.get_total_flops()
+    temp = int(rec["memory"]["temp_size_in_bytes"])
+    terms = terms_of(rec)
+    bound_ms = max(terms["compute_s"], terms["memory_s"]) * 1e3
+    line = {"arch": DRYRUN_ARCH, "cell": name, "kind": kind,
+            "mesh": rec["mesh"], "flops_dry_run": rec["flops_per_device"],
+            "flops_card": flops_card,
+            "argument_bytes": argument, "requested_growth": req_growth,
+            "allocated_growth": growth, "tensors": n_tensors,
+            "allocator_slack": slack,
+            "temp_bytes": temp, "step_temp_bytes": step_temp,
+            "predicted_peak": argument + temp,
+            "measured_peak": growth + step_temp,
+            "peak_gap": growth + step_temp - (argument + temp),
+            "output_bytes": rec["memory"]["output_size_in_bytes"],
+            "bytes_per_device": rec["bytes_per_device"],
+            "bytes_boundary_per_device": rec["bytes_boundary_per_device"],
+            "compute_ms": terms["compute_s"] * 1e3,
+            "memory_ms": terms["memory_s"] * 1e3,
+            "memory_boundary_ms": terms["memory_boundary_s"] * 1e3,
+            "bound_ms": bound_ms, "step_ms": ms,
+            "bound_share": bound_ms / ms, "dry_run_s": meta_s}
+    log(f"[dryrun held] {smi}: " + json.dumps(line))
+    if flops_card != rec["flops_per_device"]:
+        raise AssertionError(f"dryrun {name}: {rec['flops_per_device']} "
+                             f"FLOPs counted, {flops_card} on the card")
+    if req_growth != argument or not 0 <= growth - argument <= slack:
+        raise AssertionError(
+            f"dryrun {name}: {argument} argument bytes, {req_growth} "
+            f"requested and {growth} allocated for {n_tensors} tensors")
+    if abs(step_temp - temp) > max(DRYRUN_TEMP_RTOL * temp,
+                                   DRYRUN_TEMP_ATOL):
+        raise AssertionError(f"dryrun {name}: temp {temp} predicted, "
+                             f"{step_temp} on the card")
+    return line
+
+
+def dryrun_cell(cell):
+    """One production cell's record on meta tensors, and its seconds (a
+    worker process of ``dryrun_phase``)."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(*cell)
+    return rec, time.perf_counter() - t0
+
+
+def dryrun_phase(args, dev, smi):
+    """(b) the production cells on meta tensors, one worker process each
+    (the card is not used there), while (a) smollm-360m's train and
+    decode cells are held against real steps on the card
+    (``dryrun_held``); then the cells' records under ``--dryrun-out`` and
+    the roofline table over them.  Any failing cell fails the phase."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.launch import dryrun, roofline
+
+    t0 = time.perf_counter()
+    out_dir = args.dryrun_out
+    os.makedirs(os.path.join(out_dir, "held"), exist_ok=True)
+    with ProcessPoolExecutor(
+            max_workers=len(DRYRUN_CELLS),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = [pool.submit(dryrun_cell, cell) for cell in DRYRUN_CELLS]
+        held = [dryrun_held(dev, smi, args.seed, cell,
+                            os.path.join(out_dir, "held"))
+                for cell in DRYRUN_HELD]
+        t_held = time.perf_counter() - t0
+        done = [f.result() for f in futures]
+    for (arch, shape, multi_pod), (rec, secs) in zip(DRYRUN_CELLS, done):
+        tag = dryrun.cell_tag(arch, shape, multi_pod)
+        with open(os.path.join(out_dir, tag + ".json"), "w") as f:
+            json.dump(rec, f, indent=1)
+        mem = rec["memory"]
+        log(f"[dryrun cell] {tag}: {secs:.1f} s "
+            f"(build {rec['lower_seconds']:.2f}, full depth "
+            f"{rec['compile_seconds']:.2f}, counts "
+            f"{rec['cost_measure_seconds']:.2f}); flops/dev "
+            f"{rec['flops_per_device']:.4e}, bytes/dev "
+            f"{rec['bytes_per_device']:.4e}, boundary "
+            f"{rec['bytes_boundary_per_device']:.4e}, collectives "
+            + json.dumps(rec["collective_bytes_per_device"])
+            + f", argument {mem['argument_size_in_bytes']:.4e} B, temp "
+            f"{mem['temp_size_in_bytes']:.4e} B")
+    records = roofline.load_records(out_dir)
+    log(f"[dryrun table] peaks: {roofline.CARD}")
+    for mesh in ("pod16x16", "pod2x16x16"):
+        for row in roofline.table(records, mesh).splitlines():
+            log(f"[dryrun table] {row}")
+    for rec in records:
+        a = roofline.analyze_record(rec)
+        log(f"[dryrun table] {a['arch']} x {a['shape']} x {a['mesh']}: "
+            f"{a['dominant'][:-2]}-bound - {roofline.what_moves_it(a)}")
+    total = time.perf_counter() - t0
+    log(f"[dryrun] phase done in {total:.1f} s (held cells "
+        f"{t_held:.1f} s): " + json.dumps(
+            {k: [h[k] for h in held]
+             for k in ("cell", "flops_dry_run", "flops_card", "step_ms",
+                       "bound_ms", "predicted_peak", "measured_peak")}))
+    if len(records) != len(DRYRUN_CELLS):
+        raise AssertionError(f"{len(records)} records in {out_dir}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--edges", type=int, default=1 << 20)
@@ -5149,6 +5393,11 @@ def main():
     ap.add_argument("--tuning-only", action="store_true",
                     help="build, sweep every launch knob, write the "
                     "sweep's record and stop")
+    ap.add_argument("--dryrun-out", default=os.path.join(
+        HERE, "dryrun_out", "smoke"),
+        help="where the [dryrun] phase writes its records")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="run the [dryrun] phase alone and stop")
     args = ap.parse_args()
 
     import numpy as np
@@ -5186,6 +5435,9 @@ def main():
         print(f"chip_smoke: {exc}", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    if args.dryrun_only:
+        dryrun_phase(args, dev, smi)
+        return 0
 
     # -- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -5471,6 +5723,9 @@ def main():
 
     # -- 16. training: smollm-360m at full width and depth -------------
     train_phase(args, dev, smi)
+
+    # -- 17. the dry run: held against the card, then the production cells
+    dryrun_phase(args, dev, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -1,5 +1,15 @@
-"""Meshes in one process: the host mesh the trainer runs under and the
-trie mesh a sharded trie spreads over.
+"""Meshes in one process: the host mesh the trainer runs under, the
+trie mesh a sharded trie spreads over, and the production meshes the
+dry run lays a model out on.
+
+``make_production_mesh`` is the counterpart of the reference's: the
+single-pod mesh is 16 x 16 = 256 devices ``("data", "model")``, the
+multi-pod mesh 2 x 16 x 16 = 512 ``("pod", "data", "model")``, with the
+reference's shapes and axis names so that dry-run records line up.  Here
+it is an ``AbstractMesh``: axis names and extents, no devices and no CUDA
+call; ``distributed.use_mesh`` accepts it and
+``distributed.sharding.logical_to_spec`` reads it (the dry run,
+``launch/dryrun.py``, counts one device's program under it).
 
 ``make_host_mesh`` is the PyTorch counterpart of the reference's: a
 ``("data", "model")`` mesh of shape (1, 1) on one device, which
@@ -101,6 +111,40 @@ class HostMesh:
 
     def __repr__(self) -> str:
         return f"HostMesh({self.device})"
+
+
+class AbstractMesh:
+    """A mesh of named axes and their extents with no devices behind it
+    (the reference's production mesh lowered against placeholder
+    devices; ``jax.sharding.AbstractMesh`` is its shape alone)."""
+
+    def __init__(self, axis_sizes: Iterable[int], axis_names: Iterable[str]):
+        self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        sizes = tuple(int(n) for n in axis_sizes)
+        if len(sizes) != len(self.axis_names):
+            raise ValueError(f"{sizes} extents for axes {self.axis_names}")
+        self._shape = dict(zip(self.axis_names, sizes))
+
+    @property
+    def shape(self) -> dict:
+        return dict(self._shape)
+
+    @property
+    def size(self) -> int:
+        """The number of devices the mesh lays out."""
+        return int(np.prod(list(self._shape.values()), dtype=np.int64))
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self._shape})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """16 x 16 ``("data", "model")``, or 2 x 16 x 16 ``("pod", "data",
+    "model")`` with ``multi_pod``: the ``pod`` axis carries inter-pod data
+    parallelism, ``model`` stays inside a pod."""
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))
 
 
 def make_host_mesh(device=None) -> HostMesh:

@@ -276,12 +276,36 @@ def _cache_write(buf, update, pos, axis=2):
     decode donates it."""
     s, max_seq = update.shape[axis], buf.shape[axis]
     if s > max_seq:
-        raise ValueError(f"{s} new positions do not fit a cache of "
-                         f"{max_seq}")
+        if buf.device.type != "meta":
+            raise ValueError(f"{s} new positions do not fit a cache of "
+                             f"{max_seq}")
+        # the dry run's sequence-sharded cache (launch/dryrun.py): this
+        # device writes its slice of the prompt
+        update, s = update.narrow(axis, 0, max_seq), max_seq
     start = torch.clamp(pos, 0, max_seq - s)
     idx = start + torch.arange(s, device=buf.device)
     buf.index_copy_(axis, idx, update.to(buf.dtype))
     return buf
+
+
+def _device_heads(t, n):
+    """``t`` [b, heads, ...] with ``n`` heads.  Only the dry run's
+    per-device program (``launch/dryrun.py``, meta tensors) asks for
+    another count than ``t`` has: there a device projects the q and kv
+    heads its layout holds, and its attention core reads the heads its
+    cache holds (or, without a cache, the kv heads its q heads need), so
+    kv heads are cut to the first ``n`` and q heads tiled up to ``n`` (the
+    all-gather of q), and the core's output is cut back to the device's
+    q heads."""
+    have = t.shape[1]
+    if have == n:
+        return t
+    if t.device.type != "meta":
+        raise ValueError(f"{have} heads where the config has {n}: only the "
+                         "dry run's meta program splits heads")
+    if n < have:
+        return t[:, :n]
+    return t.repeat(1, n // have, *([1] * (t.ndim - 2)))
 
 
 def attention(
@@ -296,12 +320,15 @@ def attention(
     b, s, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     g = h // kv
+    # the heads projected: the config's, but for the dry run's per-device
+    # program (``_device_heads``)
+    hq, kvp = params["wq"].shape[-2], params["wk"].shape[-2]
     cdt = torch_dtype(cfg.compute_dtype)
     xc = x.to(cdt)
 
-    q = (xc @ params["wq"].to(cdt).reshape(d, h * hd)).view(b, s, h, hd)
-    k = (xc @ params["wk"].to(cdt).reshape(d, kv * hd)).view(b, s, kv, hd)
-    v = (xc @ params["wv"].to(cdt).reshape(d, kv * hd)).view(b, s, kv, hd)
+    q = (xc @ params["wq"].to(cdt).reshape(d, hq * hd)).view(b, s, hq, hd)
+    k = (xc @ params["wk"].to(cdt).reshape(d, kvp * hd)).view(b, s, kvp, hd)
+    v = (xc @ params["wv"].to(cdt).reshape(d, kvp * hd)).view(b, s, kvp, hd)
     q = constrain(q, ("batch", "seq", "heads", None))
     k = constrain(k, ("batch", "seq", "kv_heads", None))
     v = constrain(v, ("batch", "seq", "kv_heads", None))
@@ -315,7 +342,7 @@ def attention(
 
     # the reference's float32 1 / sqrt(hd), rounded as it rounds it
     scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
-    qh = q.reshape(b, kv, g, s, hd)
+    qh = _device_heads(q, h).reshape(b, kv, g, s, hd)
     chunked = s > q_chunk and s % q_chunk == 0
     new_cache = None
     if cache is not None:
@@ -324,6 +351,7 @@ def attention(
         ck = _cache_write(cache["k"], k, pos)
         cv = _cache_write(cache["v"], v, pos)
         new_cache = {"k": ck, "v": cv, "pos": pos + s}
+        ck, cv = _device_heads(ck, kv), _device_heads(cv, kv)
         skv = ck.shape[2]
         if chunked:
             # chunked prefill-into-cache (flash-style, q_offset = pos)
@@ -340,6 +368,7 @@ def attention(
             mask = mask.expand(b, s, skv)
             out = _attend(qh, ck.to(cdt), cv.to(cdt), mask, scale)
     else:
+        k, v = _device_heads(k, kv), _device_heads(v, kv)
         if chunked:
             out = _attend_chunked(
                 qh, k, v, scale, 0, q_chunk, segment_ids,
@@ -354,10 +383,10 @@ def attention(
                 mask = mask[None].expand(b, s, s)
             out = _attend(qh, k, v, mask, scale)
 
-    out = out.reshape(b, h, s, hd).transpose(1, 2)    # [b, s, h, hd]
-    out = constrain(out, ("batch", "seq", "heads", None))
-    y = out.to(cdt).reshape(b, s, h * hd) @ params["wo"].to(cdt).reshape(
-        h * hd, d)
+    out = _device_heads(out.reshape(b, h, s, hd), hq).transpose(1, 2)
+    out = constrain(out, ("batch", "seq", "heads", None))   # [b, s, h, hd]
+    y = out.to(cdt).reshape(b, s, hq * hd) @ params["wo"].to(cdt).reshape(
+        hq * hd, d)
     y = constrain(y, ("batch", "seq", "embed"))
     return y, new_cache
 

@@ -174,7 +174,9 @@ def mamba_block(
     state); else the exact recurrence, one step a token."""
     s_cfg = cfg.ssm
     b, s, d = x.shape
-    d_inner, n_heads, _ = _dims(cfg)
+    # the config's widths (``_dims``), read off the params: the dry run's
+    # per-device program (launch/dryrun.py) holds a model-split slice
+    d_inner, n_heads = params["w_x"].shape[-1], params["w_dt"].shape[-1]
     g, ds = s_cfg.n_groups, s_cfg.d_state
     cdt = torch_dtype(cfg.compute_dtype)
     xc = x.to(cdt)

@@ -240,8 +240,12 @@ def _remat_unit(cfg, p_u, h, positions, segment_ids):
 
 def _restack(stacked, *per_unit):
     """One leaf of the units' new caches: the stacked buffer itself where
-    every unit wrote into its own slice in place, else a new stack."""
-    if all(t.data_ptr() == stacked[u].data_ptr()
+    every unit wrote into its own slice in place (its storage, at its
+    slice's offset: meta tensors too, which have no data pointers), else
+    a new stack."""
+    st = stacked.untyped_storage()
+    if all(t.untyped_storage() is st
+           and t.storage_offset() == stacked[u].storage_offset()
            for u, t in enumerate(per_unit)):
         return stacked
     return torch.stack(per_unit)

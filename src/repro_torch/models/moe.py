@@ -30,6 +30,12 @@ which token copies are dropped does not depend on ``ep``.  A ``data`` or
 ``pod`` extent above 1, or a mesh over several devices, raises: that is
 the multi-GPU LM slice.
 
+On meta tensors (the dry run's per-device program, ``launch/dryrun.py``)
+the expert-parallel paths run one device's work under any mesh: the
+router over every expert, then one slice of ``e_local`` experts (the
+params hold that slice) at the capacity of the tokens the device holds
+(the serving layout: of the tokens all-gathered over the batch axes).
+
 Router: softmax → top-k (ties to the lower expert index, as
 ``lax.top_k``: a stable descending sort), probabilities renormalized over
 the selected experts, plus the load-balance auxiliary loss.  On the card
@@ -206,28 +212,41 @@ def _slice_dispatch(cfg, params, x2d, top_p, top_i, lo, e_local, cap, cdt):
     return y2d.index_add_(0, s_tok, gathered.float() * s_w[:, None])
 
 
-def _dispatch(cfg, params, x, ep, cap):
-    """The shard body over all ``ep`` expert slices on this device: the
-    slices' outputs summed in slice order (the ``psum``), the router's aux
-    averaged over them (the ``pmean``)."""
-    mo = cfg.moe
+def _routed(cfg, params, x, ep, cap, slices):
+    """The shard body over the first ``slices`` of ``ep`` expert slices
+    on this device: the slices' outputs summed in slice order (the
+    ``psum``), the router's aux averaged over the ``ep`` slices (the
+    ``pmean``)."""
     b, s, d = x.shape
     cdt = torch_dtype(cfg.compute_dtype)
     x2d = x.to(cdt).reshape(-1, d)
     top_p, top_i, aux = _router(cfg, params, x2d)
-    e_local = mo.n_routed // ep
+    e_local = cfg.moe.n_routed // ep
     y2d = None
-    for my in range(ep):
+    for my in range(slices):
         part = _slice_dispatch(cfg, params, x2d, top_p, top_i,
                                my * e_local, e_local, cap, cdt)
         if cfg.moe_psum_bf16:   # the reference's bf16 psum payload
             part = part.to(torch.bfloat16)
         y2d = part if y2d is None else y2d + part
     aux = torch.stack([aux] * ep).mean()
-    y = y2d.float().reshape(b, s, d).to(x.dtype)
-    if mo.n_shared:
+    return y2d.float().reshape(b, s, d).to(x.dtype), aux
+
+
+def _with_shared(cfg, params, x, y):
+    if cfg.moe.n_shared:
+        cdt = torch_dtype(cfg.compute_dtype)
         y = y + _shared_ffn(cfg, params, x.to(cdt), cdt).to(x.dtype)
-    return y, aux
+    return y
+
+
+def _dispatch(cfg, params, x, ep, cap):
+    """The shard body over all ``ep`` expert slices on this device, plus
+    the shared experts; on meta tensors one device's slice
+    (``slices=1``: the params hold that slice)."""
+    slices = 1 if x.device.type == "meta" else ep
+    y, aux = _routed(cfg, params, x, ep, cap, slices)
+    return _with_shared(cfg, params, x, y), aux
 
 
 def moe_alltoall(cfg, params, x) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -240,7 +259,8 @@ def moe_alltoall(cfg, params, x) -> Tuple[torch.Tensor, torch.Tensor]:
     ep = mesh.shape["model"]
     if mo.n_routed % ep != 0:
         return moe_dense(cfg, params, x)
-    _one_process(mesh, ("pod", "data"))
+    if x.device.type != "meta":
+        _one_process(mesh, ("pod", "data"))
     return _dispatch(cfg, params, x, ep, _capacity(b * s, cfg))
 
 
@@ -258,6 +278,15 @@ def moe_serve_tp(cfg, params, x) -> Tuple[torch.Tensor, torch.Tensor]:
         ff_axes and mo.d_expert % _extent(mesh, ff_axes) != 0
     ):
         return moe_alltoall(cfg, params, x)
+    if x.device.type == "meta":
+        # one device's work: its tokens all-gathered over the shards its
+        # layout cut the batch into (the dry run's mesh says how many),
+        # its experts' FFN slice over them, its own rows back
+        n = getattr(mesh, "token_shards", 1)
+        x_all = x.repeat(n, 1, 1)
+        y, aux = _routed(cfg, params, x_all, ep, _capacity(n * b * s, cfg),
+                         1)
+        return _with_shared(cfg, params, x, y[:b]), aux
     _one_process(mesh, ("pod", "data"))
     return _dispatch(cfg, params, x, ep, _capacity(b * s, cfg))
 
