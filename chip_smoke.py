@@ -3,11 +3,12 @@
 construction path, its path-compressed, quantized and seed layouts, its
 streaming tries, its serve loop, its sharded trie, its launch profiler,
 its LM serving path (dense, then MLA + MoE, then Mamba2 and Jamba's
-hybrid unit), its training path and its dry run on one NVIDIA GPU.
+hybrid unit), its placed LM paths on a process mesh, its training path
+and its dry run on one NVIDIA GPU.
 
     python3 chip_smoke.py [--edges N] [--seed S] [--reps R]
                           [--tuning-out DIR] [--tuning-only]
-                          [--dryrun-out DIR] [--dryrun-only]
+                          [--dryrun-out DIR] [--dryrun-only] [--mesh-only]
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, in
    parallel, beside the latency probe ``probes/pointer_chase.cu``).
@@ -198,6 +199,25 @@ hybrid unit), its training path and its dry run on one NVIDIA GPU.
    ms (dense and dispatch at ep = 1), decode ms a token and tokens/s at
    batch 1 and 8, resident bytes and the decode bound.  No kernel of its
    own.
+13b. The placed LM paths (``[mesh]``; alone with ``--mesh-only``): a
+   one-rank NCCL world in this process (an in-process ``HashStore``, no
+   port), ``make_host_mesh()`` the 1 x 1 ``("data", "model")`` process
+   mesh on the card.  (a) smollm-360m at full width and depth, its f32
+   weights placed as DTensors by ``remesh_state`` (no copy: a block is
+   the whole leaf): a 512-token prefill and 64 greedy tokens at batch 1
+   and 8 into a placed cache (bf16), prefill logits bitwise against the
+   plain path (or the first gap printed and within 1e-5) and tokens
+   equal; an 8 x 256 ``loss_and_grads`` the same way (loss and each
+   gradient leaf); decode ms a token and AdamW step ms placed beside
+   plain, in turns.  (b) DeepSeek-V2-Lite-16B at full width and depth on
+   step 13's weights, placed without a copy, its MoE through
+   ``moe_alltoall``'s process-group path, against the one-process
+   dispatch path at ep = 1 under deterministic algorithms (the
+   dispatch's scatter-add sums by atomics otherwise): prefill logits and
+   32 greedy tokens after a 512-token prompt; decode ms placed beside
+   the dispatch path.  Four gloo ranks on the one card are not run:
+   DTensor's all-gather kills them (``probes/gloo_cuda_collectives.py``).
+   No kernel of its own.
 14. Mamba2 (``[mamba]``): mamba2-370m at full width and depth (48
    Mamba2 layers, d_model 1024, 32 SSD heads of 64, d_state 128, chunk
    256, vocab 50,280, 368,338,432 params), f32 weights drawn on the card
@@ -4350,9 +4370,334 @@ def ds_phase(args, dev, smi):
     log(f"[deepseek trace] {smi}: 3 decode steps at batch 1, dense path: "
         + json.dumps(lm_decode_trace(cfg, params, dev, stream, n_prompt,
                                      max_seq)))
-    del params
-    torch.cuda.empty_cache()
     log(f"[deepseek] phase done in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+# the mesh phase: the placed LM paths (DTensors on a process mesh) on a
+# one-rank NCCL world in this process, against the plain paths
+MESH_SIZES = dict(prompt=512, decode=64, max_seq=1024, batch=8, seq=256,
+                  timed=16, ds_decode=32)
+MESH_TOL = 1e-5               # placed against plain, where not bitwise
+
+
+def mesh_world(dev):
+    """A one-rank NCCL world in this process (an in-process HashStore: no
+    port) and ``make_host_mesh()`` over it: the 1 x 1 ``("data",
+    "model")`` process mesh on ``dev``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    mesh = make_host_mesh()
+    if mesh.shape != {"data": 1, "model": 1} or mesh.device != dev:
+        raise AssertionError(f"mesh: make_host_mesh() gave {mesh} on "
+                             f"{mesh.device}")
+    return mesh
+
+
+def under(mesh):
+    """``use_mesh(mesh)``, or no mesh for ``None``."""
+    from repro_torch.distributed.sharding import use_mesh
+
+    return contextlib.nullcontext() if mesh is None else use_mesh(mesh)
+
+
+def whole(x):
+    from repro_torch.distributed.sharding import is_placed
+
+    return x.full_tensor() if is_placed(x) else x
+
+
+def held(what, got, want, tol=MESH_TOL, scale=None):
+    """``got`` (placed or not) against ``want``: bitwise, or the first
+    differing index printed and the max difference within ``tol`` (of
+    ``scale`` when given).  Returns the max abs difference."""
+    import torch
+
+    got = whole(got).detach()
+    if torch.equal(got, want):
+        return 0.0
+    diff = (got.double() - want.double()).abs()
+    err = float(diff.max())
+    first = [int(i) for i in (diff > 0).nonzero()[0].tolist()]
+    limit = tol * (scale if scale is not None else 1.0)
+    log(f"[mesh] {what}: not bitwise, first gap at {first}: "
+        f"{float(got[tuple(first)])} against {float(want[tuple(first)])}; "
+        f"max abs err {err:.3e} (limit {limit:.3e})")
+    if not err <= limit:
+        raise AssertionError(f"mesh: {what} differs by {err}")
+    return err
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms inside the block: the MoE dispatch's
+    scatter-add (``index_add_``) sums in a fixed order on the card, not
+    by atomics, so two runs of it can agree bitwise."""
+    import torch
+
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
+def mesh_greedy(cfg, plain, placed, mesh, dev, rows, n, label, plain_mesh):
+    """Prefill logits and ``n`` greedy tokens of ``rows`` (batch, prompt),
+    plain (under ``plain_mesh``) and placed (params and cache placed by
+    ``remesh_state``; under ``mesh``): tokens equal, logits bitwise or
+    within MESH_TOL.  Returns the logits' max abs err."""
+    import torch
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.models import cache_axes, init_cache
+    from repro_torch.serve import make_prefill_step
+    from repro_torch.serve.engine import greedy_generate
+    from repro_torch.train.elastic import remesh_state
+
+    b, max_seq = rows.shape[0], MESH_SIZES["max_seq"]
+    prefill = make_prefill_step(cfg)
+    prompt = torch.as_tensor(rows, device=dev)
+    with under(plain_mesh):
+        want, _ = prefill(plain, init_cache(cfg, b, max_seq, device=dev),
+                          {"tokens": prompt})
+        toks, _ = greedy_generate(cfg, plain, init_cache(
+            cfg, b, max_seq, device=dev), rows, n)
+    with use_mesh(mesh):
+        cache = remesh_state(init_cache(cfg, b, max_seq, device=dev),
+                             cache_axes(cfg), mesh)
+        got, _ = prefill(placed, cache, {"tokens": prompt})
+        cache = remesh_state(init_cache(cfg, b, max_seq, device=dev),
+                             cache_axes(cfg), mesh)
+        gtoks, cache = greedy_generate(cfg, placed, cache, rows, n)
+    err = held(f"{label} prefill logits, batch {b}", got, want)
+    gtoks = whole(gtoks)
+    if not torch.equal(gtoks, toks):
+        i = int((gtoks != toks).nonzero()[0][1])
+        raise AssertionError(f"mesh: {label} batch {b}: placed tokens "
+                             f"differ from plain at step {i}")
+    pos = int(whole(cache["units"]["0"]["pos"])[0])
+    log(f"[mesh {label}] batch {b}: prefill of {rows.shape[1]} tokens, "
+        f"logits max abs err {err:.3e} placed against plain; {n} greedy "
+        f"tokens equal; placed cache pos {pos}")
+    if pos != rows.shape[1] + n:
+        raise AssertionError(f"mesh: {label} cache pos {pos}")
+    return err
+
+
+def in_turns(sides, run, rounds=4):
+    """``run(side)`` (ms) for each of ``sides`` in turns, the order
+    reversed every round (plain, placed, placed, plain, ...); the median
+    of each side's rounds, by name."""
+    times = {name: [] for name, *_ in sides}
+    for r in range(rounds):
+        for side in (sides if r % 2 == 0 else sides[::-1]):
+            times[side[0]].append(run(side))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def mesh_decode_ms(cfg, sides, dev, rows):
+    """Decode ms a token at ``rows``' batch after its prefill (CUDA
+    events over MESH_SIZES["timed"] greedy steps) for each side (name,
+    params, mesh or None, whether the cache is placed), in turns."""
+    import torch
+    from repro_torch.models import cache_axes, init_cache
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    from repro_torch.serve.engine import _next_token
+    from repro_torch.train.elastic import remesh_state
+
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    prompt = torch.as_tensor(rows, device=dev)
+    n = MESH_SIZES["timed"]
+
+    def run(side):
+        _, params, mesh, place = side
+        with under(mesh):
+            cache = init_cache(cfg, rows.shape[0], MESH_SIZES["max_seq"],
+                               device=dev)
+            if place:
+                cache = remesh_state(cache, cache_axes(cfg), mesh)
+            logits, cache = prefill(params, cache, {"tokens": prompt})
+            tok = _next_token(logits)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                logits, cache = decode(params, cache, tok)
+                tok = _next_token(logits)
+            end.record()
+            end.synchronize()
+        return start.elapsed_time(end) / n
+
+    return in_turns(sides, run)
+
+
+def mesh_train(cfg, plain, placed, mesh, dev, label):
+    """One 8 x 256 pipeline batch: ``loss_and_grads`` placed against
+    plain (loss and each gradient leaf bitwise, or within MESH_TOL of its
+    max |grad|), then AdamW step ms of each (CUDA events, in turns: one
+    warm-up step each, then the median of 4)."""
+    import torch
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.pytree import tree_leaves, tree_leaves_with_path
+    from repro_torch.train.optimizer import AdamW, OptConfig
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+
+    batch = on_device(train_pipeline(MESH_SIZES["seq"],
+                                      MESH_SIZES["batch"]).batch_at(0), dev)
+    loss, _, grads = loss_and_grads(cfg, plain, batch)
+    with use_mesh(mesh):
+        ploss, _, pgrads = loss_and_grads(cfg, placed, batch)
+    out = {"loss_err": held(f"{label} loss", ploss, loss)}
+    worst = 0.0
+    for (path, g), w in zip(tree_leaves_with_path(pgrads),
+                            tree_leaves(grads)):
+        peak = float(w.abs().max()) or 1.0
+        worst = max(worst, held(f"{label} grad {'/'.join(map(str, path))}",
+                                g, w, scale=peak) / peak)
+    out["grad_rel_err"] = worst
+    del grads, pgrads
+    opt = AdamW(OptConfig())
+    step = make_train_step(cfg, opt)
+    state = {"plain": [plain, None, 0], "placed": [placed, mesh, 0]}
+    for name, st in state.items():
+        st.append(opt.init(st[0]))
+
+    def run(side):
+        params, m, i, opt_state = state[side[0]]
+        with under(m):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, opt_state, _ = step(params, opt_state, batch, float(i))
+            end.record()
+            end.synchronize()
+        state[side[0]] = [params, m, i + 1, opt_state]
+        return start.elapsed_time(end)
+
+    sides = [("plain",), ("placed",)]
+    in_turns(sides, run, rounds=2)              # one warm-up step each
+    for name, ms in in_turns(sides, run).items():
+        out[f"{name}_step_ms"] = ms
+    del state
+    log(f"[mesh {label}] train batch {MESH_SIZES['batch']} x "
+        f"{MESH_SIZES['seq']}: loss {float(loss):.6f}, placed against "
+        f"plain: loss err {out['loss_err']:.3e}, worst gradient leaf "
+        f"{worst:.3e} of its max |grad|")
+    return out
+
+
+def mesh_lm(args, dev, smi, mesh):
+    """(a) smollm-360m at full width and depth, params placed as DTensors
+    by ``remesh_state`` on the one-rank mesh (no copy: each block is the
+    whole leaf): ``mesh_greedy`` at batch 1 and 8, ``mesh_train``, and
+    decode ms a token placed against plain, in turns."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import materialize_params
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.train.elastic import remesh_state
+
+    cfg = get_config(LM_ARCH)
+    plain, axes = materialize_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    placed = remesh_state(plain, axes, mesh)
+    shared = all(p.to_local().data_ptr() == q.data_ptr()
+                 for p, q in zip(tree_leaves(placed), tree_leaves(plain)))
+    log(f"[mesh lm] {LM_ARCH}: {len(tree_leaves(placed))} leaves placed on "
+        f"{mesh}; blocks share the plain leaves' memory: {shared}")
+    if not shared:
+        raise AssertionError("mesh: remesh_state copied a leaf on 1 x 1")
+    _, stream = lm_token_stream(LM_SIZES["corpus_docs"], args.seed)
+    n_prompt = MESH_SIZES["prompt"]
+    line = {}
+    for b in LM_BATCHES:
+        rows = stream[:b * n_prompt].reshape(b, n_prompt)
+        line[f"logits_err_b{b}"] = mesh_greedy(
+            cfg, plain, placed, mesh, dev, rows, MESH_SIZES["decode"], "lm",
+            None)
+        ms = mesh_decode_ms(cfg, [("plain", plain, None, False),
+                                  ("placed", placed, mesh, True)], dev, rows)
+        line[f"decode_ms_b{b}"] = ms["plain"]
+        line[f"placed_decode_ms_b{b}"] = ms["placed"]
+    line.update(mesh_train(cfg, plain, placed, mesh, dev, "lm"))
+    log(f"[mesh lm ms] {smi}: " + json.dumps(line))
+    return line
+
+
+def mesh_ds(args, dev, smi, mesh, params):
+    """(b) DeepSeek-V2-Lite-16B at full width and depth (``params``: f32
+    on the card, placed by ``remesh_state`` without a copy), its MoE
+    through ``moe_alltoall``'s process-group path on the mesh, against
+    the one-process dispatch path at ep = 1 (``[deepseek]``'s
+    ``model_mesh(1)``): prefill logits and MESH_SIZES["ds_decode"]
+    greedy tokens after a 512-token prompt at batch 1, both under
+    ``deterministic()`` (the dispatch's scatter-add by atomics is not
+    reproducible run to run, and one flipped routing choice moves the
+    logits by whole units), then decode ms a token of each as it runs
+    (atomics)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import abstract_params
+    from repro_torch.train.elastic import remesh_state
+
+    cfg = get_config(DS_ARCH)
+    before = torch.cuda.memory_allocated()
+    placed = remesh_state(params, abstract_params(cfg)[1], mesh)
+    added = torch.cuda.memory_allocated() - before
+    log(f"[mesh deepseek] {DS_ARCH} placed on {mesh}: {added} bytes "
+        f"allocated by the placement")
+    if added > 1 << 20:
+        raise AssertionError(f"mesh: placing DeepSeek copied {added} bytes")
+    _, stream = lm_token_stream(DS_SIZES["corpus_docs"], args.seed)
+    rows = stream[:DS_SIZES["prompt"]][None]
+    with deterministic():
+        line = {"logits_err_b1": mesh_greedy(
+            cfg, params, placed, mesh, dev, rows, MESH_SIZES["ds_decode"],
+            "deepseek", model_mesh(1))}
+    ms = mesh_decode_ms(cfg, [("dispatch", params, model_mesh(1), False),
+                              ("placed", placed, mesh, True)], dev, rows)
+    line["dispatch_decode_ms_b1"] = ms["dispatch"]
+    line["placed_decode_ms_b1"] = ms["placed"]
+    log(f"[mesh deepseek ms] {smi}: " + json.dumps(line))
+    return line
+
+
+def mesh_phase(args, dev, smi, ds_held=None):
+    """The ``[mesh]`` phase's one-rank NCCL world in this process:
+    ``mesh_ds`` on the DeepSeek phase's weights (``ds_held``: a list
+    holding them, emptied here so that they are freed before smollm's
+    train step needs the card; else weights drawn here), then
+    ``mesh_lm``; the world torn down after."""
+    import torch
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    mesh = mesh_world(dev)
+    try:
+        if ds_held:
+            params = ds_held.pop()
+        else:
+            from repro_torch.configs import get_config
+            from repro_torch.models import materialize_params
+
+            torch.cuda.empty_cache()
+            params, _ = materialize_params(
+                get_config(DS_ARCH),
+                torch.Generator(device=dev).manual_seed(args.seed), dev)
+        mesh_ds(args, dev, smi, mesh, params)
+        del params
+        torch.cuda.empty_cache()
+        log(f"[mesh] {DS_ARCH} done in {time.perf_counter() - t0:.1f} s")
+        mesh_lm(args, dev, smi, mesh)
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    log(f"[mesh] phase done in {time.perf_counter() - t0:.1f} s")
 
 
 # the Mamba phase: mamba2-370m (SSD) at full width and depth, then
@@ -5398,6 +5743,8 @@ def main():
         help="where the [dryrun] phase writes its records")
     ap.add_argument("--dryrun-only", action="store_true",
                     help="run the [dryrun] phase alone and stop")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run the [mesh] phase alone and stop")
     args = ap.parse_args()
 
     import numpy as np
@@ -5437,6 +5784,9 @@ def main():
     t_start = time.perf_counter()
     if args.dryrun_only:
         dryrun_phase(args, dev, smi)
+        return 0
+    if args.mesh_only:
+        mesh_phase(args, dev, smi)
         return 0
 
     # -- 1. build ------------------------------------------------------
@@ -5716,7 +6066,10 @@ def main():
     lm_phase(args, dev, smi)
 
     # -- 14. MLA and MoE: DeepSeek-V2-Lite-16B at full width and depth ---
-    ds_phase(args, dev, smi)
+    ds_held = [ds_phase(args, dev, smi)]
+
+    # -- 14b. the placed LM paths on a one-rank process mesh -------------
+    mesh_phase(args, dev, smi, ds_held)
 
     # -- 15. Mamba2: mamba2-370m at full width and depth, Jamba's unit ----
     mamba_phase(args, dev, smi)

@@ -7,14 +7,17 @@ layout quantizes its confidence and lift columns with it; the trainer's
 error-feedback gradient compressor and ``compressed_psum`` too) and
 the serve loop's ``health`` signals, and the LM side's logical-axis
 rules of ``sharding`` (``logical_to_spec`` with its divisibility
-fallback, ``shard_params_specs``, ``constrain``, the identity on one
-device, and the ambient mesh of ``use_mesh`` / ``get_mesh``)."""
+fallback, ``shard_params_specs``, ``named_sharding`` and ``constrain``,
+which place and redistribute DTensors on a process mesh, and the
+ambient mesh of ``use_mesh`` / ``get_mesh``)."""
 from .sharding import (
     LOGICAL_RULES,
     SERVING_RULES,
+    NamedSharding,
     constrain,
     get_mesh,
     logical_to_spec,
+    named_sharding,
     shard_params_specs,
     use_mesh,
 )
@@ -33,9 +36,11 @@ from .trie_sharding import (
 __all__ = [
     "LOGICAL_RULES",
     "SERVING_RULES",
+    "NamedSharding",
     "constrain",
     "get_mesh",
     "logical_to_spec",
+    "named_sharding",
     "shard_params_specs",
     "use_mesh",
     "ShardFailure",

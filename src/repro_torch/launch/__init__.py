@@ -1,5 +1,6 @@
 """Launch helpers of the port: the host mesh (``mesh.make_host_mesh``)
-the trainer runs under, the trie mesh (``mesh.TrieMesh``,
+the trainer runs under, the process meshes over a ``torch.distributed``
+world (``mesh.ProcessMesh``, ``mesh.make_mesh``), the trie mesh (``mesh.TrieMesh``,
 ``mesh.make_trie_mesh``) the sharded trie spreads over, the production
 meshes (``mesh.make_production_mesh``, devices-free ``AbstractMesh``es),
 the training entry point ``train`` (``python -m
@@ -12,11 +13,14 @@ touches CUDA or the environment at import."""
 from .mesh import (
     AbstractMesh,
     HostMesh,
+    ProcessMesh,
     TrieMesh,
     make_host_mesh,
+    make_mesh,
     make_production_mesh,
     make_trie_mesh,
 )
 
-__all__ = ["AbstractMesh", "HostMesh", "TrieMesh", "make_host_mesh",
-           "make_production_mesh", "make_trie_mesh"]
+__all__ = ["AbstractMesh", "HostMesh", "ProcessMesh", "TrieMesh",
+           "make_host_mesh", "make_mesh", "make_production_mesh",
+           "make_trie_mesh"]

@@ -11,12 +11,19 @@ call; ``distributed.use_mesh`` accepts it and
 ``distributed.sharding.logical_to_spec`` reads it (the dry run,
 ``launch/dryrun.py``, counts one device's program under it).
 
-``make_host_mesh`` is the PyTorch counterpart of the reference's: a
-``("data", "model")`` mesh of shape (1, 1) on one device, which
+``ProcessMesh`` is a mesh over the ranks of a ``torch.distributed``
+world, one process a device: a ``DeviceMesh`` with named dims, read as
+the reference reads a ``jax.sharding.Mesh`` (``.shape`` from axis name
+to extent, ``.axis_names``, ``.devices``), plus this rank's coordinate
+and each axis's process group.  ``distributed.sharding.named_sharding``
+places tensors on it as DTensors; ``make_mesh`` builds one over the
+initialized world.
+
+``make_host_mesh`` is the PyTorch counterpart of the reference's: with a
+process group up, the reference's 1 x n ``("data", "model")`` mesh over
+the whole world (rank r on ``cuda:r``, or the CPU under gloo); without
+one, a ``HostMesh``: the (1, 1) mesh on one device, which
 ``distributed.use_mesh`` accepts (a mesh is anything with ``.shape``).
-More than one visible GPU raises ``NotImplementedError``: placing a model
-over several cards waits for the multi-GPU slice
-(``distributed.sharding.MULTI_GPU``).
 
 ``TrieMesh`` is the counterpart of ``make_trie_mesh`` in
 ``repro.launch.mesh``.  The
@@ -40,7 +47,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.array_trie import resolve_device
-from repro_torch.distributed.sharding import MULTI_GPU
 
 
 def _indexed(device) -> torch.device:
@@ -147,13 +153,86 @@ def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
     return AbstractMesh((16, 16), ("data", "model"))
 
 
-def make_host_mesh(device=None) -> HostMesh:
-    """The degenerate 1 x 1 mesh over the local device (CUDA unless
-    named).  The reference spans every visible device along ``model``;
-    with more than one visible GPU this raises."""
+class ProcessMesh:
+    """A mesh of named axes over the ranks of the initialized
+    ``torch.distributed`` world: ``device_mesh`` (a ``DeviceMesh`` whose
+    dims carry the axis names), ``shape`` (axis name → extent, the
+    reference's ``Mesh.shape``), ``axis_names``, ``devices`` (an object
+    array of the ``torch.device`` at each coordinate: ``cuda:r`` for rank
+    r on CUDA, else the device type), ``device`` (this rank's),
+    ``coordinate`` (axis name → this rank's index) and ``group(axis)``
+    (the process group along one axis)."""
+
+    def __init__(self, device_mesh):
+        self.device_mesh = device_mesh
+        self.axis_names: Tuple[str, ...] = tuple(device_mesh.mesh_dim_names)
+        kind = device_mesh.device_type
+        ranks = device_mesh.mesh.cpu().numpy()
+        # read once: ``DeviceMesh.mesh`` rebuilds its tensor at each read
+        self.sizes: Tuple[int, ...] = tuple(int(n) for n in ranks.shape)
+        self.devices = np.empty(ranks.shape, dtype=object)
+        for idx, r in np.ndenumerate(ranks):
+            self.devices[idx] = _rank_device(kind, int(r))
+        self._coordinate = tuple(device_mesh.get_coordinate())
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.sizes))
+
+    @property
+    def coordinate(self) -> dict:
+        return dict(zip(self.axis_names, self._coordinate))
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[self._coordinate]
+
+    def group(self, axis: str):
+        return self.device_mesh.get_group(axis)
+
+    def __repr__(self) -> str:
+        return f"ProcessMesh({self.shape}, {self.device_mesh.device_type})"
+
+
+def _rank_device(kind: str, rank: int) -> torch.device:
+    """Rank ``rank``'s device: ``cuda:r`` (one host, a card a rank), or
+    the device type alone (the CPU)."""
+    if kind == "cuda":
+        return torch.device("cuda", rank % max(torch.cuda.device_count(), 1))
+    return torch.device(kind)
+
+
+def make_mesh(shape: Iterable[int], axes: Iterable[str],
+              device_type: str = "cuda") -> ProcessMesh:
+    """A ``ProcessMesh`` of ``shape`` with axis names ``axes`` over the
+    initialized world (its size must be the product of ``shape``), rank
+    r at the r-th coordinate in row-major order; on CUDA each rank takes
+    ``cuda:r`` as its current device first."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialized process group "
+                           "(torch.distributed.init_process_group)")
+    if device_type == "cuda":
+        torch.cuda.set_device(_rank_device("cuda", dist.get_rank()))
+    return ProcessMesh(init_device_mesh(device_type, tuple(shape),
+                                        mesh_dim_names=tuple(axes)))
+
+
+def make_host_mesh(device=None):
+    """The reference's 1 x n ``("data", "model")`` mesh over the whole
+    initialized world (``make_mesh`` on ``device``'s type), or, with no
+    process group up, the degenerate 1 x 1 ``HostMesh`` on ``device``;
+    CUDA unless named."""
+    import torch.distributed as dist
+
     dev = resolve_device(device)
-    if dev.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"{torch.cuda.device_count()} visible GPUs: the host mesh "
-            f"spans one device here: {MULTI_GPU}")
+    if dist.is_available() and dist.is_initialized():
+        return make_mesh((1, dist.get_world_size()), ("data", "model"),
+                         dev.type)
     return HostMesh(dev)

@@ -3,10 +3,20 @@
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch smollm-360m --reduced --steps 200 --resume auto
 
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch smollm-360m --reduced --steps 200
+
 PyTorch port of ``repro.launch.train``, with its flags and printed lines,
 plus ``--device`` (CUDA unless named; ``cpu`` runs the same path on the
-host) and ``--seed`` (the generator the weights are drawn from).  What it
-exercises, on one device:
+host) and ``--seed`` (the generator the weights are drawn from).  Under
+``torchrun`` (``WORLD_SIZE`` above 1) each process joins the world
+(NCCL on CUDA, rank r on ``cuda:r``; gloo on the CPU) and trains on the
+1 x n ``("data", "model")`` host mesh: params and optimizer state placed
+by ``train.elastic.remesh_state`` with the logical rules, each rank
+computing on its rows of the global batch (``("batch", "seq")``), rank 0
+printing and writing checkpoints of whole tensors in the one-device
+layout (so they restore across meshes and packages; a restore is placed
+again by ``remesh_state``).  What it exercises:
   - the deterministic, stateless-seekable data pipeline (a restart sees
     the same stream);
   - async, atomic, hash-verified checkpoints and auto-resume;
@@ -35,11 +45,12 @@ from repro_torch.data.pipeline import (
     synthetic_corpus,
 )
 from repro_torch.distributed.compression import ErrorFeedbackInt8
-from repro_torch.distributed.sharding import use_mesh
+from repro_torch.distributed.sharding import is_placed, use_mesh
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import materialize_params
+from repro_torch.pytree import tree_map
 from repro_torch.train.checkpoint import AsyncCheckpointer, restore_latest
-from repro_torch.train.elastic import StragglerDetector
+from repro_torch.train.elastic import StragglerDetector, remesh_state
 from repro_torch.train.optimizer import OptConfig, pick_optimizer
 from repro_torch.train.train_step import make_train_step
 
@@ -64,9 +75,40 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def _join_world(device):
+    """Under ``torchrun`` (``WORLD_SIZE`` above 1, no group up yet): join
+    the world and return (this rank's device, whether this call started
+    the group); else (``device`` resolved, False)."""
+    import torch.distributed as dist
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
+        return resolve_device(device), False
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return dev, True
+
+
+def _whole(tree):
+    """Every placed leaf gathered whole (a collective: every rank calls
+    it), for a checkpoint in the one-device layout."""
+    return tree_map(lambda x: x.full_tensor() if is_placed(x) else x, tree)
+
+
 def main(argv=None):
+    import torch.distributed as dist
+
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    dev, started = _join_world(args.device)
+    try:
+        return _train(args, dev)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args, dev):
     cfg = (
         get_reduced_config(args.arch) if args.reduced
         else get_config(args.arch)
@@ -75,17 +117,28 @@ def main(argv=None):
     cfg = cfg.scaled(vocab_size=max(cfg.vocab_size, 260))
 
     mesh = make_host_mesh(dev)
+    placed = hasattr(mesh, "device_mesh")
+    lead = not placed or mesh.device_mesh.get_rank() == 0
+    log = print if lead else (lambda *a, **k: None)
     docs = synthetic_corpus(512, seed=1)
     pipe = TokenPipeline(
         docs, PipelineConfig(seq_len=args.seq, global_batch=args.batch)
     )
-    print(f"pipeline: {pipe.n_rows} packed rows")
+    log(f"pipeline: {pipe.n_rows} packed rows")
 
     with use_mesh(mesh):
-        params, _ = materialize_params(
+        params, axes = materialize_params(
             cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
         opt = pick_optimizer(cfg, OptConfig(lr=args.lr, warmup_steps=20))
         opt_state = opt.init(params)
+
+        def place(params, opt_state):
+            if not placed:
+                return params, opt_state
+            return (remesh_state(params, axes, mesh),
+                    remesh_state(opt_state, opt.state_axes(axes), mesh))
+
+        params, opt_state = place(params, opt_state)
 
         compressor = ErrorFeedbackInt8() if args.compress_grads else None
         state = {"residual": compressor.init(params) if compressor else None}
@@ -111,9 +164,10 @@ def main(argv=None):
                 args.ckpt_dir, {"params": params, "opt": opt_state}
             )
             if restored is not None:
-                params, opt_state = restored["params"], restored["opt"]
+                params, opt_state = place(restored["params"],
+                                          restored["opt"])
                 start_step = manifest["step"] + 1
-                print(f"resumed from step {manifest['step']}")
+                log(f"resumed from step {manifest['step']}")
 
         detector = StragglerDetector()
         losses, step_ms = [], []
@@ -137,26 +191,28 @@ def main(argv=None):
             step_ms.append(ev[0].elapsed_time(ev[1]) if timer else dt * 1e3)
             losses.append(loss)
             if detector.observe(step, dt):
-                print(f"[straggler] sustained slowdown at step {step} "
-                      f"({dt:.2f}s vs ewma {detector._ewma:.2f}s) — a real "
-                      "deployment re-meshes here (train/elastic.py)")
+                log(f"[straggler] sustained slowdown at step {step} "
+                    f"({dt:.2f}s vs ewma {detector._ewma:.2f}s) — a real "
+                    "deployment re-meshes here (train/elastic.py)")
             if step % args.log_every == 0:
-                print(f"step {step:5d} loss {loss:.4f} "
-                      f"({dt*1000:.0f} ms)", flush=True)
+                log(f"step {step:5d} loss {loss:.4f} "
+                    f"({dt*1000:.0f} ms)", flush=True)
             if step and step % args.ckpt_every == 0:
-                ckpt.save_async(
-                    step, {"params": params, "opt": opt_state},
-                    extra={"loss": loss},
-                )
+                tree = _whole({"params": params, "opt": opt_state})
+                if lead:
+                    ckpt.save_async(step, tree, extra={"loss": loss})
         ckpt.wait()
-        ckpt.save_async(args.steps - 1,
-                        {"params": params, "opt": opt_state})
+        tree = _whole({"params": params, "opt": opt_state})
+        if lead:
+            ckpt.save_async(args.steps - 1, tree)
         ckpt.wait()
+        if placed:   # no rank reads the directory before rank 0 wrote it
+            torch.distributed.barrier()
         first = np.mean(losses[:10])
         last = np.mean(losses[-10:])
-        print(f"done: loss {first:.3f} → {last:.3f} "
-              f"({'improved' if last < first else 'NO IMPROVEMENT'})")
-    return {"cfg": cfg, "losses": losses, "step_ms": step_ms,
+        log(f"done: loss {first:.3f} → {last:.3f} "
+            f"({'improved' if last < first else 'NO IMPROVEMENT'})")
+    return {"cfg": cfg, "mesh": mesh, "losses": losses, "step_ms": step_ms,
             "start_step": start_step, "params": params,
             "opt_state": opt_state, "optimizer": opt,
             "residual": state["residual"]}

@@ -11,7 +11,10 @@ every leaf keeps its dtype: Mamba's float32 ``a_log``, ``dt_bias`` and
 ``d_skip`` beside bf16 params, its bf16 conv windows beside its float32
 ``ssm`` state in a cache.  Optimizer states (AdamW's ``m`` / ``v``,
 Adafactor's ``vr`` / ``vc`` / ``v``) cross the same way, against the
-port optimizer's own ``init`` of the config's shapes.
+port optimizer's own ``init`` of the config's shapes.  With ``mesh=`` (a
+``launch.mesh.ProcessMesh``) each tree comes back placed by
+``named_sharding`` of its logical axes (``train.elastic.remesh_state``),
+each rank holding its blocks on its own device.
 """
 from __future__ import annotations
 
@@ -48,25 +51,43 @@ def tree_from_numpy(like, tree, device=None):
     return tree_map(leaf, like, tree)
 
 
-def params_from_numpy(cfg, tree, device=None):
+def _placed(tree, axes, mesh):
+    if mesh is None:
+        return tree
+    from repro_torch.train.elastic import remesh_state
+
+    return remesh_state(tree, axes, mesh)
+
+
+def _device(device, mesh):
+    return mesh.device if device is None and mesh is not None else device
+
+
+def params_from_numpy(cfg, tree, device=None, mesh=None):
     """The reference's parameter tree (numpy leaves) as the port's, on
-    ``device`` (CUDA unless named), checked against
-    ``abstract_params(cfg)``."""
-    return tree_from_numpy(abstract_params(cfg)[0], tree, device)
+    ``device`` (CUDA unless named; a process mesh's rank's device),
+    checked against ``abstract_params(cfg)``, placed on ``mesh`` when
+    given."""
+    like, axes = abstract_params(cfg)
+    return _placed(tree_from_numpy(like, tree, _device(device, mesh)), axes,
+                   mesh)
 
 
-def opt_state_from_numpy(cfg, optimizer, tree, device=None):
+def opt_state_from_numpy(cfg, optimizer, tree, device=None, mesh=None):
     """The reference's optimizer state for ``cfg`` (numpy leaves) as the
     port's ``optimizer`` (``train.AdamW`` or ``train.Adafactor``) keeps
-    it, checked against ``optimizer.init`` of the config's shapes."""
-    like = optimizer.init(abstract_params(cfg)[0])
-    return tree_from_numpy(like, tree, device)
+    it, checked against ``optimizer.init`` of the config's shapes, placed
+    on ``mesh`` (by ``optimizer.state_axes``) when given."""
+    like, axes = abstract_params(cfg)
+    state = tree_from_numpy(optimizer.init(like), tree, _device(device, mesh))
+    return _placed(state, optimizer.state_axes(axes), mesh)
 
 
-def cache_from_numpy(cfg, tree, device=None):
+def cache_from_numpy(cfg, tree, device=None, mesh=None):
     """A reference decode cache (numpy leaves) as the port's, on
-    ``device``; each leaf's rank must match ``cache_axes(cfg)``."""
-    dev = resolve_device(device)
+    ``device``; each leaf's rank must match ``cache_axes(cfg)``; placed
+    on ``mesh`` when given."""
+    dev = resolve_device(_device(device, mesh))
 
     def leaf(axes, got):
         t = _tensor(got, dev)
@@ -75,4 +96,5 @@ def cache_from_numpy(cfg, tree, device=None):
                              f"config has axes {axes}")
         return t
 
-    return tree_map(leaf, cache_axes(cfg), tree)
+    return _placed(tree_map(leaf, cache_axes(cfg), tree), cache_axes(cfg),
+                   mesh)

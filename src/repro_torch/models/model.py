@@ -30,6 +30,21 @@ cache's buffers in place (the cache is consumed, as the reference's
 jitted decode donates it) and returns a cache with new position
 counters.  A pure-SSM cache has no position counter: its position reads
 0, as the reference's.
+
+On a process mesh (params placed as DTensors by
+``train.elastic.remesh_state`` on a ``launch.mesh.ProcessMesh``) the
+same functions run the reference's program one rank at a time, as a
+shard map would: each rank takes its rows of the batch (a DTensor's own
+block, or the block ``logical_to_spec(("batch", "seq"))`` gives a plain
+batch), each layer's placed weights whole (``Rows.weight``: the
+redistribution to ``Replicate()`` around the ops, the ZeRO-3 gather;
+the ops themselves are the one-device code, so none needs a sharding
+rule), the MoE's expert slices through its process-group path, and a
+placed cache's rows whole for the step (its blocks over the other axes
+gathered, the step's writes then copied into the rank's own block in
+place).  Logits, ``hidden`` and the new cache come back placed; the
+loss and the dense MoE's aux loss sum over every rank's rows.  Mamba
+layers and DeepSeek-V3's MTP head raise on a mesh (``MULTI_GPU``).
 """
 from __future__ import annotations
 
@@ -39,6 +54,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -47,7 +63,18 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.array_trie import resolve_device
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (
+    MULTI_GPU,
+    Rows,
+    entry_axes,
+    constrain,
+    get_mesh,
+    is_placed,
+    local_block,
+    logical_to_spec,
+    place_block,
+    placements_of,
+)
 from repro_torch.pytree import tree_leaves, tree_leaves_with_path, tree_map
 from .layers import (
     PV,
@@ -166,11 +193,26 @@ def materialize_params(cfg: ModelConfig, key, device=None):
 # ----------------------------------------------------------------------
 # forward
 # ----------------------------------------------------------------------
-def _apply_layer(cfg, spec: LayerSpec, p, h, positions, segment_ids, cache):
+def _layer_weights(spec: LayerSpec, p, rows):
+    """A layer's placed leaves whole on this rank (the MoE's stay placed:
+    its paths take the blocks they compute with)."""
+    if rows is None:
+        return p
+    if spec.mixer == "mamba":
+        raise NotImplementedError(f"a Mamba2 layer on a process mesh: "
+                                  f"{MULTI_GPU}")
+    return {k: v if k == "ffn" and spec.ffn == "moe" else rows.tree(v)
+            for k, v in p.items()}
+
+
+def _apply_layer(cfg, spec: LayerSpec, p, h, positions, segment_ids, cache,
+                 rows=None):
     """One residual block; returns (h, new_cache, aux): ``aux`` is the
     MoE's aux loss, or ``None`` for a layer without one (the reference's
-    zero, which adds nothing to a sum)."""
+    zero, which adds nothing to a sum).  ``rows``: a placed model's step
+    on a process mesh."""
     _check_spec(spec)
+    p = _layer_weights(spec, p, rows)
     aux = None
     mix_in = rmsnorm(h, p["ln_mix"], cfg.norm_eps)
     if spec.mixer == "mamba":
@@ -184,7 +226,7 @@ def _apply_layer(cfg, spec: LayerSpec, p, h, positions, segment_ids, cache):
     if spec.ffn != "none":
         f_in = rmsnorm(h, p["ln_ffn"], cfg.norm_eps)
         if spec.ffn == "moe":
-            f_out, aux = moe(cfg, p["ffn"], f_in)
+            f_out, aux = moe(cfg, p["ffn"], f_in, rows)
         else:
             f_out = mlp(cfg, p["ffn"], f_in)
         h = h + f_out
@@ -198,7 +240,8 @@ def _add_aux(total, aux):
     return aux if total is None else total + aux
 
 
-def _apply_unit(cfg, p_unit, h, positions, segment_ids, cache_unit):
+def _apply_unit(cfg, p_unit, h, positions, segment_ids, cache_unit,
+                rows=None):
     """Apply every layer of one unit; cache_unit is a dict keyed like
     p_unit (or None).  Returns (h, new caches, the unit's aux or None)."""
     new_caches = {}
@@ -206,7 +249,7 @@ def _apply_unit(cfg, p_unit, h, positions, segment_ids, cache_unit):
     for i, spec in enumerate(cfg.unit):
         ci = cache_unit[str(i)] if cache_unit is not None else None
         h, nc, aux = _apply_layer(
-            cfg, spec, p_unit[str(i)], h, positions, segment_ids, ci
+            cfg, spec, p_unit[str(i)], h, positions, segment_ids, ci, rows
         )
         aux_total = _add_aux(aux_total, aux)
         if nc is not None:
@@ -224,17 +267,18 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat_unit(cfg, p_u, h, positions, segment_ids):
+def _remat_unit(cfg, p_u, h, positions, segment_ids, rows=None):
     """``_apply_unit`` without a cache under ``torch.utils.checkpoint``:
     policy ``"nothing"`` keeps only the unit's inputs and recomputes the
     rest in the backward pass; ``"dots"`` also keeps the matmul outputs
-    (selective checkpointing)."""
+    (selective checkpointing).  Placed weights are gathered inside, so
+    the backward pass gathers them again (as FSDP does)."""
     kw = {}
     if cfg.remat_policy == "dots":
         kw["context_fn"] = partial(create_selective_checkpoint_contexts,
                                    _save_dots)
     h, _, aux = checkpoint(_apply_unit, cfg, p_u, h, positions, segment_ids,
-                           None, use_reentrant=False, **kw)
+                           None, rows, use_reentrant=False, **kw)
     return h, None, aux
 
 
@@ -251,9 +295,33 @@ def _restack(stacked, *per_unit):
     return torch.stack(per_unit)
 
 
+def _unit_views(x, rows):
+    """A stacked leaf's per-unit views.  A placed leaf whose rank's block
+    is the whole leaf (no mesh axis of extent above 1 splits it) is
+    unwrapped once (``Rows.weight``) into plain views; another gives
+    placed views of its local block (the unit axis is never split), each
+    gathered when its layer runs."""
+    if not is_placed(x):
+        return x.unbind(0)
+    if all(isinstance(p, Replicate) or n == 1
+           for p, n in zip(x.placements, rows.mesh.sizes)):
+        return rows.weight(x).unbind(0)
+    shape, stride = x.shape[1:], x.stride()[1:]
+    places = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+                   for p in x.placements)
+    return tuple(DTensor.from_local(t, x.device_mesh, places,
+                                    run_check=False, shape=shape,
+                                    stride=stride)
+                 for t in x.to_local().unbind(0))
+
+
 def _embed_tokens(cfg, params, tokens):
     cdt = torch_dtype(cfg.compute_dtype)
     return F.embedding(tokens, params["embed"]).to(cdt)
+
+
+# the leaves ``forward`` reads outside the layers
+_TOP = ("embed", "lm_head", "frontend_proj", "final_norm")
 
 
 def forward(
@@ -263,7 +331,123 @@ def forward(
     cache=None,
     logits_mode: str = "all",        # "all" | "last"
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Any]:
-    """Returns (logits [b, s, vocab] float32, extras, new_cache)."""
+    """Returns (logits [b, s, vocab] float32, extras, new_cache).  On
+    placed params (DTensors on a process mesh) logits, ``hidden`` and
+    the cache come back placed (module docstring)."""
+    if not is_placed(params["embed"]):
+        return _forward(cfg, params, batch, cache, logits_mode)
+    rows, local = _rows_of_batch(params, batch)
+    local_cache = None if cache is None else _cache_rows(cfg, cache, rows)
+    logits, extras, new_cache = _forward(cfg, params, local, local_cache,
+                                         logits_mode, rows)
+    extras = dict(extras, hidden=_placed_rows(extras["hidden"], rows))
+    if cache is not None:
+        new_cache = _cache_back(cfg, cache, new_cache, rows)
+    return _placed_rows(logits, rows), extras, new_cache
+
+
+def _process_mesh_of(params):
+    """The process mesh a placed tree lives on: the ambient one (it must
+    hold the tree's ``DeviceMesh``), else one over the tree's."""
+    dm = params["embed"].device_mesh
+    mesh = get_mesh()
+    if hasattr(mesh, "device_mesh"):
+        if mesh.device_mesh != dm:
+            raise ValueError("the params are placed on another mesh than "
+                             "the ambient one")
+        return mesh
+    from repro_torch.launch.mesh import ProcessMesh
+
+    return ProcessMesh(dm)
+
+
+def _rows_of_batch(params, batch):
+    """(``Rows``, this rank's rows of every batch entry): a DTensor's
+    own block (its dim 0 split over the mesh axes it is sharded over),
+    else the block ``logical_to_spec(("batch", "seq"))`` gives."""
+    mesh = _process_mesh_of(params)
+    tokens = batch["tokens"]
+    if is_placed(tokens):
+        rows = Rows.of(tokens, mesh)
+    else:
+        spec = logical_to_spec(("batch", "seq"), mesh, tuple(tokens.shape))
+        rows = Rows(mesh, entry_axes(spec[0]))
+
+    def mine(x):
+        if is_placed(x):
+            return x.to_local()
+        n = x.shape[0] // rows.count
+        return x.narrow(0, rows.index() * n, n)
+
+    return rows, {k: mine(v) for k, v in batch.items()}
+
+
+def _placed_rows(x, rows):
+    """This rank's rows of an output as a DTensor split over the row
+    axes on dim 0."""
+    spec = (tuple(rows.axes) or None,) + (None,) * (x.ndim - 1)
+    return place_block(x, rows.mesh, spec,
+                       (x.shape[0] * rows.count,) + tuple(x.shape[1:]))
+
+
+def _row_spec(x, axes, rows):
+    """A placed cache leaf's spec with only its batch dim split, and the
+    full spec: the leaf's blocks must split the batch over the step's
+    row axes."""
+    full = logical_to_spec(tuple(axes), rows.mesh, tuple(x.shape))
+    want = tuple(e if a == "batch" else None for a, e in zip(axes, full))
+    got = tuple(a for e in want for a in entry_axes(e))
+    if "batch" in axes and got != tuple(rows.axes):
+        raise ValueError(f"a cache leaf splits its batch over {got}, the "
+                         f"step's rows over {rows.axes}")
+    return want, full
+
+
+def _cache_rows(cfg, cache, rows):
+    """Each placed cache leaf's rows whole: its blocks over the axes
+    other than the row axes gathered (none to gather: the rank's own
+    block, in place)."""
+    def leaf(x, axes):
+        if not is_placed(x):
+            return x
+        return local_block(x, rows.mesh, _row_spec(x, axes, rows)[0])
+
+    return tree_map(leaf, cache, cache_axes(cfg))
+
+
+def _cache_back(cfg, cache, new_local, rows):
+    """The step's cache placed again: a buffer's new rows copied into the
+    rank's own block of the old placed leaf in place (nothing to copy
+    where the step wrote there), a new position counter placed."""
+    coord, shape = rows.mesh.coordinate, rows.mesh.shape
+
+    def leaf(old, new, axes):
+        if not is_placed(old):
+            return new
+        _, full = _row_spec(old, axes, rows)
+        if integer_leaf(new):
+            return place_block(new, rows.mesh, full, old.shape)
+        mine = old.to_local()
+        if new.untyped_storage() is mine.untyped_storage():
+            return old
+        block = new
+        for axis, p in zip(rows.mesh.axis_names,
+                           placements_of(full, rows.mesh)):
+            if isinstance(p, Shard) and axis not in rows.axes and \
+                    shape[axis] > 1:
+                n = block.shape[p.dim] // shape[axis]
+                block = block.narrow(p.dim, coord[axis] * n, n)
+        mine.copy_(block)
+        return old
+
+    return tree_map(leaf, cache, new_local, cache_axes(cfg))
+
+
+def _forward(cfg, params, batch, cache, logits_mode, rows=None):
+    """``forward`` on this rank's rows (``rows``) or on one device."""
+    if rows is not None:
+        params = dict(params, **{k: rows.tree(params[k]) for k in _TOP
+                                 if k in params})
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = batch.get("positions")
@@ -292,7 +476,8 @@ def forward(
     for i, spec in enumerate(cfg.prefix):
         ci = cache["prefix"][i] if cache is not None else None
         h, nc, aux = _apply_layer(
-            cfg, spec, params["prefix"][i], h, positions, segment_ids, ci
+            cfg, spec, params["prefix"][i], h, positions, segment_ids, ci,
+            rows
         )
         aux_total = _add_aux(aux_total, aux)
         if cache is not None:
@@ -306,17 +491,18 @@ def forward(
     # each stacked leaf split once into per-unit views: its backward
     # stacks the units' gradients once, where indexing one unit at a time
     # would sum n_units zero-padded [n_units, ...] copies
-    units = tree_map(lambda x: x.unbind(0), params["units"])
+    units = tree_map(lambda x: _unit_views(x, rows), params["units"])
     new_units = []
     for u in range(cfg.n_units):
         p_u = tree_map(lambda x: x[u], units)
         if remat:
-            h, nc_u, aux = _remat_unit(cfg, p_u, h, positions, segment_ids)
+            h, nc_u, aux = _remat_unit(cfg, p_u, h, positions, segment_ids,
+                                       rows)
         else:
             c_u = (tree_map(lambda x: x[u], cache_units)
                    if cache_units is not None else None)
             h, nc_u, aux = _apply_unit(cfg, p_u, h, positions, segment_ids,
-                                       c_u)
+                                       c_u, rows)
         aux_total = _add_aux(aux_total, aux)
         new_units.append(nc_u)
     if cache is not None:
@@ -325,7 +511,8 @@ def forward(
     for i, spec in enumerate(cfg.suffix):
         ci = cache["suffix"][i] if cache is not None else None
         h, nc, aux = _apply_layer(
-            cfg, spec, params["suffix"][i], h, positions, segment_ids, ci
+            cfg, spec, params["suffix"][i], h, positions, segment_ids, ci,
+            rows
         )
         aux_total = _add_aux(aux_total, aux)
         if cache is not None:
@@ -361,17 +548,20 @@ def unembed(cfg, params, h):
 # ----------------------------------------------------------------------
 # loss
 # ----------------------------------------------------------------------
-def _ce(logits, labels, mask):
+def _ce(logits, labels, mask, rows=None):
     """Mean cross-entropy over the positions ``mask`` keeps, in float32:
     logsumexp less the label's logit (a gather, which equals the
     reference's one-hot dot exactly for labels in ``[0, vocab)``), over
-    ``max(sum(mask), 1)``."""
+    ``max(sum(mask), 1)``; with ``rows`` both sums run over every rank's
+    rows."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     mask = mask.float()
-    return torch.sum((lse - ll) * mask) / torch.clamp(torch.sum(mask),
-                                                      min=1.0)
+    num, den = torch.sum((lse - ll) * mask), torch.sum(mask)
+    if rows is not None:
+        num, den = rows.sum(num), rows.sum(den)
+    return num / torch.clamp(den, min=1.0)
 
 
 def _loss_mask(batch):
@@ -387,10 +577,17 @@ def loss_fn(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, Dict]:
     """(total loss, metrics): the LM cross-entropy plus 1e-3 x the MoE aux
     loss, plus 0.3 x the MTP loss when ``cfg.mtp`` is set; metrics
     ``lm_loss``, ``aux_loss`` (and ``mtp_loss``).  ``batch["loss_mask"]``
-    defaults to ones."""
-    logits, extras, _ = forward(cfg, params, batch)
+    defaults to ones.  On placed params each rank computes on its rows
+    and the loss is the global batch's, the same on every rank."""
+    rows = None
+    if is_placed(params["embed"]):
+        if cfg.mtp:
+            raise NotImplementedError(f"DeepSeek-V3's MTP loss on a process "
+                                      f"mesh: {MULTI_GPU}")
+        rows, batch = _rows_of_batch(params, batch)
+    logits, extras, _ = _forward(cfg, params, batch, None, "all", rows)
     mask = _loss_mask(batch)
-    loss = _ce(logits, batch["labels"], mask)
+    loss = _ce(logits, batch["labels"], mask, rows)
     total = loss + 1e-3 * extras["aux_loss"]
     metrics = {"lm_loss": loss, "aux_loss": extras["aux_loss"]}
     if cfg.mtp:

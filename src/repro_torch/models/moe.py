@@ -20,15 +20,37 @@ reference:
 
 The expert-parallel paths read the ambient mesh
 (``distributed.sharding.get_mesh``).  Without one, or without a ``model``
-axis, they run ``moe_dense``, as the reference does off a mesh.  With a
-``model`` extent ``ep`` they run the reference's shard body once per
-expert slice (``e_local = n_routed // ep``, ``lo = slice * e_local``), one
-slice after another on the tensors' device, and add the slices' outputs in
-slice order (in bf16 when ``cfg.moe_psum_bf16`` is set).  The capacity,
+axis, they run ``moe_dense``, as the reference does off a mesh.
+
+On a process mesh (``launch.mesh.ProcessMesh``, one process a device)
+each rank runs the reference's shard body on its own expert slice
+(``e_local = n_routed // ep``, ``lo = coord("model") * e_local``) with
+the router whole on every rank: its rows (split over the batch axes
+where the batch divides, as the reference's ``bspec``), its experts'
+weights (``local_block`` of the placed leaves: the ``fsdp`` dim
+gathered, the expert dim kept), then the reference's collectives over
+the axes' process groups: the ``psum`` of the partial outputs over
+``model`` (and ``data`` for ``serve_tp``; in bf16 when
+``cfg.moe_psum_bf16``), the ``pmean`` of the aux loss over ``model`` and
+the batch axes, and for ``serve_tp`` the ``all_gather`` of the tokens
+over the batch axes and the slice of the rank's rows back (in the
+global row order: on a mesh with ``pod`` and ``data`` above 1 the
+reference gathers the rows data-major and slices them pod-major, and
+hands two of every four ranks other rows; the port does not).  Gradients:
+the router's and the routed input's are summed over the ranks whose
+slices each add a part (``sum_grads``), the expert blocks' over the
+ranks that saw other rows.
+
+On a mesh of one process (anything else with a ``.shape``: the mesh's
+ranks are this device) the same bodies run in series: for each block of
+rows, the ``ep`` expert slices one after another, their outputs added in
+slice order (each rounded to bf16 and the sum rounded once when
+``cfg.moe_psum_bf16`` is set, as XLA sums a bf16 ``psum``; the serving
+layout's FFN blocks over ``data`` each a part).  The capacity,
 the stable sort, the group starts and the drops are the reference's, so
-which token copies are dropped does not depend on ``ep``.  A ``data`` or
-``pod`` extent above 1, or a mesh over several devices, raises: that is
-the multi-GPU LM slice.
+which token copies are dropped does not depend on ``ep``.  Such a mesh
+naming several devices raises ``ValueError``: several devices take a
+process mesh.
 
 On meta tensors (the dry run's per-device program, ``launch/dryrun.py``)
 the expert-parallel paths run one device's work under any mesh: the
@@ -49,8 +71,20 @@ from typing import Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed.sharding import MULTI_GPU, constrain, get_mesh
+from repro_torch.distributed.sharding import (
+    Rows,
+    constrain,
+    get_mesh,
+    is_placed,
+    local_block,
+    placements_of,
+    pmean,
+    psum,
+    sum_grads,
+    all_gather_rows,
+)
 from .layers import pv, torch_dtype
 
 
@@ -89,16 +123,25 @@ def top_k_lower_first(x, k):
     return vals[..., :k], idx[..., :k]
 
 
-def _router(cfg, params, x2d):
-    """x2d: [T, d] → (probs [T, k], ids [T, k], aux_loss scalar)."""
+def _router(cfg, params, x2d, rows=None):
+    """x2d: [T, d] → (probs [T, k], ids [T, k], aux_loss scalar).  With
+    ``rows`` (a process mesh's rows: ``x2d`` is this rank's tokens) the
+    aux loss's means run over every rank's tokens, as the reference's
+    over the global batch."""
     mo = cfg.moe
     logits = x2d.float() @ params["router"]
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = top_k_lower_first(probs, mo.top_k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
     # load-balance aux (Switch): E * Σ_e f_e · P_e
-    pe = probs.mean(0)
-    fe = F.one_hot(top_i, mo.n_routed).float().sum(1).mean(0)
+    picks = F.one_hot(top_i, mo.n_routed).float().sum(1)
+    if rows is not None and rows.count > 1:
+        t = x2d.shape[0] * rows.count
+        pe = rows.sum(probs.sum(0)) / t
+        fe = rows.sum(picks.sum(0)) / t
+    else:
+        pe = probs.mean(0)
+        fe = picks.mean(0)
     aux = mo.n_routed * torch.sum(pe * fe)
     return top_p, top_i, aux
 
@@ -121,13 +164,19 @@ def _shared_ffn(cfg, params, xc, cdt):
 # ----------------------------------------------------------------------
 # dense (exact) implementation
 # ----------------------------------------------------------------------
-def moe_dense(cfg, params, x) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_dense(cfg, params, x, rows=None) -> Tuple[torch.Tensor,
+                                                 torch.Tensor]:
+    """Every expert on every token.  With ``rows`` (a placed model's
+    step: ``x`` is this rank's rows) the placed weights are taken whole
+    and the aux loss is the global batch's."""
+    if rows is not None:
+        params = rows.tree(params)
     mo = cfg.moe
     b, s, d = x.shape
     cdt = torch_dtype(cfg.compute_dtype)
     xc = x.to(cdt)
     x2d = xc.reshape(-1, d)
-    top_p, top_i, aux = _router(cfg, params, x2d)
+    top_p, top_i, aux = _router(cfg, params, x2d, rows)
     gates = (F.one_hot(top_i, mo.n_routed).float()
              * top_p[..., None]).sum(1)                      # [T, E]
     # every expert on every token, expert-major: [E, T, f]
@@ -157,30 +206,33 @@ def _extent(mesh, axes) -> int:
     return e
 
 
-def _one_process(mesh, axes):
-    """Raise unless the mesh's ``axes`` (the data-parallel ones) all have
-    extent 1 and it names at most one device."""
-    wide = {a: mesh.shape[a] for a in axes
-            if a in mesh.shape and mesh.shape[a] > 1}
-    if wide:
-        raise NotImplementedError(
-            f"mesh axes {wide} split tokens or expert FFNs over several "
-            f"devices; the port runs one device: {MULTI_GPU}")
+def _batch_axes(mesh, b) -> Tuple[str, ...]:
+    """The reference's batch axes: ``pod`` and ``data`` where the mesh
+    has them and their product divides the (global) batch ``b``, else
+    none."""
+    dp = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    return dp if dp and b % _extent(mesh, dp) == 0 else ()
+
+
+def _one_device(mesh):
+    """Raise unless a mesh of one process names at most one device."""
     devices = getattr(mesh, "devices", None)
     names = set() if devices is None else {
         str(v) for v in np.asarray(devices, dtype=object).reshape(-1)}
     if len(names) > 1:
-        raise NotImplementedError(
-            f"a mesh over the devices {sorted(names)} places expert slices "
-            f"on several GPUs: {MULTI_GPU}")
+        raise ValueError(
+            f"a mesh over the devices {sorted(names)} in one process: "
+            "several devices take a process mesh (launch.mesh.make_mesh, "
+            "one process a device)")
 
 
-def _slice_dispatch(cfg, params, x2d, top_p, top_i, lo, e_local, cap, cdt):
+def _slice_dispatch(cfg, w, x2d, top_p, top_i, lo, e_local, cap, cdt):
     """One expert slice of the reference's shard body: the token copies
     routed to experts ``[lo, lo + e_local)``, sorted by expert (stable),
     packed into ``cap`` slots an expert (the rest to the dustbin slot),
-    run through the slice's experts and scattered back, gated, into a
-    float32 [T, d]."""
+    run through the slice's experts (``w``: ``wi``, ``wg``, ``wo`` of
+    those ``e_local`` experts) and scattered back, gated, into a float32
+    [T, d]."""
     mo = cfg.moe
     t, d = x2d.shape
     dev = x2d.device
@@ -201,9 +253,7 @@ def _slice_dispatch(cfg, params, x2d, top_p, top_i, lo, e_local, cap, cdt):
     buf = torch.zeros((e_local * cap + 1, d), dtype=cdt, device=dev)
     buf[slot] = torch.where(keep[:, None], x2d[s_tok], 0.0).to(cdt)
     eb = buf[: e_local * cap].reshape(e_local, cap, d)
-    hi = lo + e_local
-    out = _expert_ffn(cdt, params["wi"][lo:hi], params["wg"][lo:hi],
-                      params["wo"][lo:hi], eb)           # [E_l, cap, d]
+    out = _expert_ffn(cdt, w["wi"], w["wg"], w["wo"], eb)  # [E_l, cap, d]
     out_flat = out.reshape(e_local * cap, d)
     gathered = torch.where(
         keep[:, None], out_flat[torch.clamp(slot, 0, e_local * cap - 1)],
@@ -212,11 +262,19 @@ def _slice_dispatch(cfg, params, x2d, top_p, top_i, lo, e_local, cap, cdt):
     return y2d.index_add_(0, s_tok, gathered.float() * s_w[:, None])
 
 
-def _routed(cfg, params, x, ep, cap, slices):
+# each expert leaf's FFN-hidden dim (the serving layout splits it over
+# ``data``)
+_FF_DIM = {"wi": 2, "wg": 2, "wo": 1}
+
+
+def _routed(cfg, params, x, ep, cap, slices, ff=1):
     """The shard body over the first ``slices`` of ``ep`` expert slices
-    on this device: the slices' outputs summed in slice order (the
-    ``psum``), the router's aux averaged over the ``ep`` slices (the
-    ``pmean``)."""
+    (each cut into ``ff`` blocks of its FFN hidden dim, the serving
+    layout's split over ``data``) on this device: the parts summed in
+    order (the ``psum``), the router's aux averaged over the ``ep``
+    slices (the ``pmean``).  With ``cfg.moe_psum_bf16`` each part is
+    rounded to bf16 and the float32 sum rounded once more, as XLA sums a
+    bf16 ``psum``."""
     b, s, d = x.shape
     cdt = torch_dtype(cfg.compute_dtype)
     x2d = x.to(cdt).reshape(-1, d)
@@ -224,13 +282,19 @@ def _routed(cfg, params, x, ep, cap, slices):
     e_local = cfg.moe.n_routed // ep
     y2d = None
     for my in range(slices):
-        part = _slice_dispatch(cfg, params, x2d, top_p, top_i,
-                               my * e_local, e_local, cap, cdt)
-        if cfg.moe_psum_bf16:   # the reference's bf16 psum payload
-            part = part.to(torch.bfloat16)
-        y2d = part if y2d is None else y2d + part
+        lo = my * e_local
+        for j in range(ff):
+            w = {k: params[k][lo:lo + e_local] for k in _FF_DIM}
+            w = {k: v.chunk(ff, _FF_DIM[k])[j] for k, v in w.items()}
+            part = _slice_dispatch(cfg, w, x2d, top_p, top_i, lo, e_local,
+                                   cap, cdt)
+            if cfg.moe_psum_bf16:   # the reference's bf16 psum payload
+                part = part.to(torch.bfloat16).float()
+            y2d = part if y2d is None else y2d + part
+    if cfg.moe_psum_bf16:
+        y2d = y2d.to(torch.bfloat16).float()
     aux = torch.stack([aux] * ep).mean()
-    return y2d.float().reshape(b, s, d).to(x.dtype), aux
+    return y2d.reshape(b, s, d).to(x.dtype), aux
 
 
 def _with_shared(cfg, params, x, y):
@@ -240,36 +304,180 @@ def _with_shared(cfg, params, x, y):
     return y
 
 
-def _dispatch(cfg, params, x, ep, cap):
-    """The shard body over all ``ep`` expert slices on this device, plus
-    the shared experts; on meta tensors one device's slice
-    (``slices=1``: the params hold that slice)."""
+def _dispatch(cfg, params, x, ep, cap, ff=1):
+    """The shard body over all ``ep`` expert slices (and ``ff`` FFN
+    blocks) on this device, plus the shared experts; on meta tensors one
+    device's slice (``slices=1``: the params hold that slice)."""
     slices = 1 if x.device.type == "meta" else ep
-    y, aux = _routed(cfg, params, x, ep, cap, slices)
+    y, aux = _routed(cfg, params, x, ep, cap, slices, ff)
     return _with_shared(cfg, params, x, y), aux
 
 
-def moe_alltoall(cfg, params, x) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Expert parallelism over the ambient mesh's ``model`` axis."""
-    mesh = get_mesh()
+def _in_series(cfg, params, x, mesh, ep, serve):
+    """The one-process path: the rows cut into the reference's batch
+    blocks (``alltoall``; ``serve_tp`` all-gathers them, so runs one
+    block of every row at the global capacity), each block's ``ep``
+    slices in series; the aux loss averaged over the blocks."""
+    _one_device(mesh)
+    b, s, _ = x.shape
+    n = 1 if serve else _extent(mesh, _batch_axes(mesh, b))
+    ff = mesh.shape.get("data", 1) if serve else 1
+    blocks = [_dispatch(cfg, params, xb, ep, _capacity(xb.shape[0] * s, cfg),
+                        ff)
+              for xb in x.chunk(n, 0)]
+    if n == 1:
+        return blocks[0]
+    return (torch.cat([y for y, _ in blocks], 0),
+            torch.stack([a for _, a in blocks]).mean())
+
+
+def _rows_of(x, mesh, rows):
+    """(this rank's rows of ``x`` as a plain tensor, their ``Rows``, and
+    how to give an output back in ``x``'s form): a DTensor's rows are its
+    own block (split over the mesh axes its dim 0 is sharded over);
+    a plain ``x`` is this rank's rows under ``rows``, or, without, the
+    whole batch on every rank."""
+    if is_placed(x):
+        placements = x.placements
+
+        def back(y):
+            return DTensor.from_local(y, mesh.device_mesh, placements,
+                                      run_check=False)
+
+        return x.to_local(), Rows.of(x, mesh), back
+    return x, rows if rows is not None else Rows(mesh, ()), lambda y: y
+
+
+def _regroup(x, mesh, have, want):
+    """``x`` (this rank's rows, split over the axes ``have``) split over
+    ``want`` instead: a DTensor redistribution of dim 0, gradients
+    included."""
+    if tuple(have) == tuple(want):
+        return x
+
+    def spec(axes):
+        return (tuple(axes) or None,) + (None,) * (x.ndim - 1)
+
+    dt = DTensor.from_local(x, mesh.device_mesh,
+                            placements_of(spec(have), mesh), run_check=False)
+    return local_block(dt, mesh, spec(want))
+
+
+def _expert_block(w, mesh, spec, lo, e_local, partial=()):
+    """A rank's block of an expert leaf under the shard body's
+    ``in_spec``: a placed leaf's ``local_block``; a whole leaf's slice of
+    experts ``[lo, lo + e_local)`` (cut along the ``data`` split of its
+    FFN dim where ``spec`` names one)."""
+    if is_placed(w):
+        return local_block(w, mesh, spec, partial)
+    w = w[lo:lo + e_local]
+    for d, entry in enumerate(spec[1:], 1):
+        if entry is not None and mesh.shape[entry] > 1:
+            n = w.shape[d] // mesh.shape[entry]
+            w = w.narrow(d, mesh.coordinate[entry] * n, n)
+    return w
+
+
+def _ranks_body(cfg, params, x, mesh, rows, serve):
+    """The reference's shard body on this rank (see the module
+    docstring); ``x`` is a DTensor, this rank's rows under ``rows``, or
+    the whole batch."""
+    mo = cfg.moe
+    cdt = torch_dtype(cfg.compute_dtype)
+    ep = mesh.shape["model"]
+    e_local = mo.n_routed // ep
+    lo = mesh.coordinate["model"] * e_local
+    x_in, rows, back = _rows_of(x, mesh, rows)
+    b_glob = x_in.shape[0] * rows.count
+    batch_axes = _batch_axes(mesh, b_glob)
+    xl = _regroup(x_in, mesh, rows.axes, batch_axes)
+    bl, s, d = xl.shape
+    ff_axes = tuple(a for a in ("data",) if a in mesh.shape) if serve else ()
+    ff = ff_axes[0] if ff_axes else None
+    specs = {"wi": ("model", None, ff), "wg": ("model", None, ff),
+             "wo": ("model", ff, None)}
+    if serve:
+        # tokens all-gathered: every block of the leaf sees every row
+        w = {k: _expert_block(params[k], mesh, specs[k], lo, e_local)
+             for k in specs}
+        # gathered over the last batch axis first: the rows come in the
+        # global (pod-major) order the slice below takes its own from (the
+        # reference gathers over pod first, ROADMAP.md Queue 3)
+        x_all = all_gather_rows(xl, mesh, batch_axes[::-1])
+        cap = _capacity(b_glob * s, cfg)
+        sliced = ("model",) + tuple(a for a in ff_axes if a not in batch_axes)
+    else:
+        w = {k: _expert_block(params[k], mesh, specs[k], lo, e_local,
+                              partial=batch_axes) for k in specs}
+        x_all = xl
+        cap = _capacity(bl * s, cfg)
+        sliced = ("model",)
+    # the router whole on every rank; its gradient, like the routed
+    # input's, is a sum of the parts each rank's slice adds
+    router = local_block(params["router"], mesh, None,
+                         partial=tuple(mesh.axis_names))
+    x2d = sum_grads(x_all.to(cdt).reshape(-1, d), mesh, sliced)
+    top_p, top_i, aux = _router(cfg, {"router": router}, x2d)
+    y2d = _slice_dispatch(cfg, w, x2d, top_p, top_i, lo, e_local, cap, cdt)
+    psum_axes = ("model",) + ff_axes
+    if cfg.moe_psum_bf16:
+        # the reference's bf16 psum: XLA adds the bf16 parts in float32
+        # and rounds the sum once (so float32 on the wire here)
+        y2d = psum(y2d.to(torch.bfloat16).float(), mesh, psum_axes).to(
+            torch.bfloat16).float()
+    else:
+        y2d = psum(y2d, mesh, psum_axes)
+    aux = pmean(aux, mesh, ("model",))
+    if batch_axes:
+        aux = pmean(aux, mesh, batch_axes)
+    if serve and batch_axes:
+        # this shard's rows back out (the reference's index: the last
+        # batch axis fastest); the rows' gradients meet over the batch
+        di = mesh.coordinate[batch_axes[-1]]
+        if len(batch_axes) == 2:
+            di = di + mesh.coordinate[batch_axes[0]] * \
+                mesh.shape[batch_axes[-1]]
+        y3d = sum_grads(y2d, mesh, batch_axes).reshape(-1, s, d)
+        y = y3d[di * bl:(di + 1) * bl]
+    else:
+        y = y2d.reshape(bl, s, d)
+    y = _regroup(y.to(x_in.dtype), mesh, batch_axes, rows.axes)
+    shared = {k: rows.weight(v) for k, v in params.items()
+              if k.startswith("shared_")}
+    return back(_with_shared(cfg, shared, x_in, y)), aux
+
+
+def _process_mesh(mesh) -> bool:
+    return hasattr(mesh, "device_mesh")
+
+
+def moe_alltoall(cfg, params, x, rows=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism over the ambient mesh's ``model`` axis (the
+    process mesh of ``rows`` in a placed model's step)."""
+    mesh = rows.mesh if rows is not None else get_mesh()
     if mesh is None or "model" not in mesh.shape:
-        return moe_dense(cfg, params, x)
+        return moe_dense(cfg, params, x, rows)
     mo = cfg.moe
     b, s, _ = x.shape
     ep = mesh.shape["model"]
     if mo.n_routed % ep != 0:
-        return moe_dense(cfg, params, x)
-    if x.device.type != "meta":
-        _one_process(mesh, ("pod", "data"))
-    return _dispatch(cfg, params, x, ep, _capacity(b * s, cfg))
+        return moe_dense(cfg, params, x, rows)
+    if x.device.type == "meta":
+        return _dispatch(cfg, params, x, ep, _capacity(b * s, cfg))
+    if _process_mesh(mesh):
+        return _ranks_body(cfg, params, x, mesh, rows, serve=False)
+    return _in_series(cfg, params, x, mesh, ep, serve=False)
 
 
-def moe_serve_tp(cfg, params, x) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_serve_tp(cfg, params, x, rows=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The serving layout: experts over ``model``, expert FFN hidden over
-    ``data`` (extent 1 here), the capacity from the global token count."""
-    mesh = get_mesh()
+    ``data``, the tokens all-gathered over the batch axes and the
+    capacity from the global token count."""
+    mesh = rows.mesh if rows is not None else get_mesh()
     if mesh is None or "model" not in mesh.shape:
-        return moe_dense(cfg, params, x)
+        return moe_dense(cfg, params, x, rows)
     mo = cfg.moe
     b, s, _ = x.shape
     ep = mesh.shape["model"]
@@ -277,7 +485,7 @@ def moe_serve_tp(cfg, params, x) -> Tuple[torch.Tensor, torch.Tensor]:
     if mo.n_routed % ep != 0 or (
         ff_axes and mo.d_expert % _extent(mesh, ff_axes) != 0
     ):
-        return moe_alltoall(cfg, params, x)
+        return moe_alltoall(cfg, params, x, rows)
     if x.device.type == "meta":
         # one device's work: its tokens all-gathered over the shards its
         # layout cut the batch into (the dry run's mesh says how many),
@@ -287,13 +495,16 @@ def moe_serve_tp(cfg, params, x) -> Tuple[torch.Tensor, torch.Tensor]:
         y, aux = _routed(cfg, params, x_all, ep, _capacity(n * b * s, cfg),
                          1)
         return _with_shared(cfg, params, x, y[:b]), aux
-    _one_process(mesh, ("pod", "data"))
-    return _dispatch(cfg, params, x, ep, _capacity(b * s, cfg))
+    if _process_mesh(mesh):
+        return _ranks_body(cfg, params, x, mesh, rows, serve=True)
+    return _in_series(cfg, params, x, mesh, ep, serve=True)
 
 
-def moe(cfg, params, x) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe(cfg, params, x, rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's choice of path; ``rows``: a placed model's step
+    on a process mesh (``models.model.forward``)."""
     if cfg.serving and cfg.moe.impl != "dense" and cfg.serve_expert_ff_tp:
-        return moe_serve_tp(cfg, params, x)
+        return moe_serve_tp(cfg, params, x, rows)
     if cfg.moe.impl == "alltoall":
-        return moe_alltoall(cfg, params, x)
-    return moe_dense(cfg, params, x)
+        return moe_alltoall(cfg, params, x, rows)
+    return moe_dense(cfg, params, x, rows)

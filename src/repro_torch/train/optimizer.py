@@ -17,6 +17,14 @@ leaves in ``tree_leaves`` order (the reference's leaf order).  A leaf of
 two or more dimensions takes weight decay and, in Adafactor, a factored
 second moment; the stacked units' norm scales (``[n_units, d]``) count as
 such leaves, as in the reference.
+
+Placed leaves (DTensors on a process mesh, each state leaf laid out like
+its parameter): AdamW runs leaf by leaf on each rank's blocks (its
+arithmetic is elementwise), Adafactor's row and column means and its RMS
+clip run as DTensor reductions (over a split dim, the whole dim's), and
+the global norm adds each leaf's block sums of squares over the mesh
+dims that split it.  The new params and state keep the placements they
+came in with.
 """
 from __future__ import annotations
 
@@ -24,7 +32,11 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch.distributed.sharding import is_placed
 from repro_torch.pytree import tree_leaves, tree_map
 
 
@@ -51,15 +63,48 @@ def lr_schedule(ocfg: OptConfig, step):
     return ocfg.lr * warm
 
 
+def _square_sum(x) -> torch.Tensor:
+    """The sum of squares of a whole leaf: a placed leaf's block sums
+    added over the mesh dims that split it (the same on every rank)."""
+    if not is_placed(x):
+        return torch.sum(torch.square(x.float()))
+    total = torch.sum(torch.square(x.to_local().float()))
+    mesh = x.device_mesh
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and mesh.size(i) > 1:
+            dist.all_reduce(total, group=mesh.get_group(i))
+    return total
+
+
 def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    leaves = [_square_sum(x) for x in tree_leaves(tree)]
     return torch.sqrt(sum(leaves))
 
 
 def clip_by_global_norm(grads, max_norm):
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: g * scale, grads), norm
+    with implicit_replication():
+        return tree_map(lambda g: g * scale, grads), norm
+
+
+def _blockwise(fn, p, *rest):
+    """``fn`` on the local blocks of leaves laid out alike (a placed
+    ``p``), each tensor it returns placed like ``p``; on whole leaves,
+    ``fn`` itself."""
+    if not is_placed(p):
+        return fn(p, *rest)
+    out = fn(p.to_local(), *(r.to_local() for r in rest))
+    return tuple(DTensor.from_local(o, p.device_mesh, p.placements,
+                                    run_check=False, shape=p.shape,
+                                    stride=p.stride()) for o in out)
+
+
+def _like(new, old):
+    """``new`` laid out as ``old`` is."""
+    if is_placed(old) and new.placements != old.placements:
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
 
 
 def _unzip(tree, n):
@@ -80,6 +125,8 @@ class AdamW:
 
     def init(self, params):
         def zeros(p):
+            if is_placed(p):
+                return torch.zeros_like(p, dtype=torch.float32)
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
@@ -108,7 +155,9 @@ class AdamW:
                 step_ = step_ + c.weight_decay * p.float()
             return (p.float() - lr * step_).to(p.dtype), m, v
 
-        out = tree_map(upd, params, grads, state["m"], state["v"])
+        out = tree_map(lambda p, g, m, v: _blockwise(upd, p, _like(g, p),
+                                                     m, v),
+                       params, grads, state["m"], state["v"])
         new_params, new_m, new_v = _unzip(out, 3)
         return new_params, {"m": new_m, "v": new_v}, gnorm
 
@@ -173,7 +222,13 @@ class Adafactor:
                 step_ = step_ + c.weight_decay * p.float()
             return (p.float() - lr * step_).to(p.dtype), new_st
 
-        out = tree_map(upd, params, grads, state["f"])
+        def placed_upd(p, g, st):
+            with implicit_replication():
+                new_p, new_st = upd(p, g, st)
+            return _like(new_p, p), {k: _like(v, st[k])
+                                     for k, v in new_st.items()}
+
+        out = tree_map(placed_upd, params, grads, state["f"])
         new_params, new_f = _unzip(out, 2)
         return new_params, {"f": new_f}, gnorm
 

@@ -10,7 +10,9 @@ Microbatches are a loop over the leading split ``(mb, b // mb)`` of the
 batch, where the reference scans: the float32 gradients are summed and
 divided by ``mb``, the loss and each metric averaged.  Params and batches
 must not be inference tensors (made under ``torch.inference_mode``, as
-the serving engine runs): autograd refuses them.
+the serving engine runs): autograd refuses them.  Placed params
+(DTensors on a process mesh) get placed gradients, laid out like their
+leaves (a gradient that comes back partial over some ranks is summed).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.models import loss_fn
 from repro_torch.pytree import tree_leaves, tree_map, tree_unflatten
+from .optimizer import _like
 
 
 def loss_and_grads(cfg, params, batch):
@@ -30,7 +33,7 @@ def loss_and_grads(cfg, params, batch):
     with torch.enable_grad():
         loss, metrics = loss_fn(cfg, tree_unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _like(g, p)
              for p, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_unflatten(params, grads))
@@ -53,8 +56,8 @@ def make_train_step(
                                  + tuple(x.shape[1:]))
 
             mb = {k: split(v) for k, v in batch.items()}
-            gsum = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            gsum = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             lsum = torch.zeros((), dtype=torch.float32,
                                device=tree_leaves(params)[0].device)
             stack = []

@@ -12,7 +12,7 @@ ties; ``moe_dense`` in float32 and bf16; ``moe_alltoall`` and
 ``moe_serve_tp`` against the reference's under ``jax.set_mesh(
 make_host_mesh())`` (one expert slice) at capacity_factor 8 (no drops)
 and 0.1 (most token copies dropped); the port at 2 and 4 expert slices
-against one; the bf16 ``psum``; the mesh shapes the port does not run.
+against one; the bf16 ``psum``; the mesh shapes of one process run in series.
 
 Tolerances: float32 compute to rtol = atol = 1e-5 (aux 1e-6 relative);
 bf16 compute within 5e-2 on the same input (the router then sees the same
@@ -265,21 +265,36 @@ def test_psum_bf16_matches_reference():
 
 
 def test_mesh_shapes_the_port_does_not_run_raise():
-    """Data- or pod-parallel extents and meshes over several devices
-    raise, naming the ROADMAP.md item; an expert count the model axis does
-    not divide runs dense, as in the reference; no mesh, or no model axis,
-    runs dense."""
+    """A mesh of one process runs every shape in series: data- or
+    pod-parallel extents cut the rows into the reference's batch blocks
+    (``alltoall``: each block at its own capacity, the aux averaged over
+    the blocks; ``serve_tp``: every row at the global capacity, each
+    expert's FFN in blocks over data, to f32 rounding); such a
+    mesh over several devices raises ``ValueError`` (several devices take
+    a process mesh, which ``tests/test_torch_mesh.py`` runs); an expert
+    count the model axis does not divide runs dense, as in the reference;
+    no mesh, or no model axis, runs dense."""
     jcfg, tcfg = _cfgs(V2, capacity_factor=0.1)
     w = _moe_weights(jcfg, seed=10)
     x = _x(jcfg, seed=11)
     dense = _port(TMOE.moe_dense, tcfg, w, x)
-    for mesh in (_Mesh(data=2, model=2), _Mesh(pod=2, data=1, model=1),
-                 _Mesh(devices=["cpu", "cuda:0"], model=2),
+    for mesh in (_Mesh(data=2, model=2), _Mesh(pod=2, data=1, model=1)):
+        flat = _Mesh(model=mesh.shape["model"])
+        y, aux = _port(TMOE.moe_alltoall, tcfg, w, x, mesh)
+        blocks = [_port(TMOE.moe_alltoall, tcfg, w, x[i:i + 1], flat)
+                  for i in range(x.shape[0])]
+        assert torch.equal(y, torch.cat([yb for yb, _ in blocks]))
+        assert torch.equal(aux, torch.stack([a for _, a in blocks]).mean())
+        # serve_tp: the FFN blocks over data add in another order
+        y_tp, aux_tp = _port(TMOE.moe_serve_tp, tcfg, w, x, mesh)
+        want_y, want_aux = _port(TMOE.moe_serve_tp, tcfg, w, x, flat)
+        _close(y_tp, want_y, F32)
+        assert torch.equal(aux_tp, want_aux)
+    for mesh in (_Mesh(devices=["cpu", "cuda:0"], model=2),
                  _Mesh(devices=np.array([["cpu"], ["meta"]], object),
                        model=2)):
         for path in (TMOE.moe_alltoall, TMOE.moe_serve_tp):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP.md Queue 1 item 4"):
+            with pytest.raises(ValueError, match="process mesh"):
                 _port(path, tcfg, w, x, mesh)
     for mesh in (None, _Mesh(data=1), _Mesh(model=3),
                  _Mesh(devices=["cpu", "cpu"], model=3)):
@@ -366,8 +381,12 @@ def test_deepseek_greedy_and_speculative_match_reference():
 # isolation and the chip phase's checks
 # ----------------------------------------------------------------------
 def test_mla_moe_path_imports_and_runs_without_jax_or_repro():
+    """With ``jax`` and ``repro`` blocked: greedy and speculative decoding
+    agree on reduced DeepSeek-V2-Lite and V3, and the dispatch path at
+    two expert slices equals the dense MoE on a random batch at
+    capacity_factor 8 (no copy dropped, whatever the batch routes)."""
     code = (
-        "import sys, types\n"
+        "import dataclasses, sys, types\n"
         "for name in ('jax', 'jaxlib', 'repro'):\n"
         "    sys.modules[name] = None\n"
         "import numpy as np, torch\n"
@@ -397,8 +416,10 @@ def test_mla_moe_path_imports_and_runs_without_jax_or_repro():
         "    x = torch.randn(1, 16, cfg.d_model)\n"
         "    ffn = {k: v[0] for k, v in p['units']['0']['ffn'].items()}\n"
         "    dense, _ = moe.moe_dense(cfg, ffn, x)\n"
+        "    wide = cfg.scaled(moe=dataclasses.replace(cfg.moe,\n"
+        "                                              capacity_factor=8.0))\n"
         "    with use_mesh(types.SimpleNamespace(shape={'model': 2})):\n"
-        "        y, _ = moe.moe_alltoall(cfg, ffn, x)\n"
+        "        y, _ = moe.moe_alltoall(wide, ffn, x)\n"
         "    assert torch.allclose(y, dense, atol=1e-5)\n"
         "assert 'mtp' in p\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"

@@ -484,8 +484,9 @@ def test_error_feedback_compress_bitwise():
 
 def test_compressed_psum_one_device():
     """``compressed_psum`` over an axis of extent 1 against the
-    reference's on a one-device mesh (bitwise); an extent above 1 raises
-    ``NotImplementedError`` naming the multi-GPU item."""
+    reference's on a one-device mesh (bitwise); an extent above 1 off a
+    process mesh raises ``ValueError`` (``tests/test_torch_mesh.py`` runs
+    it over four ranks)."""
     x = (np.random.RandomState(4).randn(257) * 3).astype(np.float32)
     want = JCOMP.compressed_psum(jnp.asarray(x), "data", j_host_mesh())
     got = TCOMP.compressed_psum(torch.as_tensor(x), "data",
@@ -496,7 +497,7 @@ def test_compressed_psum_one_device():
     class Wide:
         shape = {"data": 4, "model": 1}
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(ValueError, match="process mesh"):
         TCOMP.compressed_psum(torch.as_tensor(x), "data", Wide())
 
 
@@ -658,7 +659,8 @@ def test_remesh_state_one_device():
     """``remesh_state`` places every leaf on the mesh's device with its
     logical spec computed; the specs on a one-device mesh name only
     axes of extent 1, as the reference's ``make_host_mesh`` specs do; a
-    mesh over two devices raises naming the multi-GPU item."""
+    mesh of one process over two devices raises ``ValueError`` (several
+    devices take a process mesh)."""
     _, tcfg = _cfgs("smollm-360m")
     params, axes = TM.materialize_params(tcfg, torch.Generator().manual_seed(
         0), CPU)
@@ -674,7 +676,7 @@ def test_remesh_state_one_device():
                    set(s) <= {"data", "model"} for s in spec), path
     two = TMESH.HostMesh("cpu")
     two.devices = np.array([[CPU, torch.device("meta")]], dtype=object)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(ValueError, match="process mesh"):
         TE.remesh_state(params, axes, two)
     assert TE.StragglerDetector is not None and "StragglerDetector" in \
         TE.__all__
