@@ -215,9 +215,23 @@ and its dry run on one NVIDIA GPU.
    dispatch path at ep = 1 under deterministic algorithms (the
    dispatch's scatter-add sums by atomics otherwise): prefill logits and
    32 greedy tokens after a 512-token prompt; decode ms placed beside
-   the dispatch path.  Four gloo ranks on the one card are not run:
-   DTensor's all-gather kills them (``probes/gloo_cuda_collectives.py``).
-   No kernel of its own.
+   the dispatch path.  (c) mamba2-370m at full width and depth, f32
+   weights placed without a copy: a 512-token prefill (the chunked SSD
+   into the cache) and 64 greedy tokens (the recurrence) at batch 1 and
+   8 into a placed bf16 cache, as (a); a 4 x 256 ``loss_and_grads``
+   under remat (loss and each gradient leaf); decode ms placed beside
+   plain, in turns.  (d) Jamba's reduced hybrid unit in f32, placed
+   against plain: logits of a 16-token prefill and of a 5- and a 1-token
+   decode, the aux loss and ``pos``.  (e) DeepSeek-V3 at full width
+   (bf16 params, 256 routed experts, the MTP head), its depth cut to the
+   3 dense layers and one MoE unit (15.8 B params): ``loss_fn`` on 1 x
+   128 tokens under deterministic algorithms, placed against the
+   dispatch path at ep = 1: ``lm_loss``, ``mtp_loss`` and the total
+   bitwise, the gradients of the MTP head, ``embed`` and ``lm_head`` (the
+   rest frozen) bitwise or within 1e-5 of each leaf's max; bytes and
+   seconds.  Each part's seconds on the phase's last line.  Four gloo
+   ranks on the one card are not run: DTensor's all-gather kills them
+   (``probes/gloo_cuda_collectives.py``).  No kernel of its own.
 14. Mamba2 (``[mamba]``): mamba2-370m at full width and depth (48
    Mamba2 layers, d_model 1024, 32 SSD heads of 64, d_state 128, chunk
    256, vocab 50,280, 368,338,432 params), f32 weights drawn on the card
@@ -259,7 +273,13 @@ and its dry run on one NVIDIA GPU.
    AdamW steps of mamba2-370m at
    full width at 4 x 256 (the chunked SSD's backward), and reduced
    DeepSeek-V3 (MLA, MoE aux, MTP) and Jamba: loss, metrics and every
-   gradient card against CPU in f32 within 1e-3.  No kernel of its own.
+   gradient card against CPU in f32 within 1e-3.  Then ``[train long]``:
+   one remat step of 1 x 4096 tokens in bf16 compute (16 query chunks a
+   layer, each checkpointed) through ``dryrun_held``: FLOPs, argument
+   bytes and the step's added allocation held against
+   ``launch.dryrun.run_cell``'s as in step 16 (a), a finite loss, and
+   one layer's whole probabilities (15 heads x 4096^2 x 4 B) beside the
+   peak.  No kernel of its own.
 16. The dry run (``[dryrun]``; alone with ``--dryrun-only``): (a)
    ``launch.dryrun.run_cell`` of smollm-360m at full width and depth on a
    1 x 1 mesh, on meta tensors, for step 15's train cell (8 x 256
@@ -4377,8 +4397,11 @@ def ds_phase(args, dev, smi):
 # the mesh phase: the placed LM paths (DTensors on a process mesh) on a
 # one-rank NCCL world in this process, against the plain paths
 MESH_SIZES = dict(prompt=512, decode=64, max_seq=1024, batch=8, seq=256,
-                  timed=16, ds_decode=32)
+                  timed=16, ds_decode=32, mamba_batch=4, v3_tokens=128)
 MESH_TOL = 1e-5               # placed against plain, where not bitwise
+V3_ARCH = "deepseek-v3-671b"
+# the leaves (e) takes gradients for: the MTP head and what it reads
+MESH_V3_TRAINED = ("mtp", "embed", "lm_head")
 
 
 def mesh_world(dev):
@@ -4454,7 +4477,7 @@ def mesh_greedy(cfg, plain, placed, mesh, dev, rows, n, label, plain_mesh):
     within MESH_TOL.  Returns the logits' max abs err."""
     import torch
     from repro_torch.distributed.sharding import use_mesh
-    from repro_torch.models import cache_axes, init_cache
+    from repro_torch.models import cache_axes, cache_position, init_cache
     from repro_torch.serve import make_prefill_step
     from repro_torch.serve.engine import greedy_generate
     from repro_torch.train.elastic import remesh_state
@@ -4480,11 +4503,14 @@ def mesh_greedy(cfg, plain, placed, mesh, dev, rows, n, label, plain_mesh):
         i = int((gtoks != toks).nonzero()[0][1])
         raise AssertionError(f"mesh: {label} batch {b}: placed tokens "
                              f"differ from plain at step {i}")
-    pos = int(whole(cache["units"]["0"]["pos"])[0])
+    pos = int(whole(cache_position(cache)))
+    # a pure-SSM cache counts no position: it reads 0
+    want_pos = 0 if all(sp.mixer == "mamba" for sp in cfg.layer_specs()) \
+        else rows.shape[1] + n
     log(f"[mesh {label}] batch {b}: prefill of {rows.shape[1]} tokens, "
         f"logits max abs err {err:.3e} placed against plain; {n} greedy "
         f"tokens equal; placed cache pos {pos}")
-    if pos != rows.shape[1] + n:
+    if pos != want_pos:
         raise AssertionError(f"mesh: {label} cache pos {pos}")
     return err
 
@@ -4500,10 +4526,11 @@ def in_turns(sides, run, rounds=4):
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def mesh_decode_ms(cfg, sides, dev, rows):
+def mesh_decode_ms(cfg, sides, dev, rows, rounds=4):
     """Decode ms a token at ``rows``' batch after its prefill (CUDA
     events over MESH_SIZES["timed"] greedy steps) for each side (name,
-    params, mesh or None, whether the cache is placed), in turns."""
+    params, mesh or None, whether the cache is placed), in turns over
+    ``rounds`` rounds."""
     import torch
     from repro_torch.models import cache_axes, init_cache
     from repro_torch.serve import make_decode_step, make_prefill_step
@@ -4533,22 +4560,25 @@ def mesh_decode_ms(cfg, sides, dev, rows):
             end.synchronize()
         return start.elapsed_time(end) / n
 
-    return in_turns(sides, run)
+    return in_turns(sides, run, rounds)
 
 
-def mesh_train(cfg, plain, placed, mesh, dev, label):
-    """One 8 x 256 pipeline batch: ``loss_and_grads`` placed against
-    plain (loss and each gradient leaf bitwise, or within MESH_TOL of its
-    max |grad|), then AdamW step ms of each (CUDA events, in turns: one
-    warm-up step each, then the median of 4)."""
+def mesh_train(cfg, plain, placed, mesh, dev, label, batch_size=None,
+               seq=None, timed=True):
+    """One pipeline batch (MESH_SIZES' 8 x 256 unless named):
+    ``loss_and_grads`` placed against plain (loss and each gradient leaf
+    bitwise, or within MESH_TOL of its max |grad|), then, when
+    ``timed``, AdamW step ms of each (CUDA events, in turns: one warm-up
+    step each, then the median of 4)."""
     import torch
     from repro_torch.distributed.sharding import use_mesh
     from repro_torch.pytree import tree_leaves, tree_leaves_with_path
     from repro_torch.train.optimizer import AdamW, OptConfig
     from repro_torch.train.train_step import loss_and_grads, make_train_step
 
-    batch = on_device(train_pipeline(MESH_SIZES["seq"],
-                                      MESH_SIZES["batch"]).batch_at(0), dev)
+    batch_size = batch_size or MESH_SIZES["batch"]
+    seq = seq or MESH_SIZES["seq"]
+    batch = on_device(train_pipeline(seq, batch_size).batch_at(0), dev)
     loss, _, grads = loss_and_grads(cfg, plain, batch)
     with use_mesh(mesh):
         ploss, _, pgrads = loss_and_grads(cfg, placed, batch)
@@ -4561,6 +4591,12 @@ def mesh_train(cfg, plain, placed, mesh, dev, label):
                                 g, w, scale=peak) / peak)
     out["grad_rel_err"] = worst
     del grads, pgrads
+    log(f"[mesh {label}] train batch {batch_size} x {seq}: loss "
+        f"{float(loss):.6f}, placed against plain: loss err "
+        f"{out['loss_err']:.3e}, worst gradient leaf {worst:.3e} of its "
+        f"max |grad|")
+    if not timed:
+        return out
     opt = AdamW(OptConfig())
     step = make_train_step(cfg, opt)
     state = {"plain": [plain, None, 0], "placed": [placed, mesh, 0]}
@@ -4584,10 +4620,6 @@ def mesh_train(cfg, plain, placed, mesh, dev, label):
     for name, ms in in_turns(sides, run).items():
         out[f"{name}_step_ms"] = ms
     del state
-    log(f"[mesh {label}] train batch {MESH_SIZES['batch']} x "
-        f"{MESH_SIZES['seq']}: loss {float(loss):.6f}, placed against "
-        f"plain: loss err {out['loss_err']:.3e}, worst gradient leaf "
-        f"{worst:.3e} of its max |grad|")
     return out
 
 
@@ -4606,12 +4638,9 @@ def mesh_lm(args, dev, smi, mesh):
     plain, axes = materialize_params(
         cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     placed = remesh_state(plain, axes, mesh)
-    shared = all(p.to_local().data_ptr() == q.data_ptr()
-                 for p, q in zip(tree_leaves(placed), tree_leaves(plain)))
+    placed_without_copy(LM_ARCH, plain, placed)
     log(f"[mesh lm] {LM_ARCH}: {len(tree_leaves(placed))} leaves placed on "
-        f"{mesh}; blocks share the plain leaves' memory: {shared}")
-    if not shared:
-        raise AssertionError("mesh: remesh_state copied a leaf on 1 x 1")
+        f"{mesh}; blocks share the plain leaves' memory")
     _, stream = lm_token_stream(LM_SIZES["corpus_docs"], args.seed)
     n_prompt = MESH_SIZES["prompt"]
     line = {}
@@ -4667,16 +4696,221 @@ def mesh_ds(args, dev, smi, mesh, params):
     return line
 
 
+def placed_without_copy(what, plain, placed):
+    """Every placed leaf's block shares its plain leaf's memory (on the
+    1 x 1 mesh a block is the whole leaf)."""
+    from repro_torch.pytree import tree_leaves
+
+    shared = all(p.to_local().data_ptr() == q.data_ptr()
+                 for p, q in zip(tree_leaves(placed), tree_leaves(plain)))
+    if not shared:
+        raise AssertionError(f"mesh: remesh_state copied a leaf of {what}")
+
+
+def mesh_mamba(args, dev, smi, mesh):
+    """(c) mamba2-370m at full width and depth, f32 weights drawn on the
+    card from --seed and placed by ``remesh_state`` without a copy: a
+    512-token prefill (the chunked SSD into the cache) and 64 greedy
+    tokens (the recurrence, one step a token) at batch 1 and 8 into a
+    placed bf16 cache, ``mesh_greedy``; decode ms a token placed beside
+    plain, in turns (two rounds); a 4 x 256 ``loss_and_grads`` (each
+    unit under remat, the chunked SSD's backward) placed against
+    plain."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import materialize_params
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.train.elastic import remesh_state
+
+    cfg = get_config(MAMBA_ARCH)
+    plain, axes = materialize_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    placed = remesh_state(plain, axes, mesh)
+    placed_without_copy(MAMBA_ARCH, plain, placed)
+    log(f"[mesh mamba] {MAMBA_ARCH}: {cfg.n_layers} layers, "
+        f"{len(tree_leaves(placed))} leaves placed on {mesh} without a "
+        f"copy; remat {cfg.remat}")
+    _, stream = lm_token_stream(MAMBA_SIZES["corpus_docs"], args.seed)
+    n_prompt = MESH_SIZES["prompt"]
+    line = {}
+    for b in LM_BATCHES:
+        rows = stream[:b * n_prompt].reshape(b, n_prompt)
+        line[f"logits_err_b{b}"] = mesh_greedy(
+            cfg, plain, placed, mesh, dev, rows, MESH_SIZES["decode"],
+            "mamba", None)
+        ms = mesh_decode_ms(cfg, [("plain", plain, None, False),
+                                  ("placed", placed, mesh, True)], dev,
+                            rows, rounds=2)
+        line[f"decode_ms_b{b}"] = ms["plain"]
+        line[f"placed_decode_ms_b{b}"] = ms["placed"]
+    line.update(mesh_train(cfg, plain, placed, mesh, dev, "mamba",
+                           MESH_SIZES["mamba_batch"], MESH_SIZES["seq"],
+                           timed=False))
+    log(f"[mesh mamba ms] {smi}: " + json.dumps(line))
+    return line
+
+
+def mesh_jamba(args, dev, mesh):
+    """(d) Jamba's reduced hybrid unit (attention, 7 Mamba2 layers, the
+    dense MoE on odd layers) in f32 on the card, weights drawn from
+    --seed, placed against plain, params and cache: the logits of a
+    JAMBA_STEPS[0]-token prefill (the chunked SSD) and of decode steps of
+    the rest (the recurrence), bitwise or within MESH_TOL; the prefill's
+    aux loss and the cache's ``pos`` equal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import (
+        cache_axes, cache_position, forward, init_cache, materialize_params,
+    )
+    from repro_torch.train.elastic import remesh_state
+
+    cfg = get_reduced_config(JAMBA_ARCH).scaled(compute_dtype="float32")
+    plain, axes = materialize_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    placed = remesh_state(plain, axes, mesh)
+    toks = torch.as_tensor(np.random.RandomState(args.seed).randint(
+        0, cfg.vocab_size, (2, sum(JAMBA_STEPS))), dtype=torch.int32,
+        device=dev)
+    out = {}
+    for side, params, m in (("plain", plain, None), ("placed", placed,
+                                                     mesh)):
+        with under(m), torch.inference_mode():
+            cache = init_cache(cfg, 2, 64, torch.float32, dev)
+            if m is not None:
+                cache = remesh_state(cache, cache_axes(cfg), m)
+            logits, aux, lo = [], None, 0
+            for n in JAMBA_STEPS:
+                lg, ex, cache = forward(cfg, params, {
+                    "tokens": toks[:, lo:lo + n]}, cache=cache)
+                logits.append(lg)
+                aux = ex["aux_loss"] if aux is None else aux
+                lo += n
+            out[side] = (logits, aux, int(whole(cache_position(cache))))
+    errs = [held(f"jamba logits, a step of {n} tokens", g, w)
+            for n, g, w in zip(JAMBA_STEPS, out["placed"][0],
+                               out["plain"][0])]
+    aux_err = held("jamba aux loss", out["placed"][1], out["plain"][1],
+                   tol=0.0)
+    pos = (out["placed"][2], out["plain"][2])
+    log(f"[mesh jamba] reduced {JAMBA_ARCH} ({cfg.n_layers} layers: "
+        f"{[sp.mixer + '+' + sp.ffn for sp in cfg.unit]}), f32, placed "
+        f"against plain: logits max abs err {['%.3e' % e for e in errs]} "
+        f"over steps of {list(JAMBA_STEPS)} tokens; aux loss "
+        f"{float(out['plain'][1]):.6f}, err {aux_err:.3e}; pos {pos}")
+    if pos[0] != pos[1] or pos[0] != sum(JAMBA_STEPS):
+        raise AssertionError(f"mesh: jamba pos {pos}")
+    return {"jamba_logits_err": max(errs)}
+
+
+def head_grads(cfg, params, batch):
+    """``loss_fn`` and its gradients with respect to the leaves under
+    MESH_V3_TRAINED only (the rest frozen): (loss, metrics, [(path,
+    grad)])."""
+    import torch
+    from repro_torch.models import loss_fn
+    from repro_torch.pytree import tree_leaves_with_path, tree_unflatten
+
+    leaves, trained = [], []
+    for path, p in tree_leaves_with_path(params):
+        p = p.detach()
+        if path[0] in MESH_V3_TRAINED:
+            trained.append((path, p.requires_grad_(True)))
+        leaves.append(p)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(cfg, tree_unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, [p for _, p in trained])
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            [(path, g) for (path, _), g in zip(trained, grads)])
+
+
+def mesh_v3(args, dev, smi, mesh):
+    """(e) DeepSeek-V3 at full width (d_model 7168, 128 heads, vocab
+    129,280, bf16 params, MLA, 256 routed experts top-8 + 1 shared, the
+    MTP head), its depth cut to the 3 dense prefix layers and one MoE
+    unit, weights drawn on the card from --seed and placed without a
+    copy: ``loss_fn`` with the MTP loss on 1 x MESH_SIZES["v3_tokens"]
+    tokens and its gradients for the MTP head, ``embed`` and ``lm_head``
+    (the rest frozen), placed against the one-process dispatch path at
+    ep = 1, both under ``deterministic()``: ``lm_loss``, ``mtp_loss`` and
+    the total bitwise, each gradient leaf bitwise or within MESH_TOL of
+    its max.  Bytes and seconds printed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import materialize_params
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.train.elastic import remesh_state
+
+    t0 = time.perf_counter()
+    cfg = get_config(V3_ARCH).scaled(n_units=1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    plain, axes = materialize_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    placed = remesh_state(plain, axes, mesh)
+    placed_without_copy(V3_ARCH, plain, placed)
+    n_params = sum(t.numel() for t in tree_leaves(plain))
+    p_bytes = tree_bytes(plain)
+    t_init = time.perf_counter() - t0
+    _, stream = lm_token_stream(LM_SIZES["corpus_docs"], args.seed)
+    n = MESH_SIZES["v3_tokens"]
+    toks = torch.as_tensor(stream[:n + 1], device=dev)
+    batch = {"tokens": toks[None, :n], "labels": toks[None, 1:]}
+    runs = {}
+    for side, params, m in (("plain", plain, model_mesh(1)),
+                            ("placed", placed, mesh)):
+        t1 = time.perf_counter()
+        with under(m), deterministic():
+            runs[side] = head_grads(cfg, params, batch)
+        torch.cuda.synchronize()
+        runs[side] += (time.perf_counter() - t1,)
+    (ploss, pm, pg, p_s), (loss, wm, g, s_) = runs["placed"], runs["plain"]
+    held("v3 total loss", ploss, loss, tol=0.0)
+    for k in ("lm_loss", "mtp_loss"):
+        held(f"v3 {k}", pm[k], wm[k], tol=0.0)
+    worst, g_bytes = 0.0, 0
+    for (path, a), (_, w) in zip(pg, g):
+        peak = float(w.float().abs().max()) or 1.0
+        worst = max(worst, held(f"v3 grad {'/'.join(map(str, path))}", a,
+                                w, scale=peak) / peak)
+        g_bytes += w.numel() * w.element_size()
+    line = {"params": n_params, "param_bytes": p_bytes,
+            "grad_leaves": len(g), "grad_bytes_a_side": g_bytes,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
+            "lm_loss": float(wm["lm_loss"]),
+            "mtp_loss": float(wm["mtp_loss"]),
+            "loss": float(loss), "worst_grad_rel_err": worst,
+            "init_s": t_init, "plain_s": s_, "placed_s": p_s}
+    del runs, pg, g, placed, plain
+    torch.cuda.empty_cache()
+    log(f"[mesh v3] {smi}: {V3_ARCH} at full width, {len(cfg.prefix)} "
+        f"dense layers + {cfg.n_units} MoE unit + the MTP head, "
+        f"{cfg.param_dtype} params, 1 x {n} tokens, gradients of "
+        f"{'/'.join(MESH_V3_TRAINED)}; placed against plain: losses "
+        f"bitwise, worst gradient leaf {worst:.3e} of its max: "
+        + json.dumps(line))
+    return line
+
+
 def mesh_phase(args, dev, smi, ds_held=None):
     """The ``[mesh]`` phase's one-rank NCCL world in this process:
     ``mesh_ds`` on the DeepSeek phase's weights (``ds_held``: a list
     holding them, emptied here so that they are freed before smollm's
     train step needs the card; else weights drawn here), then
-    ``mesh_lm``; the world torn down after."""
+    ``mesh_lm``, ``mesh_mamba``, ``mesh_jamba`` and ``mesh_v3``, each
+    part's seconds printed; the world torn down after."""
     import torch
     import torch.distributed as dist
 
     t0 = time.perf_counter()
+    secs = {}
+
+    def lap(name, since=[t0]):
+        now = time.perf_counter()
+        secs[name] = now - since[0]
+        since[0] = now
+        torch.cuda.empty_cache()
+
     mesh = mesh_world(dev)
     try:
         if ds_held:
@@ -4691,13 +4925,20 @@ def mesh_phase(args, dev, smi, ds_held=None):
                 torch.Generator(device=dev).manual_seed(args.seed), dev)
         mesh_ds(args, dev, smi, mesh, params)
         del params
-        torch.cuda.empty_cache()
-        log(f"[mesh] {DS_ARCH} done in {time.perf_counter() - t0:.1f} s")
+        lap(DS_ARCH)
         mesh_lm(args, dev, smi, mesh)
+        lap(LM_ARCH)
+        mesh_mamba(args, dev, smi, mesh)
+        lap(MAMBA_ARCH)
+        mesh_jamba(args, dev, mesh)
+        lap(JAMBA_ARCH)
+        mesh_v3(args, dev, smi, mesh)
+        lap(V3_ARCH)
     finally:
         dist.destroy_process_group()
         torch.cuda.empty_cache()
-    log(f"[mesh] phase done in {time.perf_counter() - t0:.1f} s")
+    log(f"[mesh] phase done in {time.perf_counter() - t0:.1f} s: "
+        + json.dumps(secs))
 
 
 # the Mamba phase: mamba2-370m (SSD) at full width and depth, then
@@ -4990,7 +5231,8 @@ TRAIN_SIZES = dict(xdev_batch=2, xdev_seq=64,   # (a): card against CPU
                    resume_at=17,                 # (d): its checkpoint: 16
                    short=4,                      # (f), (g), mamba2-370m
                    mamba_batch=4, mamba_seq=256,
-                   reduced_batch=2, reduced_seq=32)
+                   reduced_batch=2, reduced_seq=32,
+                   long_seq=4096)                # one remat step of 1 x 4096
 TRAIN_XDEV_RTOL = 1e-4        # (a) loss and global grad norm, relative
 TRAIN_XDEV_LEAF = 1e-3        # (a) a leaf's max grad err over its max |grad|
 TRAIN_REMAT_RTOL = 1e-6       # (b) remat on against off, the same measures
@@ -5404,6 +5646,34 @@ def train_reduced(dev, seed, label="train"):
     return out
 
 
+def train_long(args, dev, smi, label="train long"):
+    """One remat train step of smollm-360m at full width and depth on
+    TRAIN_SIZES["long_seq"] tokens (bf16 compute, AdamW; 16 query chunks
+    of 256, each checkpointed inside its unit's checkpoint) through
+    ``dryrun_held``: its FLOPs, argument bytes and added allocation held
+    against the dry run's as ``[dryrun]`` holds its cells; a finite loss;
+    the peak added allocation printed beside the bytes one layer's whole
+    probabilities would take (heads x seq^2 x 4 B: what the unit's
+    recompute kept before the chunks were checkpointed) and the dry
+    run's temp."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(TRAIN_ARCH)
+    seq = TRAIN_SIZES["long_seq"]
+    out_dir = os.path.join(args.dryrun_out, "held")
+    os.makedirs(out_dir, exist_ok=True)
+    line = dryrun_held(dev, smi, args.seed,
+                       (f"train_1x{seq}", seq, 1, "train"), out_dir, label)
+    probs = cfg.n_heads * seq * seq * 4
+    log(f"[{label}] {smi}: {TRAIN_ARCH}, 1 x {seq} tokens, q_chunk 256, "
+        f"remat {cfg.remat}: loss {line['loss']:.6f}; peak added "
+        f"allocation {line['step_temp_bytes']} B beside one layer's whole "
+        f"probabilities {probs} B ({cfg.n_heads} heads x {seq}^2 x 4 B) "
+        f"and the dry run's temp {line['temp_bytes']} B")
+    if not math.isfinite(line["loss"]):
+        raise AssertionError(f"{label}: loss {line['loss']}")
+
+
 def train_phase(args, dev, smi):
     """smollm-360m trained at full width and depth on the card, f32
     weights drawn from --seed: (a) one ``loss_fn`` and its gradients in
@@ -5525,7 +5795,7 @@ DRYRUN_CELLS = (("deepseek-v3-671b", "train_4k", False),
                 ("yi-6b", "prefill_32k", False))
 
 
-def dryrun_held(dev, smi, seed, cell, out_dir):
+def dryrun_held(dev, smi, seed, cell, out_dir, label="dryrun held"):
     """One cell of (a): the dry run of smollm-360m at full width and
     depth on a 1 x 1 mesh (meta tensors, this host), then the same step
     on the card: FLOPs equal as integers (``FlopCounterMode`` around the
@@ -5535,7 +5805,8 @@ def dryrun_held(dev, smi, seed, cell, out_dir):
     slack (``DRYRUN_ALLOC_ROUND`` a tensor, plus ``DRYRUN_ALLOC_SPLIT``
     for a tensor over 1 MiB); the predicted peak (argument + temp) beside
     ``max_memory_allocated``; and the roofline terms beside the measured
-    step ms.  Returns the line it logs."""
+    step ms (and a train step's loss).  Returns the line it logs under
+    ``label``."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import get_config
@@ -5580,7 +5851,8 @@ def dryrun_held(dev, smi, seed, cell, out_dir):
         box = {"p": params, "s": state}
 
         def run(i):
-            box["p"], box["s"], _ = step(box["p"], box["s"], data, float(i))
+            box["p"], box["s"], box["m"] = step(box["p"], box["s"], data,
+                                                float(i))
     else:
         cache = init_cache(cfg, batch, seq, device=dev)
         last = tokens[:, :1].clone()
@@ -5622,6 +5894,7 @@ def dryrun_held(dev, smi, seed, cell, out_dir):
             ev[i + 1].record()
         torch.cuda.synchronize()
     ms = statistics.median(a.elapsed_time(b) for a, b in zip(ev, ev[1:]))
+    loss = float(box["m"]["loss"]) if kind == "train" else None
     del box, run
     torch.cuda.empty_cache()
     flops_card = fc.get_total_flops()
@@ -5646,7 +5919,9 @@ def dryrun_held(dev, smi, seed, cell, out_dir):
             "memory_boundary_ms": terms["memory_boundary_s"] * 1e3,
             "bound_ms": bound_ms, "step_ms": ms,
             "bound_share": bound_ms / ms, "dry_run_s": meta_s}
-    log(f"[dryrun held] {smi}: " + json.dumps(line))
+    if loss is not None:
+        line["loss"] = loss
+    log(f"[{label}] {smi}: " + json.dumps(line))
     if flops_card != rec["flops_per_device"]:
         raise AssertionError(f"dryrun {name}: {rec['flops_per_device']} "
                              f"FLOPs counted, {flops_card} on the card")
@@ -6076,6 +6351,9 @@ def main():
 
     # -- 16. training: smollm-360m at full width and depth -------------
     train_phase(args, dev, smi)
+    t0 = time.perf_counter()
+    train_long(args, dev, smi)
+    log(f"[train long] done in {time.perf_counter() - t0:.1f} s")
 
     # -- 17. the dry run: held against the card, then the production cells
     dryrun_phase(args, dev, smi)

@@ -64,11 +64,6 @@ from repro_torch.pytree import tree_map
 Axes = Tuple[Optional[str], ...]
 Spec = Tuple[object, ...]
 
-# what every path not yet ported to a mesh of several ranks names when it
-# raises
-MULTI_GPU = ("ROADMAP.md Queue 1 item 4c (Mamba2, Jamba's hybrid unit and "
-             "DeepSeek-V3's MTP on a mesh)")
-
 # logical axis -> mesh axis (or tuple of mesh axes)
 LOGICAL_RULES: Dict[str, Optional[Tuple[str, ...]]] = {
     "batch": ("pod", "data"),

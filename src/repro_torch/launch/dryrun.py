@@ -55,7 +55,10 @@ train and prefill at u in {1, 2} units x c in {2, 3, 4} chunks of
 ``Q_CHUNK`` = 256 tokens (a prefill's cache keeps the cell's true
 length), fitted with ``_poly_extrapolate`` (the c^2 terms for train
 only) and evaluated at the cell's ``n_units`` and ``seq_len / 256``;
-decode at u in {1, 2}, extended linearly.  The fit is solved in exact
+decode at u in {1, 2}, extended linearly, and so a train or prefill
+cell whose prompt does not take the chunked attention (the grid's do:
+a train step recomputes each chunk in its backward pass), at its own
+length.  The fit is solved in exact
 rational arithmetic, so an integer polynomial comes back as the integer.
 
 **Bytes.**  ``bytes_per_device``, the counterpart of XLA's unfused
@@ -683,6 +686,13 @@ def _poly_extrapolate(meas, n_units: int, true_c: float,
     return out
 
 
+def _chunked(seq: int) -> bool:
+    """Whether a prompt of ``seq`` tokens takes the chunked attention
+    (``models.layers.attention``), whose chunks a train step checkpoints
+    and recomputes, as the counting grid's prompts of 2-4 chunks do."""
+    return seq > Q_CHUNK and seq % Q_CHUNK == 0
+
+
 def mesh_name(mesh) -> str:
     shape = tuple(mesh.shape.values())
     if shape == (16, 16):
@@ -718,7 +728,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, transform=None,
     t2 = time.time()
 
     opt = prog.optimizer
-    if shape.kind in ("train", "prefill"):
+    if shape.kind in ("train", "prefill") and _chunked(shape.seq_len):
         meas = {}
         for u in (1, 2):
             cfg_u = cfg.scaled(n_units=u)
@@ -730,8 +740,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, transform=None,
         record["raw_measurements"] = {f"u{u}c{c}": meas[(u, c)]
                                       for (u, c) in meas}
     else:
-        ca = _costs(Program(cfg.scaled(n_units=1), shape, mesh))
-        cb = _costs(Program(cfg.scaled(n_units=2), shape, mesh))
+        ca = _costs(Program(cfg.scaled(n_units=1), shape, mesh,
+                            optimizer=opt))
+        cb = _costs(Program(cfg.scaled(n_units=2), shape, mesh,
+                            optimizer=opt))
         n = cfg.n_units
 
         def line(a, b):

@@ -20,11 +20,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import constrain
 from repro_torch.pytree import tree_map
@@ -197,10 +199,13 @@ def _attend_chunked(q, k, v, scale, q_offset, q_chunk, segment_ids,
     skv = k.shape[2]
     n_chunks = sq // q_chunk
     dv = v.shape[-1]
+    # the chunks' closures name no tensor of this scope but the batch's
+    # segment ids: a checkpoint keeps its closure until the backward pass
+    device = q.device
 
     def mask_for(qs, kv_hi):
         mask = _causal_mask(q_chunk, kv_hi, q_offset + qs, sliding_window,
-                            q.device)
+                            device)
         if segment_ids is not None:
             seg_q = segment_ids[:, qs:qs + q_chunk]
             seg_k = segment_ids[:, :kv_hi]
@@ -211,58 +216,85 @@ def _attend_chunked(q, k, v, scale, q_offset, q_chunk, segment_ids,
             and isinstance(q_offset, int) and q_offset == 0):
         return _triangle_scan(q, k, v, scale, q_offset, q_chunk,
                               segment_ids).to(q.dtype)
+
+    def body(qs, q_blk, k, v):
+        # the mask is built here: passed in, each chunk's would be kept
+        return _attend(q_blk, k, v, mask_for(qs, skv), scale)
+
     outs = []
     for i in range(n_chunks):
         qs = i * q_chunk
-        outs.append(_attend(q[:, :, :, qs:qs + q_chunk], k, v,
-                            mask_for(qs, skv), scale))
+        outs.append(_chunk_checkpoint(partial(body, qs),
+                                      q[:, :, :, qs:qs + q_chunk], k, v))
     return torch.cat(outs, dim=3).reshape(b, kvh, g, sq, dv)
+
+
+def _chunk_checkpoint(fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when autograd
+    records: the backward pass recomputes a chunk's probabilities instead
+    of keeping them (the reference's chunk-level ``jax.checkpoint``;
+    memory only, never values).  Nested inside a unit's remat, as the
+    reference's nest inside its scan body's.  Nothing here draws random
+    numbers, so no RNG state is kept."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def _triangle_scan(q, k, v, scale, q_offset, q_chunk, segment_ids):
     """Online softmax over the lower-triangle (q block, kv block) pairs,
-    q block outer, kv block inner (the reference's ``_triangle_scan``)."""
+    q block outer, kv block inner (the reference's ``_triangle_scan``).
+    Each q block's running ``(num, den, mx)`` is carried through its kv
+    steps, each step checkpointed (``_chunk_checkpoint``), and the blocks
+    are concatenated at the end."""
     b, kvh, g, sq, _ = q.shape
     skv = k.shape[2]
-    dv = v.shape[-1]
+    dv, v_dtype = v.shape[-1], v.dtype
     n_kv = skv // q_chunk
-    num = torch.zeros((b, kvh, g, sq, dv), dtype=torch.float32,
-                      device=q.device)
-    den = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=q.device)
-    mx = torch.full((b, kvh, g, sq, 1), -math.inf, dtype=torch.float32,
-                    device=q.device)
     ar = torch.arange(q_chunk, device=q.device)
+
+    # as in ``_attend_chunked``, the step's closure names no input tensor
+    def step(qs, ks, q_blk, k_blk, v_blk, num, den, mx):
+        s = torch.einsum("bkgqd,bkpd->bkgqp", q_blk, k_blk.float()) * scale
+        msk = ar[None, :] + ks <= ar[:, None] + q_offset + qs
+        if segment_ids is not None:
+            seg_q = segment_ids[:, qs:qs + q_chunk]
+            seg_k = segment_ids[:, ks:ks + q_chunk]
+            msk = msk[None] & (seg_q[:, :, None] == seg_k[:, None, :])
+            msk = msk[:, None, None]
+        else:
+            msk = msk[None, None, None]
+        s = torch.where(msk, s, -1e30)
+        blk_mx = torch.amax(s, dim=-1, keepdim=True)
+        new_mx = torch.maximum(mx, blk_mx)
+        corr = torch.exp(mx - new_mx)
+        p = torch.exp(s - new_mx)
+        num = num * corr + torch.einsum(
+            "bkgqp,bkpd->bkgqd", p.to(v_dtype).float(), v_blk.float())
+        den = den * corr[..., 0] + torch.sum(p, dim=-1)
+        return num, den, new_mx
+
+    nums, dens = [], []
     for qi in range(sq // q_chunk):
         qs = qi * q_chunk
         q_blk = q[:, :, :, qs:qs + q_chunk].float()
+        carry = (
+            torch.zeros((b, kvh, g, q_chunk, dv), dtype=torch.float32,
+                        device=q.device),
+            torch.zeros((b, kvh, g, q_chunk), dtype=torch.float32,
+                        device=q.device),
+            torch.full((b, kvh, g, q_chunk, 1), -math.inf,
+                       dtype=torch.float32, device=q.device),
+        )
         for ki in range(min(qi + 1, n_kv)):
             ks = ki * q_chunk
-            k_blk = k[:, :, ks:ks + q_chunk]
-            v_blk = v[:, :, ks:ks + q_chunk]
-            s = torch.einsum("bkgqd,bkpd->bkgqp", q_blk, k_blk.float()) \
-                * scale
-            msk = ar[None, :] + ks <= ar[:, None] + q_offset + qs
-            if segment_ids is not None:
-                seg_q = segment_ids[:, qs:qs + q_chunk]
-                seg_k = segment_ids[:, ks:ks + q_chunk]
-                msk = msk[None] & (seg_q[:, :, None] == seg_k[:, None, :])
-                msk = msk[:, None, None]
-            else:
-                msk = msk[None, None, None]
-            s = torch.where(msk, s, -1e30)
-            cur_mx = mx[:, :, :, qs:qs + q_chunk]
-            blk_mx = torch.amax(s, dim=-1, keepdim=True)
-            new_mx = torch.maximum(cur_mx, blk_mx)
-            corr = torch.exp(cur_mx - new_mx)
-            p = torch.exp(s - new_mx)
-            num[:, :, :, qs:qs + q_chunk] = (
-                num[:, :, :, qs:qs + q_chunk] * corr
-                + torch.einsum("bkgqp,bkpd->bkgqd", p.to(v.dtype).float(),
-                               v_blk.float()))
-            den[:, :, :, qs:qs + q_chunk] = (
-                den[:, :, :, qs:qs + q_chunk] * corr[..., 0]
-                + torch.sum(p, dim=-1))
-            mx[:, :, :, qs:qs + q_chunk] = new_mx
+            carry = _chunk_checkpoint(
+                partial(step, qs, ks), q_blk, k[:, :, ks:ks + q_chunk],
+                v[:, :, ks:ks + q_chunk], *carry)
+        nums.append(carry[0])
+        dens.append(carry[1])
+    num, den = torch.cat(nums, dim=3), torch.cat(dens, dim=3)
     return num / torch.clamp(den[..., None], min=1e-30)
 
 

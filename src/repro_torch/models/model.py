@@ -42,9 +42,10 @@ the ops themselves are the one-device code, so none needs a sharding
 rule), the MoE's expert slices through its process-group path, and a
 placed cache's rows whole for the step (its blocks over the other axes
 gathered, the step's writes then copied into the rank's own block in
-place).  Logits, ``hidden`` and the new cache come back placed; the
-loss and the dense MoE's aux loss sum over every rank's rows.  Mamba
-layers and DeepSeek-V3's MTP head raise on a mesh (``MULTI_GPU``).
+place: Mamba's conv windows and SSM state as attention's keys and
+values).  Logits, ``hidden`` and the new cache come back placed; the
+loss, DeepSeek-V3's MTP loss and the dense MoE's aux loss sum over every
+rank's rows.
 """
 from __future__ import annotations
 
@@ -64,7 +65,6 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.array_trie import resolve_device
 from repro_torch.distributed.sharding import (
-    MULTI_GPU,
     Rows,
     entry_axes,
     constrain,
@@ -74,6 +74,7 @@ from repro_torch.distributed.sharding import (
     logical_to_spec,
     place_block,
     placements_of,
+    use_mesh,
 )
 from repro_torch.pytree import tree_leaves, tree_leaves_with_path, tree_map
 from .layers import (
@@ -198,9 +199,6 @@ def _layer_weights(spec: LayerSpec, p, rows):
     its paths take the blocks they compute with)."""
     if rows is None:
         return p
-    if spec.mixer == "mamba":
-        raise NotImplementedError(f"a Mamba2 layer on a process mesh: "
-                                  f"{MULTI_GPU}")
     return {k: v if k == "ffn" and spec.ffn == "moe" else rows.tree(v)
             for k, v in p.items()}
 
@@ -267,18 +265,28 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def _apply_unit_in(mesh, *args):
+    with use_mesh(mesh):
+        return _apply_unit(*args)
+
+
 def _remat_unit(cfg, p_u, h, positions, segment_ids, rows=None):
     """``_apply_unit`` without a cache under ``torch.utils.checkpoint``:
     policy ``"nothing"`` keeps only the unit's inputs and recomputes the
     rest in the backward pass; ``"dots"`` also keeps the matmul outputs
     (selective checkpointing).  Placed weights are gathered inside, so
-    the backward pass gathers them again (as FSDP does)."""
+    the backward pass gathers them again (as FSDP does).  The recompute
+    runs under the forward's ambient mesh: autograd runs a CUDA backward
+    on a thread of its own, where the context variable of ``use_mesh``
+    is unset, and the MoE would take another path there."""
     kw = {}
     if cfg.remat_policy == "dots":
         kw["context_fn"] = partial(create_selective_checkpoint_contexts,
                                    _save_dots)
-    h, _, aux = checkpoint(_apply_unit, cfg, p_u, h, positions, segment_ids,
-                           None, rows, use_reentrant=False, **kw)
+    mesh = get_mesh()
+    fn = _apply_unit if mesh is None else partial(_apply_unit_in, mesh)
+    h, _, aux = checkpoint(fn, cfg, p_u, h, positions, segment_ids, None,
+                           rows, use_reentrant=False, **kw)
     return h, None, aux
 
 
@@ -443,11 +451,17 @@ def _cache_back(cfg, cache, new_local, rows):
     return tree_map(leaf, cache, new_local, cache_axes(cfg))
 
 
+def _top_weights(params, rows):
+    """The leaves ``forward`` reads outside the layers whole on this rank
+    (plain leaves come back as they are)."""
+    return dict(params, **{k: rows.tree(params[k]) for k in _TOP
+                           if k in params})
+
+
 def _forward(cfg, params, batch, cache, logits_mode, rows=None):
     """``forward`` on this rank's rows (``rows``) or on one device."""
     if rows is not None:
-        params = dict(params, **{k: rows.tree(params[k]) for k in _TOP
-                                 if k in params})
+        params = _top_weights(params, rows)
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = batch.get("positions")
@@ -581,25 +595,29 @@ def loss_fn(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, Dict]:
     and the loss is the global batch's, the same on every rank."""
     rows = None
     if is_placed(params["embed"]):
-        if cfg.mtp:
-            raise NotImplementedError(f"DeepSeek-V3's MTP loss on a process "
-                                      f"mesh: {MULTI_GPU}")
         rows, batch = _rows_of_batch(params, batch)
+        # gathered once for the LM head and the MTP head both
+        params = _top_weights(params, rows)
     logits, extras, _ = _forward(cfg, params, batch, None, "all", rows)
     mask = _loss_mask(batch)
     loss = _ce(logits, batch["labels"], mask, rows)
     total = loss + 1e-3 * extras["aux_loss"]
     metrics = {"lm_loss": loss, "aux_loss": extras["aux_loss"]}
     if cfg.mtp:
-        mtp_loss = _mtp_loss(cfg, params, batch, extras["hidden"])
+        mtp_loss = _mtp_loss(cfg, params, batch, extras["hidden"], rows)
         total = total + 0.3 * mtp_loss
         metrics["mtp_loss"] = mtp_loss
     return total, metrics
 
 
-def _mtp_loss(cfg, params, batch, hidden):
-    """DeepSeek-V3 MTP (depth 1): predict t+2 from (h_t, emb(t+1))."""
+def _mtp_loss(cfg, params, batch, hidden, rows=None):
+    """DeepSeek-V3 MTP (depth 1): predict t+2 from (h_t, emb(t+1)).
+    With ``rows``: ``hidden``, ``batch`` and the step are this rank's
+    rows, the head's leaves gathered whole, the loss the global
+    batch's."""
     p = params["mtp"]
+    if rows is not None:
+        p = {k: v if k == "block" else rows.tree(v) for k, v in p.items()}
     tokens, labels = batch["tokens"], batch["labels"]
     mask = _loss_mask(batch)
     cdt = torch_dtype(cfg.compute_dtype)
@@ -612,10 +630,11 @@ def _mtp_loss(cfg, params, batch, hidden):
                              device=x.device)[None].expand(b, s1)
     # the reference's block spec: the last unit layer's mixer with an MLP
     spec = LayerSpec(cfg.unit[-1].mixer, "mlp")
-    x, _, _ = _apply_layer(cfg, spec, p["block"], x, positions, None, None)
+    x, _, _ = _apply_layer(cfg, spec, p["block"], x, positions, None, None,
+                           rows)
     logits = unembed(cfg, params, x)
     # target at position i is labels[i+1] = t_{i+2}
-    return _ce(logits[:, :-1], labels[:, 2:], mask[:, 2:])
+    return _ce(logits[:, :-1], labels[:, 2:], mask[:, 2:], rows)
 
 
 # ----------------------------------------------------------------------

@@ -16,7 +16,11 @@ anything but their own package.
 
 Configs: reduced smollm-360m, reduced DeepSeek-V2-Lite (its dense MoE)
 and the same with ``impl="alltoall"`` (the expert-parallel MoE: experts
-over ``model``, ep = 2 on (2, 2) and 4 on (1, 4)), f32 compute.
+over ``model``, ep = 2 on (2, 2) and 4 on (1, 4)); reduced mamba2-370m
+and reduced Jamba cut to the first two layers of its hybrid unit
+(attention + MLP, Mamba2 + the dense MoE: forward, greedy decode through
+both of Mamba's cache branches, a train step); reduced DeepSeek-V3 (its
+train step with the MTP loss); f32 compute.
 
 Tolerances: f32 logits within 1e-4 of both (the LM parity tolerance; the
 placed step equals the one-process port bitwise here, the reference's
@@ -26,7 +30,9 @@ of its max |value|; the MoE's outputs within 1e-5 (aux 1e-6 relative) of
 the reference's ``shard_map``, with and without drops and the bf16
 ``psum``; ``compressed_psum`` and the ``remesh_state`` round trips
 bitwise; every param and cache leaf's placements and local shape equal
-to the reference's ``named_sharding`` spec and ``shard_shape``.
+to the reference's ``named_sharding`` spec and ``shard_shape``; a placed
+Mamba cache's leaves after greedy decode within 1e-4 of the one-process
+port's.
 """
 import dataclasses
 import os
@@ -44,6 +50,27 @@ SRC = os.path.join(HERE, "..", "src")
 ARCHS = {"smollm": ("smollm-360m", None),
          "ds": ("deepseek-v2-lite-16b", None),
          "ds_ep": ("deepseek-v2-lite-16b", "alltoall")}
+# Mamba2 layers on a mesh: forward, greedy decode and a train step
+SSM_ARCHS = {"mamba": ("mamba2-370m", None),
+             "jamba": ("jamba-1.5-large-398b", None)}
+# DeepSeek-V3's MTP loss on a mesh: a train step
+MTP_ARCHS = {"v3": ("deepseek-v3-671b", None)}
+ALL_ARCHS = {**ARCHS, **SSM_ARCHS, **MTP_ARCHS}
+# the train steps of SSM_ARCHS and MTP_ARCHS: AdamW on both meshes,
+# Adafactor on one
+NEW_STEPS = [(key, opt, mesh) for key in {**SSM_ARCHS, **MTP_ARCHS}
+             for opt, mesh in (("adamw", "2x2"), ("adamw", "1x4"),
+                               ("adafactor", "1x4"))]
+
+
+def _ref_step_mesh(key):
+    """The mesh whose reference process runs ``key``'s train steps: the
+    expert-parallel MoE's capacity follows the rows a rank holds, so it
+    runs on each; the others (whose values the mesh does not change)
+    split between the two processes."""
+    if key == "ds_ep":
+        return None
+    return "2x2" if key in ARCHS else "1x4"
 MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
 AXES = ("data", "model")
 POD_AXES = ("pod", "data", "model")
@@ -60,9 +87,14 @@ MOE = dict(rtol=1e-5, atol=1e-5)
 
 
 def _cfg(configs, key, **kw):
-    arch, impl = ARCHS[key]
-    cfg = configs.get_reduced_config(arch).scaled(compute_dtype="float32",
-                                                  **kw)
+    arch, impl = ALL_ARCHS[key]
+    cfg = configs.get_reduced_config(arch)
+    if key == "jamba":
+        # its first two layers (attention + MLP, then Mamba2 + MoE):
+        # every kind of layer the unit has, at a quarter of the
+        # reference's compile time (as tests/test_torch_train.py cuts it)
+        kw = dict(kw, unit=cfg.unit[:2])
+    cfg = cfg.scaled(compute_dtype="float32", **kw)
     if impl is not None:
         cfg = cfg.scaled(moe=dataclasses.replace(cfg.moe, impl=impl))
     return cfg
@@ -121,6 +153,12 @@ def _write_inputs(path):
     out["moe/x"] = (rng.randn(MOE_B, MOE_S, cfg.d_model) * 0.5).astype(
         np.float32)
     out["psum/x"] = (rng.randn(257) * 3).astype(np.float32)
+    for key in {**SSM_ARCHS, **MTP_ARCHS}:
+        cfg = _cfg(TC, key)
+        like, _ = abstract_params(cfg)
+        for i, (p, leaf) in enumerate(tree_leaves_with_path(like)):
+            out[f"p/{key}/{i}"] = _draw(p, tuple(leaf.shape), rng,
+                                        cfg.d_model)
     np.savez(path, **out)
 
 
@@ -159,7 +197,7 @@ def _reference_main(in_path, out_path, mesh_names):
     for mname in mesh_names:
         m = mesh(MESHES[mname])
         with jax.set_mesh(m):
-            for key in ARCHS:
+            for key in ALL_ARCHS:
                 cfg = _cfg(JC, key)
                 shapes, axes = JM.abstract_params(cfg)
                 n = len(jax.tree.leaves(shapes))
@@ -167,19 +205,21 @@ def _reference_main(in_path, out_path, mesh_names):
                     jax.tree.structure(shapes),
                     [jnp.asarray(data[f"p/{key}/{i}"]) for i in range(n)])
                 params = remesh_state(params, axes, m)
-                out[f"{mname}/{key}/logits"] = np.asarray(jax.jit(
-                    partial(JM.forward, cfg))(
-                        params, {"tokens": jnp.asarray(data["tokens"])})[0])
-                cache = remesh_state(JM.init_cache(cfg, B, MAX_SEQ,
-                                                   jnp.float32),
-                                     JM.cache_axes(cfg), m)
-                toks, _ = greedy_generate(cfg, params, cache,
-                                          jnp.asarray(data["prompt"]), N_GEN)
-                out[f"{mname}/{key}/greedy"] = np.asarray(toks)
-                if mname != "2x2" and key != "ds_ep":
-                    continue   # the mesh changes only the EP capacity
+                if key not in MTP_ARCHS:
+                    out[f"{mname}/{key}/logits"] = np.asarray(jax.jit(
+                        partial(JM.forward, cfg))(params, {
+                            "tokens": jnp.asarray(data["tokens"])})[0])
+                    cache = remesh_state(JM.init_cache(cfg, B, MAX_SEQ,
+                                                       jnp.float32),
+                                         JM.cache_axes(cfg), m)
+                    toks, _ = greedy_generate(cfg, params, cache,
+                                              jnp.asarray(data["prompt"]),
+                                              N_GEN)
+                    out[f"{mname}/{key}/greedy"] = np.asarray(toks)
+                if _ref_step_mesh(key) not in (None, mname):
+                    continue
                 batch = {k: jnp.asarray(v) for k, v in _batch(data).items()}
-                for name in OPTS:
+                for name in OPTS if key in ARCHS else ("adamw",):
                     opt = pick_optimizer(cfg, OptConfig(**_opt_cfg(name)))
                     state = remesh_state(opt.init(params),
                                          opt.state_axes(axes), m)
@@ -187,6 +227,9 @@ def _reference_main(in_path, out_path, mesh_names):
                         cfg, opt))(params, state, batch, jnp.float32(0))
                     pre = f"{mname}/{key}/{name}"
                     out[f"{pre}/loss"] = np.asarray(metrics["loss"])
+                    if "mtp_loss" in metrics:
+                        out[f"{pre}/mtp_loss"] = np.asarray(
+                            metrics["mtp_loss"])
                     for i, leaf in enumerate(jax.tree.leaves(
                             (new_p, new_s))):
                         out[f"{pre}/{i}"] = np.asarray(leaf)
@@ -272,14 +315,10 @@ def _rank_checks(rank, shape, in_path, out_dir):
     from repro_torch.distributed.sharding import is_placed, use_mesh
     from repro_torch.launch import train as TLT
     from repro_torch.launch.mesh import HostMesh, make_host_mesh, make_mesh
-    from repro_torch.models import (
-        abstract_params, cache_axes, convert, forward, init_cache,
-    )
-    from repro_torch.models import moe as TMOE
+    from repro_torch.models import abstract_params, convert
     from repro_torch.pytree import (
         tree_leaves, tree_leaves_with_path, tree_map, tree_unflatten,
     )
-    from repro_torch.serve.engine import greedy_generate
     from repro_torch.train.elastic import remesh_state
     from repro_torch.train.optimizer import OptConfig, pick_optimizer
     from repro_torch.train.train_step import loss_and_grads, make_train_step
@@ -300,7 +339,7 @@ def _rank_checks(rank, shape, in_path, out_dir):
     prompt = torch.from_numpy(data["prompt"])
     batch = _tensors(_batch(data))
     with use_mesh(mesh):
-        for key in ARCHS:
+        for key in ALL_ARCHS:
             cfg = _cfg(TC, key)
             like, axes = abstract_params(cfg)
             tree = tree_unflatten(like, [data[f"p/{key}/{i}"]
@@ -309,24 +348,13 @@ def _rank_checks(rank, shape, in_path, out_dir):
             placed = convert.params_from_numpy(cfg, tree, mesh=mesh)
             plain = convert.params_from_numpy(cfg, tree, "cpu")
             record(f"{key}/params", placed)
-            cache = remesh_state(init_cache(cfg, B, MAX_SEQ, torch.float32,
-                                            "cpu"), cache_axes(cfg), mesh)
-            record(f"{key}/cache", cache)
-            with torch.inference_mode():
-                res[f"{key}/logits"] = _whole(forward(
-                    cfg, placed, {"tokens": tokens})[0])
-                toks, cache = greedy_generate(cfg, placed, cache, prompt,
-                                              N_GEN)
-                res[f"{key}/greedy"] = _whole(toks)
-                res[f"{key}/cache_pos"] = _whole(cache["units"]["0"]["pos"])
-                with use_mesh(one):
-                    res[f"{key}/logits1"] = _whole(forward(
-                        cfg, plain, {"tokens": tokens})[0])
-                    res[f"{key}/greedy1"] = _whole(greedy_generate(
-                        cfg, plain, init_cache(cfg, B, MAX_SEQ,
-                                               torch.float32, "cpu"),
-                        prompt, N_GEN)[0])
+            if key not in MTP_ARCHS:
+                _forward_checks(key, cfg, placed, plain, mesh, one, tokens,
+                                prompt, record, res)
             for name in OPTS:
+                if key not in ARCHS and (key, name, _name_of(shape)) \
+                        not in NEW_STEPS:
+                    continue
                 opt = pick_optimizer(cfg, OptConfig(**_opt_cfg(name)))
                 state = remesh_state(opt.init(plain), opt.state_axes(axes),
                                      mesh)
@@ -337,22 +365,27 @@ def _rank_checks(rank, shape, in_path, out_dir):
                 for tag, (p, s, metrics) in (("", got), ("1", want)):
                     pre = f"{key}/{name}{tag}"
                     res[f"{pre}/loss"] = float(metrics["loss"])
+                    if "mtp_loss" in metrics:
+                        res[f"{pre}/mtp_loss"] = float(metrics["mtp_loss"])
                     for i, leaf in enumerate(tree_leaves(p)
                                              + tree_leaves(s)):
                         res[f"{pre}/{i}"] = _whole(leaf)
                     if not tag:
                         assert all(is_placed(x) for x in tree_leaves(p)
                                    + tree_leaves(s))
-            if key == "smollm":
+            if key in ("smollm", "mamba"):
                 # remat recomputes each unit (its placed weights gathered
-                # again) in the backward pass: the same gradients
+                # again; Mamba's chunked SSD) in the backward pass: the
+                # same gradients
                 on = cfg.scaled(remat=True)
                 l0, _, g0 = loss_and_grads(cfg, placed, batch)
                 l1, _, g1 = loss_and_grads(on, placed, batch)
-                res["remat/loss"] = np.asarray([float(l0), float(l1)])
-                res["remat/grad_err"] = max(
+                pre = "remat" if key == "smollm" else f"remat/{key}"
+                res[f"{pre}/loss"] = np.asarray([float(l0), float(l1)])
+                res[f"{pre}/grad_err"] = max(
                     float(np.abs(_whole(a) - _whole(b)).max())
                     for a, b in zip(tree_leaves(g0), tree_leaves(g1)))
+            if key == "smollm":
                 # int8 error feedback on placed gradients: each leaf's
                 # scale from its whole max, as the reference's
                 ef = ErrorFeedbackInt8()
@@ -414,6 +447,45 @@ def _rank_checks(rank, shape, in_path, out_dir):
             assert is_placed(leaf)
             res[f"train/p/{i}"] = _whole(leaf)
     return res, mine
+
+
+def _name_of(shape):
+    return next(m for m, s in MESHES.items() if s == tuple(shape))
+
+
+def _forward_checks(key, cfg, placed, plain, mesh, one, tokens, prompt,
+                    record, res):
+    """Logits of the forward and greedy tokens, placed (params and cache)
+    and one-process; the placed cache's position after them, and for a
+    Mamba config every cache leaf of both."""
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.models import cache_axes, cache_position, forward
+    from repro_torch.models import init_cache
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.serve.engine import greedy_generate
+    from repro_torch.train.elastic import remesh_state
+
+    cache = remesh_state(init_cache(cfg, B, MAX_SEQ, torch.float32, "cpu"),
+                         cache_axes(cfg), mesh)
+    record(f"{key}/cache", cache)
+    with torch.inference_mode():
+        res[f"{key}/logits"] = _whole(forward(
+            cfg, placed, {"tokens": tokens})[0])
+        toks, cache = greedy_generate(cfg, placed, cache, prompt, N_GEN)
+        res[f"{key}/greedy"] = _whole(toks)
+        res[f"{key}/cache_pos"] = _whole(cache_position(cache))
+        with use_mesh(one):
+            res[f"{key}/logits1"] = _whole(forward(
+                cfg, plain, {"tokens": tokens})[0])
+            toks1, cache1 = greedy_generate(
+                cfg, plain, init_cache(cfg, B, MAX_SEQ, torch.float32,
+                                       "cpu"), prompt, N_GEN)
+            res[f"{key}/greedy1"] = _whole(toks1)
+    if key in SSM_ARCHS:
+        for i, (a, b) in enumerate(zip(tree_leaves(cache),
+                                       tree_leaves(cache1))):
+            res[f"{key}/cache/{i}"] = _whole(a)
+            res[f"{key}/cache1/{i}"] = _whole(b)
 
 
 def _moe_checks(data, mesh, one, res):
@@ -601,7 +673,7 @@ def _as_port_tree(tree, leaf_tuples=False):
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("key", ["smollm", "ds"])
+@pytest.mark.parametrize("key", ["smollm", "ds", "mamba", "jamba"])
 def test_param_and_cache_placements_match_named_sharding(runs, mesh, key):
     """Every param and cache leaf on every rank: DTensor placements and
     local shape as the reference's ``named_sharding`` spec and
@@ -641,11 +713,15 @@ def test_seq_kv_layout_is_mesh_dim_major(runs):
 # the placed model against the one-process port and the reference
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("key", list(ARCHS))
+@pytest.mark.parametrize("key", list(ARCHS) + list(SSM_ARCHS))
 def test_forward_and_greedy(runs, mesh, key):
     """Logits of a 4 x 16 batch within 1e-4 of the one-process port and
     of the reference on the same mesh; a prefill of 8 tokens and 8
-    greedy tokens, exact against both; the cache's position after it."""
+    greedy tokens, exact against both; the cache's position after it (a
+    pure-SSM cache has none: it reads 0).  Mamba's prefill of whole
+    chunks takes the chunked SSD into the placed cache, each decode step
+    the recurrence; every leaf of the placed cache after them within
+    1e-4 of its max against the one-process port's."""
     port, _ = runs[mesh]
     ref = runs["ref"]
     _close(port[f"{key}/logits"], port[f"{key}/logits1"], LOGITS,
@@ -655,7 +731,14 @@ def test_forward_and_greedy(runs, mesh, key):
     assert np.array_equal(port[f"{key}/greedy"], port[f"{key}/greedy1"])
     assert np.array_equal(port[f"{key}/greedy"], ref[f"{mesh}/{key}/greedy"])
     assert port[f"{key}/greedy"].shape == (B, N_GEN)
-    assert np.all(port[f"{key}/cache_pos"] == PROMPT + N_GEN)
+    pos = 0 if key == "mamba" else PROMPT + N_GEN
+    assert np.all(port[f"{key}/cache_pos"] == pos)
+    leaves = [k for k in port if k.startswith(f"{key}/cache/")]
+    assert len(leaves) == {"mamba": 4, "jamba": 3 + 4}.get(key, 0)
+    for name in leaves:
+        want = port[name.replace("/cache/", "/cache1/")]
+        scale = max(float(np.abs(want).max()), 1e-30)
+        assert float(np.abs(port[name] - want).max()) <= 1e-4 * scale, name
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -683,6 +766,48 @@ def test_train_step(runs, mesh, opt, key):
             scale = max(float(np.abs(want).max()), 1e-30)
             err = float(np.abs(got.astype(np.float64) - want).max())
             assert err <= 1e-3 * scale, (tag, i, err, scale)
+
+
+@pytest.mark.parametrize("key,opt,mesh", NEW_STEPS)
+def test_train_step_mamba_jamba_and_mtp(runs, key, opt, mesh):
+    """One step of reduced mamba2-370m, Jamba and DeepSeek-V3 (its loss
+    with the MTP head's), AdamW on both meshes and Adafactor on one: the
+    loss (and V3's ``mtp_loss``) within 1e-4 and every new param and
+    state leaf within 1e-3 of its max |value| against the one-process
+    port, and for AdamW against the reference's step (on the one mesh
+    its reference process steps on; Adafactor's factored moments over
+    split dims are held against the reference by ``test_train_step``)."""
+    port, _ = runs[mesh]
+    ref = runs["ref"]
+    pre = f"{key}/{opt}"
+    n = len([k for k in port if k.startswith(pre + "/")
+             and k[len(pre) + 1:].isdigit()])
+    assert n > 0
+    metrics = ("loss", "mtp_loss") if key in MTP_ARCHS else ("loss",)
+    sides = [(port, pre + "1")]
+    if opt == "adamw":
+        sides.append((ref, f"{_ref_step_mesh(key)}/{pre}"))
+    for other, tag in sides:
+        for m in metrics:
+            want = float(other[f"{tag}/{m}"])
+            assert abs(float(port[f"{pre}/{m}"]) - want) <= \
+                1e-4 * max(1.0, abs(want)), (tag, m)
+        for i in range(n):
+            got, want = port[f"{pre}/{i}"], other[f"{tag}/{i}"]
+            assert got.shape == want.shape, (tag, i)
+            scale = max(float(np.abs(want).max()), 1e-30)
+            err = float(np.abs(got.astype(np.float64) - want).max())
+            assert err <= 1e-3 * scale, (tag, i, err, scale)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_mamba_remat_on_a_mesh(runs, mesh):
+    """Mamba2 under remat on placed params: each unit's chunked SSD and
+    its gathered weights recomputed in the backward pass give the same
+    loss and gradients."""
+    port, _ = runs[mesh]
+    lo, hi = port["remat/mamba/loss"]
+    assert lo == hi and float(port["remat/mamba/grad_err"]) == 0.0
 
 
 def test_remat_on_a_mesh(runs):

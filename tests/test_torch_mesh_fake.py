@@ -14,8 +14,12 @@ of a world of 8, collectives that move nothing) under a (2, 2)
   MoE psum term for the same layout (float32 payload).  ``python
   tests/test_torch_mesh_fake.py`` prints every counted collective beside
   the model's terms.
-- ``named_sharding``, ``constrain`` (a failing redistribute raises) and
-  the paths left to ROADMAP.md item 4c, which raise naming it.
+- ``named_sharding`` and ``constrain`` (a failing redistribute raises).
+- The placed Mamba2 forward, Jamba's hybrid unit and DeepSeek-V3's loss
+  with its MTP head run and return outputs of the placed shapes (the
+  values are the four-rank gloo worlds' to check:
+  ``tests/test_torch_mesh.py``); ``cache_position`` of a placed pure-SSM
+  cache reads 0, of a placed Jamba cache its attention layer's counter.
 
 The group is torn down after the module, so no other test sees it.
 """
@@ -36,12 +40,12 @@ from torch.distributed.tensor import (  # noqa: E402
 
 from repro_torch import configs as TC  # noqa: E402
 from repro_torch.distributed.sharding import (  # noqa: E402
-    MULTI_GPU, NamedSharding, constrain, named_sharding, use_mesh,
+    NamedSharding, constrain, is_placed, named_sharding, use_mesh,
 )
 from repro_torch.launch.mesh import ProcessMesh  # noqa: E402
 from repro_torch.models import (  # noqa: E402
-    abstract_params, cache_axes, forward, init_cache, loss_fn,
-    materialize_params,
+    abstract_params, cache_axes, cache_position, forward, init_cache,
+    loss_fn, materialize_params,
 )
 from repro_torch.models import moe as TMOE  # noqa: E402
 from repro_torch.pytree import tree_leaves_with_path, tree_map  # noqa: E402
@@ -187,23 +191,52 @@ def test_constrain_redistributes_on_a_process_mesh(fake_world):
     ("jamba-1.5-large-398b", "forward"),
     ("deepseek-v3-671b", "loss"),
 ])
-def test_paths_left_to_item_4c_raise(fake_world, arch, what):
-    """Mamba2 (and so Jamba's hybrid unit) and DeepSeek-V3's MTP loss on
-    placed params raise ``NotImplementedError`` naming ROADMAP.md Queue 1
-    item 4c."""
+def test_placed_mamba_jamba_and_mtp_run(fake_world, arch, what):
+    """Mamba2, Jamba's hybrid unit and DeepSeek-V3's MTP loss on placed
+    params: the forward's logits and ``hidden`` come back placed, their
+    batch over ``data`` (a rank's rows) and their global shapes the
+    batch's; a prefill and a decode step into a placed cache write it
+    back placed as it came, its position read off it; the loss and each
+    metric (``mtp_loss`` too) a finite scalar on every rank."""
     mesh = fake_world["2x2"]
     cfg = TC.get_reduced_config(arch)
     params, axes = materialize_params(cfg, torch.Generator().manual_seed(0),
                                       "cpu")
     placed = remesh_state(params, axes, mesh)
-    toks = torch.zeros((4, 8), dtype=torch.int32)
-    with use_mesh(mesh), pytest.raises(NotImplementedError,
-                                       match="Queue 1 item 4c"):
-        if what == "forward":
-            forward(cfg, placed, {"tokens": toks})
+    b, s = 4, 8
+    toks = torch.zeros((b, s), dtype=torch.int32)
+    with use_mesh(mesh):
+        if what == "loss":
+            loss, metrics = loss_fn(cfg, placed, {"tokens": toks,
+                                                  "labels": toks})
+            assert set(metrics) == {"lm_loss", "aux_loss", "mtp_loss"}
+            for v in [loss, *metrics.values()]:
+                assert not is_placed(v) and v.shape == ()
+                assert bool(torch.isfinite(v))
+            return
+        logits, extras, _ = forward(cfg, placed, {"tokens": toks})
+        for x, width in ((logits, cfg.vocab_size),
+                         (extras["hidden"], cfg.d_model)):
+            assert is_placed(x) and tuple(x.shape) == (b, s, width)
+            assert tuple(x.to_local().shape) == (b // 2, s, width)
+        cache = remesh_state(init_cache(cfg, b, CACHE_SEQ, torch.float32,
+                                        "cpu"), cache_axes(cfg), mesh)
+        before = [(path, leaf.placements, tuple(leaf.to_local().shape))
+                  for path, leaf in tree_leaves_with_path(cache)]
+        with torch.inference_mode():
+            for n in (s, 1):
+                logits, _, cache = forward(cfg, placed, {"tokens": toks[:, :n]},
+                                           cache=cache)
+                assert tuple(logits.to_local().shape) == (
+                    b // 2, n, cfg.vocab_size)
+        assert [(path, leaf.placements, tuple(leaf.to_local().shape))
+                for path, leaf in tree_leaves_with_path(cache)] == before
+        pos = cache_position(cache)
+        if arch == "mamba2-370m":
+            # no position counter: a pure-SSM cache reads 0
+            assert int(pos) == 0
         else:
-            loss_fn(cfg, placed, {"tokens": toks, "labels": toks})
-    assert "item 4c" in MULTI_GPU
+            assert int(pos.full_tensor() if is_placed(pos) else pos) == s + 1
 
 
 # ----------------------------------------------------------------------
